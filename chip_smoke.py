@@ -1,31 +1,55 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact-search path once on one NVIDIA GPU.
+"""Drive the PyTorch port's search paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
 Phases, in order; any failure exits nonzero:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off, build the hand-written kernel from ``velesdb_tpu_torch/csrc``.
-2. Kernel vs its plain torch version, bit for bit (``torch.equal``): the slice
-   shape (B_pad 256, N 1,048,576, D_pad 128, chunk 8192), the same N at B 1
-   and B 16 (the kernel's query-tile builds 8 and 16), and ragged shapes
-   (B 13 -> 16, D 100 -> 128, N 131,072, 15% masked rows), for the shadows of
-   all three metrics.
-3. Slice, SIFT-1M class: 1,000,000 x 128 euclidean FULL, clustered data
+   off, build the five hand-written kernels from ``velesdb_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once) and print their ptxas registers
+   and spills.
+2. Kernels vs their plain torch versions, bit for bit (``torch.equal``):
+   ``sq8pd_bucket`` (#1) at the slice shape (B_pad 256, N 1,048,576, D_pad
+   128, chunk 8192), at B 1 and B 16, and at ragged shapes (B 13 -> 16,
+   D 100 -> 128, N 131,072, 15% invalid + 15% masked, three metrics); the
+   four slice-2 kernels at the same ragged shapes here, and at their slice
+   shapes and B 1 / B 16 in the phases below, on their collections' state.
+3. Slice 1, SIFT-1M class: 1,000,000 x 128 euclidean FULL, clustered data
    (seed 42, 10K held-out queries), payloads ``{"cat": i % 8}``, through
    ``Database`` -> ``Collection.search_batch`` / ``search`` / a filtered
-   search / close + reopen. The launch counters are zeroed just before this
-   main path and must show the kernel ran on every search; every launch of
-   that run is then held against the plain version on its own arguments,
-   bit for bit. Recall@10 >= 0.99 and distances to rtol 1e-4 against a
-   float64 oracle on the unpadded corpus.
-4. Slice, 100K x 768D cosine (streamed scan): recall@10 >= 0.999.
-5. Timing with CUDA events: QPS at b=256 and b=16 for both configs (median
-   of 30 calls after warm-up), kernel vs plain time and the kernel's share
-   of the derived dp4a issue ceiling, peak device memory; then,
-   after every timing, the device's busy time per call and the top kernels
-   from torch.profiler.
+   search / close + reopen. The launch counters are zeroed just before each
+   main path and must show its kernel ran on every search; every launch of
+   that run is then held against the plain version on its own arguments, bit
+   for bit. Recall@10 >= 0.99 against a float64 oracle on the unpadded corpus.
+4. Slice 1, 100K x 768D cosine (streamed scan): recall@10 >= 0.999.
+5. Slice 2, ``sift1m-sq8``: the SIFT data as SQ8 (``sq8-int8``, kernel #7),
+   auto-rerank behind the storage recall gate: recall@10 >= 0.95 after the
+   rerank, the raw coarse pass's recall printed, no filtered-out id, same
+   ids after close + reopen.
+6. Slice 2, ``glove100-binary``: 1,183,514 x 100 cosine BINARY
+   (ann-benchmarks glove-100-angular scale), padded to 1,310,720 rows, served
+   by ``hamming-mxu`` (#5); reopened with ``VELESDB_HAMMING_MXU_MAX_BYTES=0``
+   it is served by ``hamming-bucket`` (#4). For both, the raw coarse pass is
+   held against an exact Hamming oracle on the card: returned distances
+   exact, the distance profile equal on >= 0.99 of positions (the bucket
+   collision envelope). Recall after the rerank is printed, with no floor:
+   sign sketches of this synthetic data are weak, a property of the method.
+7. Slice 2, ``100k-binary``: 100,000 x 100 cosine BINARY, below
+   ``BUCKET_MIN_ROWS``, served by ``hamming-topk`` (#9): the raw pass equals
+   the exact oracle's ids and distances.
+8. Slice 2, ``offset-full-assist``: 262,144 x 128 euclidean FULL, the
+   clustered data + 100 per coordinate. ``sq8pd_build`` refuses it
+   (penalty / step over its int32 budget), so ``int8-assist`` (#7) serves.
+   This path exists for corpora with large norms and needs no full scale.
+   Recall@10 >= 0.99.
+Each configuration ends with its timing (CUDA events): QPS at b=256 and
+b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
+device path alone, the host share, then the profiler last: the device's
+busy time per call and its top kernels. Each kernel is timed at its slice
+shape against its plain version and its bound: the larger of its bytes over
+3.35 TB/s and its operations over their peak (int8 at 1,979 TOPS, fp32 at
+67 TFLOP/s, popcount at 16 per SM per clock), for this run's inputs.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -49,9 +73,19 @@ TIMED_CALLS = 30
 DEVICE = "cuda"
 SIFT_N, SIFT_D, HELD_OUT = 1_000_000, 128, 10_000  # bench.py:9, :561
 C768_N, C768_D = 100_000, 768  # bench.py:7
+GLOVE_N, GLOVE_D = 1_183_514, 100  # glove-100-angular; benchmarks/exp_hamming_mxu.py
+B100K_N = 100_000
+OFFSET_N = 262_144
 RAGGED_N, RAGGED_B, RAGGED_D = 131_072, 13, 100
 CHUNK = 8192
+KERNELS = ("sq8pd_bucket", "sq8i_bucket", "hamming_mxu_bucket", "hamming_bucket",
+           "hamming_topk")
+# Published H100 SXM peaks (NVIDIA data sheet, dense rates, 700 W).
+PEAK_BYTES = 3.35e12
+PEAK_INT8 = 1.979e15
+PEAK_F32 = 67e12
 CARD = ""  # "name, power limit" from nvidia-smi, appended to every number
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -66,6 +100,10 @@ def check(cond: bool, msg: str) -> None:
 
 def say(msg: str) -> None:
     print(f"{msg}  [{CARD}]", flush=True)
+
+
+def phase(name: str) -> None:
+    print(f"-- {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def make_clustered(rng, n, d, n_clusters=64):
@@ -105,7 +143,8 @@ def oracle_topk(torch, corpus64, queries, metric, k, mask=None, chunk=131072):
 
 def score_results(results, o_vals, o_ids, rtol):
     """recall@k of hydrated results against the oracle, and the worst
-    relative score error on shared ids."""
+    relative score error on shared ids (checked against ``rtol`` unless it
+    is None)."""
     hits, worst = 0, 0.0
     for row, ov, oi in zip(results, o_vals, o_ids):
         truth = {int(i): float(v) for i, v in zip(oi, ov)}
@@ -115,7 +154,8 @@ def score_results(results, o_vals, o_ids, rtol):
                 ref = truth[hit.id]
                 worst = max(worst, abs(hit.score - ref) / max(abs(ref), 1e-12))
     recall = hits / (len(results) * o_ids.shape[1])
-    check(worst <= rtol, f"score error {worst:.3e} above rtol {rtol}")
+    if rtol is not None:
+        check(worst <= rtol, f"score error {worst:.3e} above rtol {rtol}")
     return recall
 
 
@@ -194,6 +234,100 @@ def report_busy(torch, label, search, batches, med, calls=8):
         say(f"    {t:.4f} ms/call  {name[:100]}")
 
 
+def max_err(got, ref) -> float:
+    """Largest |difference| of two equal-shaped outputs (0 where equal,
+    infinities included)."""
+    same = got == ref
+    if bool(same.all()):
+        return 0.0
+    return float((got.double() - ref.double()).abs()[~same].max())
+
+
+def measure(torch, name, search, device_label, device_fn, queries):
+    """QPS at b=256 and b=16 of ``search`` and of the device path alone, the
+    host share, then the device's busy time from the profiler."""
+    out = {}
+    label = f"{name} search_batch"
+    for lbl, fn in ((label, search), (device_label, device_fn)):
+        for b in (256, 16):
+            out[lbl, b] = (fn, *report_qps(torch, lbl, fn, queries, b))
+    for b in (256, 16):
+        host = 1.0 - out[device_label, b][1] / out[label, b][1]
+        say(f"{label} b={b}: host share {host:.3f} (1 - device path / search_batch)")
+    for b in (256, 16):
+        fn, med, batches = out[label, b]
+        report_busy(torch, f"{label} b={b}", fn, batches, med)
+
+
+def hold(label, got, ref) -> float:
+    """Check a kernel's outputs equal its plain version's, bit for bit."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = max(max_err(g, r) for g, r in zip(got, ref))
+    for g, r in zip(got, ref):
+        check(g.shape == r.shape, f"{label}: shape {tuple(g.shape)} != {tuple(r.shape)}")
+        check(bool((g == r).all()) and g.dtype == r.dtype,
+              f"{label}: kernel != plain version (max |err| {err})")
+    print(f"kernel == plain, bit for bit: {label}", flush=True)
+    return err
+
+
+class MainPath:
+    """One main path's launch record: every launch counter is zeroed on
+    entry, the kernel wrapper named by ``(module, attr)`` is wrapped to keep
+    each launch's arguments and outputs, and :meth:`launched` checks that a
+    step launched the kernel. On exit the wrapper is restored."""
+
+    def __init__(self, counters, module, attr, counter):
+        self.counters, self.module, self.attr, self.counter = counters, module, attr, counter
+        self.calls = []
+        self.seen = 0
+
+    def __enter__(self):
+        self.kernel = getattr(self.module, self.attr)
+
+        def recorded(*args, **kwargs):
+            out = self.kernel(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+
+        setattr(self.module, self.attr, recorded)
+        for launches in self.counters:
+            for key in launches:
+                launches[key] = 0
+        return self
+
+    def launches(self) -> int:
+        return next(c[self.counter] for c in self.counters if self.counter in c)
+
+    def launched(self, what: str) -> None:
+        now = self.launches()
+        check(now > self.seen, f"{what} did not launch the {self.counter} kernel")
+        self.seen = now
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.kernel)
+
+    def hold_all(self, plain, describe) -> float:
+        """Every recorded launch against the plain version on its own
+        arguments; returns the largest |err|."""
+        check(len(self.calls) == self.launches(),
+              f"{len(self.calls)} recorded calls for {self.launches()} launches")
+        err = 0.0
+        for args, kwargs, out in self.calls:
+            err = max(err, hold(f"main-path launch, {describe(*args, **kwargs)}", out,
+                                plain(*args, **kwargs)))
+        self.calls.clear()
+        return err
+
+
+def bound(ops_ms: float, bytes_: float) -> tuple[float, str]:
+    """The least time for the work: the larger of the bytes over the memory
+    rate and the operations over their peak rates (``ops_ms``)."""
+    bytes_ms = bytes_ / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def main() -> None:
     global CARD
     here = os.path.dirname(os.path.abspath(__file__))
@@ -205,7 +339,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
 
-    # -- 1. device ---------------------------------------------------------
+    # -- 1. device -----------------------------------------------------------
+    phase("1. device and build")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -218,22 +353,59 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
 
     from velesdb_tpu_torch import Database
-    from velesdb_tpu_torch.index.brute import pad_rows
+    import velesdb_tpu_torch.index.brute as brute_mod
+    from velesdb_tpu_torch.index.brute import _affine_fold, pad_rows
     from velesdb_tpu_torch.ops import _cuda, bucket_kernel as bk
+    from velesdb_tpu_torch.ops import pallas_kernels as pk
+    from velesdb_tpu_torch.ops.distance import DistanceMetric
+    from velesdb_tpu_torch.ops.quantization import binary_quantize, sq8_quantize
 
+    counters = (bk.LAUNCHES, pk.LAUNCHES)
     t0 = time.perf_counter()
-    _cuda.library("sq8pd_bucket")
-    say(
-        f"build sq8pd_bucket: nvcc {_cuda.BUILD_SECONDS['sq8pd_bucket']:.2f} s, "
-        f"load {time.perf_counter() - t0:.2f} s"
-    )
+    _cuda.build_all(KERNELS)
+    say(f"build {len(KERNELS)} kernels in parallel: {time.perf_counter() - t0:.2f} s wall "
+        + ", ".join(f"{n} nvcc {_cuda.BUILD_SECONDS[n]:.2f} s" for n in KERNELS))
+    for name in KERNELS:
+        lines = [ln.strip() for ln in _cuda.BUILD_LOG.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"ptxas {name}: " + " | ".join(lines), flush=True)
+
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # Derived issue ceilings, not profiled: 64 dp4a and 16 popc per SM per
+    # clock (compute capability 9.0 arithmetic throughput) at the max SM clock.
+    dp4a_rate = 64 * n_sm * sm_mhz * 1e6
+    popc_rate = 16 * n_sm * sm_mhz * 1e6
+    record = {}  # kernel name -> JSON row
+
+    def kernel_row(name, source, replaces, ms, plain_ms, ops_ms, bytes_, err, issue=None):
+        b_ms, b_by = bound(ops_ms, bytes_)
+        record[name] = {
+            "name": name, "route": "cuda", "source": f"velesdb_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        }
+        extra = ""
+        if issue is not None:
+            what, count, rate = issue
+            extra = (f"; {what} issue {count / (ms * 1e-3) / 1e12:.4f} T/s = "
+                     f"{count / (ms * 1e-3) / rate:.4f} of the derived ceiling "
+                     f"{rate / 1e12:.4f} T/s")
+        say(f"{name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {b_ms / ms:.4f} of it){extra}; no single PyTorch call computes "
+            f"this function, so library_ms is null")
 
     rng = np.random.default_rng(42)
     sift_all = make_clustered(rng, SIFT_N + HELD_OUT, SIFT_D)
     sift, sift_q = sift_all[:SIFT_N], sift_all[SIFT_N:]
     sift_pad = pad_rows(SIFT_N)
 
-    # -- 2. kernel vs plain version, bit for bit ------------------------------
+    # -- 2. kernels vs plain versions, bit for bit ---------------------------
+    phase("2. kernels vs plain versions")
+
     def shadow(x, metric, valid):
         xt = torch.from_numpy(x).to(dev)
         if metric == "cosine":
@@ -252,12 +424,8 @@ def main() -> None:
         )
         gm = bk.sq8pd_bucket_gm(qi, rows_pd, ptile, chunk)
         torch.cuda.synchronize()
-        ref = bk.sq8pd_bucket_gm_ref(qi, rows_pd, ptile, chunk)
-        torch.cuda.synchronize()
         check(gm.shape == (b_pad, n // chunk * 128), f"{label}: gm shape {tuple(gm.shape)}")
-        err = int((gm.long() - ref.long()).abs().max())
-        check(torch.equal(gm, ref), f"{label}: kernel != plain version (max |err| {err})")
-        print(f"kernel == plain, bit for bit: {label}", flush=True)
+        err = hold(label, gm, bk.sq8pd_bucket_gm_ref(qi, rows_pd, ptile, chunk))
         return qi, rows_pd, ptile, err
 
     slice_shape = f"B_pad 256, N {sift_pad}, D_pad 128, chunk {CHUNK}"
@@ -265,63 +433,94 @@ def main() -> None:
                      np.arange(sift_pad) < SIFT_N)
     # the kernel has one build per query tile (32, 16, 8): the batch sizes of
     # the main path (256, 16, 1) reach all three at the slice's N
-    max_err = 0
+    errs = {name: 0.0 for name in KERNELS}
     for b in (1, 16):
         *_, err = gm_case(
-            f"B {b}, N {sift_pad}, D_pad 128, chunk {CHUNK}, euclidean",
+            f"sq8pd_bucket B {b}, N {sift_pad}, D_pad 128, chunk {CHUNK}, euclidean",
             sift_q[:b], sift_pd, sift_pad, CHUNK,
         )
-        max_err = max(max_err, err)
+        errs["sq8pd_bucket"] = max(errs["sq8pd_bucket"], err)
     qi, rows_pd, ptile, err = gm_case(
-        f"{slice_shape}, euclidean", sift_q[:256], sift_pd, sift_pad, CHUNK,
+        f"sq8pd_bucket {slice_shape}, euclidean", sift_q[:256], sift_pd, sift_pad, CHUNK,
     )
-    max_err = max(max_err, err)
+    errs["sq8pd_bucket"] = max(errs["sq8pd_bucket"], err)
     ragged = make_clustered(np.random.default_rng(7), RAGGED_N + RAGGED_B, RAGGED_D)
     r_valid = np.random.default_rng(8).random(RAGGED_N) >= 0.15
     r_mask = torch.from_numpy(np.random.default_rng(9).random(RAGGED_N) >= 0.15).to(dev)
+    r_keep = torch.from_numpy(r_valid).to(dev) & r_mask
     for metric in ("euclidean", "cosine", "dot_product"):
         pd = shadow(ragged[:RAGGED_N], metric, r_valid)
         _, _, _, err = gm_case(
-            f"B {RAGGED_B}, N {RAGGED_N}, D {RAGGED_D}, chunk {CHUNK}, "
+            f"sq8pd_bucket B {RAGGED_B}, N {RAGGED_N}, D {RAGGED_D}, chunk {CHUNK}, "
             f"15% invalid + 15% masked, {metric}",
             ragged[RAGGED_N:], pd, RAGGED_N, CHUNK, mask=r_mask,
         )
-        max_err = max(max_err, err)
+        errs["sq8pd_bucket"] = max(errs["sq8pd_bucket"], err)
 
     kernel_ms = time_kernel(torch, lambda: bk.sq8pd_bucket_gm(qi, rows_pd, ptile, CHUNK))
     plain_ms = time_kernel(torch, lambda: bk.sq8pd_bucket_gm_ref(qi, rows_pd, ptile, CHUNK))
-    say(
-        f"sq8pd_bucket at {slice_shape}: "
-        f"kernel {kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms"
-    )
-    # Derived, not counted by a profiler: the dp4a issue ceiling, taking 64
-    # dp4a per SM per clock (the integer multiply-add rate of compute
-    # capability 9.0) at the card's maximum SM clock.
-    sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.split()[0])
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    dp4a = qi.shape[0] * sift_pad * rows_pd.shape[1] / 4
-    rate = dp4a / (kernel_ms * 1e-3)
-    ceiling = 64 * n_sm * sm_mhz * 1e6
-    say(
-        f"sq8pd_bucket dp4a rate {rate / 1e12:.4f} T/s = {rate / ceiling:.4f} of the "
-        f"derived issue ceiling {ceiling / 1e12:.4f} T/s (64/SM/clock x {n_sm} SMs "
-        f"x {sm_mhz:.0f} MHz max SM clock)"
+    b_pad, d_pad = qi.shape
+    kernel_row(
+        "sq8pd_bucket", "sq8pd_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:695",
+        kernel_ms, plain_ms, 2 * b_pad * sift_pad * d_pad / PEAK_INT8 * 1e3,
+        qi.numel() + rows_pd.numel() + 4 * ptile.numel() + 4 * b_pad * sift_pad // CHUNK * 128,
+        errs["sq8pd_bucket"], ("dp4a", b_pad * sift_pad * d_pad / 4, dp4a_rate),
     )
     del sift_pd, qi, rows_pd, ptile
     torch.cuda.empty_cache()
 
+    # the slice-2 kernels at the ragged shapes: 15% invalid + 15% masked rows
+    rx = torch.from_numpy(ragged).to(dev)
+    rq = rx[RAGGED_N:]
+    for metric in ("euclidean", "cosine", "dot_product"):
+        m = DistanceMetric.parse(metric)
+        sq = sq8_quantize(rx[:RAGGED_N])
+        scale, minv, pen, _ = _affine_fold(sq, r_keep, m)
+        rows8 = bk.sq8_int8_rows(sq.codes)
+        qi8, _, sqi, invqs, _ = bk._sq8i_quantize_queries(rq, m, rows8.shape[1])
+        args = (qi8, rows8, scale, 128.0 * scale + minv, pen, sqi, invqs, CHUNK)
+        out = bk.sq8i_bucket_gm(*args)
+        torch.cuda.synchronize()
+        errs["sq8i_bucket"] = max(errs["sq8i_bucket"], hold(
+            f"sq8i_bucket B {RAGGED_B}, N {RAGGED_N}, D {RAGGED_D}, chunk {CHUNK}, "
+            f"15% invalid + 15% masked, {metric}", out, bk.sq8i_bucket_ref(*args)))
+    bits = bk.hamming_bits_rows(rx[:RAGGED_N], RAGGED_D)
+    csum = bits.to(torch.int32).sum(dim=1)
+    aux = torch.where(r_keep, csum, csum + bk._HAM_BIG).to(torch.int32)
+    qbits = torch.nn.functional.pad((rq >= 0).to(torch.int8), (0, bits.shape[1] - RAGGED_D))
+    qi2 = torch.nn.functional.pad(2 * qbits, (0, 0, 0, 3))
+    out = bk.hamming_mxu_gm(qi2, bits, aux, CHUNK)
+    torch.cuda.synchronize()
+    errs["hamming_mxu_bucket"] = hold(
+        f"hamming_mxu_bucket B {RAGGED_B}, N {RAGGED_N}, D {RAGGED_D}, chunk {CHUNK}, "
+        f"15% invalid + 15% masked", out, bk.hamming_mxu_ref(qi2, bits, aux, CHUNK))
+    packed_r = binary_quantize(rx[:RAGGED_N])
+    qp = torch.nn.functional.pad(binary_quantize(rq), (0, 0, 0, 3))
+    pen0 = torch.where(r_keep, 0.0, torch.inf)
+    out = bk.hamming_bucket_gm(qp, packed_r, pen0, bk.HAMMING_CHUNK)
+    torch.cuda.synchronize()
+    errs["hamming_bucket"] = hold(
+        f"hamming_bucket B {RAGGED_B}, N {RAGGED_N}, W 4, chunk {bk.HAMMING_CHUNK}, "
+        f"15% invalid + 15% masked", out,
+        bk.hamming_bucket_ref(qp, packed_r, pen0, bk.HAMMING_CHUNK))
+    out = pk.hamming_topk(binary_quantize(rq), packed_r, r_keep, K)
+    torch.cuda.synchronize()
+    errs["hamming_topk"] = hold(
+        f"hamming_topk B {RAGGED_B}, N {RAGGED_N}, W 4, k {K}, 15% invalid + 15% masked",
+        out, pk.hamming_topk_ref(binary_quantize(rq), packed_r, r_keep, K))
+    del rx, rq, bits, aux, qbits, qi2, packed_r, qp, pen0, out, sq, rows8
+    torch.cuda.empty_cache()
+
     tmp = tempfile.mkdtemp(prefix="velesdb_chip_smoke_")
+    launches = {}
     try:
-        # -- 3. slice: SIFT-1M class through Database / Collection ------------
+        # -- 3. slice 1: SIFT-1M class through Database / Collection --------
+        phase("3. sift1m FULL")
         t0 = time.perf_counter()
         db = Database.open(tmp, device=DEVICE)
         col = db.create_collection("sift1m", SIFT_D, metric="euclidean")
-        col.upsert_bulk(
-            range(sift.shape[0]), sift, [{"cat": i % 8} for i in range(sift.shape[0])]
-        )
+        payloads = [{"cat": i % 8} for i in range(SIFT_N)]
+        col.upsert_bulk(range(SIFT_N), sift, payloads)
         say(f"sift1m ingest with payloads: {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         col.refresh_device()
@@ -330,57 +529,28 @@ def main() -> None:
         check(col.info()["serve_engine"] == "int8-assist-pd",
               f"serve_engine {col.info()['serve_engine']!r}, expected 'int8-assist-pd'")
 
-        # the main path: launch counters from zero, and every launch's
-        # arguments and result kept to be held against the plain version
-        main_calls = []
-        kernel = bk.sq8pd_bucket_gm
-
-        def recorded(qi, rows_pd, ptile, chunk):
-            gm = kernel(qi, rows_pd, ptile, chunk)
-            main_calls.append((qi, rows_pd, ptile, chunk, gm))
-            return gm
-
-        bk.sq8pd_bucket_gm = recorded
-        for key in bk.LAUNCHES:
-            bk.LAUNCHES[key] = 0
-        seen = 0
-
-        def launched(what):
-            nonlocal seen
-            now = bk.LAUNCHES["sq8pd_bucket_gm"]
-            check(now > seen, f"{what} did not launch the sq8pd_bucket kernel")
-            seen = now
-
-        res256 = col.search_batch(sift_q[:256], k=K)
-        launched("search_batch b=256")
-        res16 = col.search_batch(sift_q[256:272], k=K)
-        launched("search_batch b=16")
-        one = col.search(sift_q[300], k=K)
-        launched("search")
-        filt = {"type": "eq", "field": "cat", "value": 3}
-        resf = col.search_batch(sift_q[:256], k=K, filter=filt)
-        launched("filtered search_batch")
-        main_launches = bk.LAUNCHES["sq8pd_bucket_gm"]
-        bk.sq8pd_bucket_gm = kernel
-        check(len(main_calls) == main_launches,
-              f"{len(main_calls)} recorded calls for {main_launches} launches")
-        for qi_m, rows_m, ptile_m, chunk_m, gm_m in main_calls:
-            ref = bk.sq8pd_bucket_gm_ref(qi_m, rows_m, ptile_m, chunk_m)
-            torch.cuda.synchronize()
-            err = int((gm_m.long() - ref.long()).abs().max())
-            label = (f"main-path launch, B_pad {qi_m.shape[0]}, N {rows_m.shape[0]}, "
-                     f"D_pad {rows_m.shape[1]}, chunk {chunk_m}")
-            check(torch.equal(gm_m, ref), f"{label}: kernel != plain version (max |err| {err})")
-            print(f"kernel == plain, bit for bit: {label}", flush=True)
-            max_err = max(max_err, err)
-        del main_calls, ref
+        with MainPath(counters, bk, "sq8pd_bucket_gm", "sq8pd_bucket_gm") as run:
+            res256 = col.search_batch(sift_q[:256], k=K)
+            run.launched("search_batch b=256")
+            res16 = col.search_batch(sift_q[256:272], k=K)
+            run.launched("search_batch b=16")
+            one = col.search(sift_q[300], k=K)
+            run.launched("search")
+            filt = {"type": "eq", "field": "cat", "value": 3}
+            resf = col.search_batch(sift_q[:256], k=K, filter=filt)
+            run.launched("filtered search_batch")
+        launches["sq8pd_bucket"] = run.launches()
+        errs["sq8pd_bucket"] = max(errs["sq8pd_bucket"], run.hold_all(
+            lambda qi, rows, pt, ch: bk.sq8pd_bucket_gm_ref(qi, rows, pt, ch),
+            lambda qi, rows, pt, ch: (f"sq8pd_bucket B_pad {qi.shape[0]}, N {rows.shape[0]}, "
+                                      f"D_pad {rows.shape[1]}, chunk {ch}")))
 
         corpus64 = torch.from_numpy(sift).to(dev).double()
         o_v, o_i = oracle_topk(torch, corpus64, sift_q[:301], "euclidean", K)
         rec256 = score_results(res256, o_v[:256], o_i[:256], 1e-4)
         rec16 = score_results(res16, o_v[256:272], o_i[256:272], 1e-4)
         rec1 = score_results([one], o_v[300:301], o_i[300:301], 1e-4)
-        cat_mask = torch.from_numpy(np.arange(sift.shape[0]) % 8 == 3).to(dev)
+        cat_mask = torch.from_numpy(np.arange(SIFT_N) % 8 == 3).to(dev)
         of_v, of_i = oracle_topk(torch, corpus64, sift_q[:256], "euclidean", K, cat_mask)
         recf = score_results(resf, of_v, of_i, 1e-4)
         bad = [h.id for row in resf for h in row if h.id % 8 != 3 or h.payload != {"cat": 3}]
@@ -395,12 +565,11 @@ def main() -> None:
         # one query and the 1/8-selective filter: sanity floors, not targets
         check(rec1 >= 0.9, f"sift1m single-query recall@10 = {rec1:.4f}")
         check(recf >= 0.9, f"sift1m filtered recall@10 = {recf:.4f}")
-        del corpus64
         ids_before = [[h.id for h in row] for row in res256]
         db.close()
         db = Database.open(tmp, device=DEVICE)
         col = db.get_collection("sift1m")
-        check(col.count() == sift.shape[0], f"reopened count {col.count()}")
+        check(col.count() == SIFT_N, f"reopened count {col.count()}")
         res_re = col.search_batch(sift_q[:256], k=K)
         ids_after = [[h.id for h in row] for row in res_re]
         check(
@@ -410,12 +579,12 @@ def main() -> None:
         check(res_re[0][0].payload == {"cat": res_re[0][0].id % 8}, "payload lost on reopen")
         print("sift1m close + reopen: same ids for all 256 queries", flush=True)
 
-        # -- 4. slice: 100K x 768D cosine (streamed scan) ---------------------
-        rng = np.random.default_rng(42)
-        c768_all = make_clustered(rng, C768_N + HELD_OUT, C768_D)
+        # -- 4. slice 1: 100K x 768D cosine (streamed scan) -----------------
+        phase("4. 100k-768d FULL")
+        c768_all = make_clustered(np.random.default_rng(42), C768_N + HELD_OUT, C768_D)
         c768, c768_q = c768_all[:C768_N], c768_all[C768_N:]
         col768 = db.create_collection("c768", C768_D, metric="cosine")
-        col768.upsert_bulk(range(c768.shape[0]), c768)
+        col768.upsert_bulk(range(C768_N), c768)
         r768 = col768.search_batch(c768_q[:256], k=K)
         check(col768.info()["serve_engine"] == "streamed-scan",
               f"serve_engine {col768.info()['serve_engine']!r}, expected 'streamed-scan'")
@@ -425,42 +594,347 @@ def main() -> None:
         rec768 = score_results(r768, o_v, o_i, 1e-4)
         print(f"100k-768d cosine recall@10 vs float64 oracle: b=256 {rec768:.4f}", flush=True)
         check(rec768 >= 0.999, f"100k-768d recall@10 = {rec768:.4f} < 0.999")
-        del c64
+        del c64, c768_all, c768
 
-        # -- 5. timing (CUDA events), then the profiler last --------------------
-        def device_only(b):
-            col._search_device(b, K, None)[1].cpu()
+        def device_only(c, k):
+            return lambda b: c._search_device(b, k, None)[1].cpu()
 
-        device_path = "sift1m device path (no hydrate)"
-        timed = {}
-        for label, fn, queries in (
-            ("sift1m search_batch", lambda b: col.search_batch(b, k=K), sift_q),
-            (device_path, device_only, sift_q),
-            ("100k-768d search_batch", lambda b: col768.search_batch(b, k=K), c768_q),
-        ):
-            for b in (256, 16):
-                timed[label, b] = (fn, *report_qps(torch, label, fn, queries, b))
-        for b in (256, 16):
-            host = 1.0 - timed[device_path, b][1] / timed["sift1m search_batch", b][1]
-            say(f"sift1m search_batch b={b}: host hydrate share {host:.3f}")
-        for (label, b), (fn, med, batches) in timed.items():
-            if label != device_path:
-                report_busy(torch, f"{label} b={b}", fn, batches, med)
+        measure(torch, "sift1m", lambda b: col.search_batch(b, k=K),
+                "sift1m device path (no hydrate)", device_only(col, K), sift_q)
+        measure(torch, "100k-768d", lambda b: col768.search_batch(b, k=K),
+                "100k-768d device path (no hydrate)", device_only(col768, K), c768_q)
+        db.delete_collection("c768")
+
+        # -- 5. slice 2: sift1m-sq8 ----------------------------------------
+        phase("5. sift1m-sq8")
+        t0 = time.perf_counter()
+        colq = db.create_collection("sift1m_sq8", SIFT_D, metric="euclidean",
+                                    storage_mode="sq8")
+        colq.upsert_bulk(range(SIFT_N), sift, payloads)
+        say(f"sift1m-sq8 ingest with payloads: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        colq.refresh_device()
+        torch.cuda.synchronize()
+        say(f"sift1m-sq8 device refresh (upload + SQ8 + int8 rows): "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(colq.info()["serve_engine"] == "sq8-int8",
+              f"serve_engine {colq.info()['serve_engine']!r}, expected 'sq8-int8'")
+        idx = colq._brute
+        am = 128.0 * idx._sq8_scale + idx._sq8_minv
+        euclid = DistanceMetric.EUCLIDEAN
+        for b in (1, 16, 256):
+            qi8, _, sqi, invqs, _ = bk._sq8i_quantize_queries(
+                torch.from_numpy(sift_q[:b]).to(dev), euclid, idx._sq8_rows8.shape[1])
+            args = (qi8, idx._sq8_rows8, idx._sq8_scale, am, idx._sq8_pen, sqi, invqs, CHUNK)
+            out = bk.sq8i_bucket_gm(*args)
+            torch.cuda.synchronize()
+            errs["sq8i_bucket"] = max(errs["sq8i_bucket"], hold(
+                f"sq8i_bucket B {b} (B_pad {qi8.shape[0]}), N {idx.n_pad}, D_pad 128, "
+                f"chunk {CHUNK}", out, bk.sq8i_bucket_ref(*args)))
+        ms = time_kernel(torch, lambda: bk.sq8i_bucket_gm(*args))
+        plain = time_kernel(torch, lambda: bk.sq8i_bucket_ref(*args), iters=5)
+        n = idx.n_pad
+        kernel_row(
+            "sq8i_bucket", "sq8i_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:996", ms, plain,
+            (2 * 256 * n * 128 / PEAK_INT8 + 6 * 256 * n / PEAK_F32) * 1e3,
+            256 * 128 + n * 128 + 3 * 4 * n + 2 * 4 * 256 + 8 * 256 * n // CHUNK * 128,
+            errs["sq8i_bucket"], ("dp4a", 256 * n * 128 / 4, dp4a_rate),
+        )
+        del out, args
+
+        with MainPath(counters, bk, "sq8i_bucket_gm", "sq8i_bucket_gm") as run:
+            t0 = time.perf_counter()
+            q256 = colq.search_batch(sift_q[:256], k=K)
+            say(f"sift1m-sq8 first search_batch b=256 with the storage gate: "
+                f"{time.perf_counter() - t0:.2f} s (oversample {colq._rerank_oversample}, "
+                f"calibrated recall {colq.info()['storage_recall']})")
+            run.launched("search_batch b=256")
+            q16 = colq.search_batch(sift_q[256:272], k=K)
+            run.launched("search_batch b=16")
+            q1 = colq.search(sift_q[300], k=K)
+            run.launched("search")
+            qf = colq.search_batch(sift_q[:256], k=K, filter=filt)
+            run.launched("filtered search_batch")
+            qraw = colq.search_batch(sift_q[:256], k=K, _raw=True)
+            run.launched("raw search_batch")
+        launches["sq8i_bucket"] = run.launches()
+        sq8i_plain = bk.sq8i_bucket_ref
+        sq8i_desc = (lambda qi, rows, *rest: f"sq8i_bucket B_pad {qi.shape[0]}, "
+                     f"N {rows.shape[0]}, D_pad {rows.shape[1]}, chunk {rest[-1]}")
+        errs["sq8i_bucket"] = max(errs["sq8i_bucket"], run.hold_all(sq8i_plain, sq8i_desc))
+        o_v, o_i = oracle_topk(torch, corpus64, sift_q[:301], "euclidean", K)
+        r256 = score_results(q256, o_v[:256], o_i[:256], 1e-4)
+        r16 = score_results(q16, o_v[256:272], o_i[256:272], 1e-4)
+        r1 = score_results([q1], o_v[300:301], o_i[300:301], 1e-4)
+        rraw = score_results(qraw, o_v[:256], o_i[:256], None)
+        rf = score_results(qf, of_v, of_i, 1e-4)
+        bad = [h.id for row in qf for h in row if h.id % 8 != 3 or h.payload != {"cat": 3}]
+        check(not bad, f"sift1m-sq8 filtered search returned filtered-out ids {bad[:5]}")
+        print(
+            f"sift1m-sq8 recall@10 vs float64 oracle after auto-rerank (oversample "
+            f"{colq._rerank_oversample}): b=256 {r256:.4f}, b=16 {r16:.4f}, search {r1:.4f}, "
+            f"filtered b=256 {rf:.4f}; raw coarse pass b=256 {rraw:.4f}",
+            flush=True,
+        )
+        for name, r in (("b=256", r256), ("b=16", r16)):
+            check(r >= 0.95, f"sift1m-sq8 recall@10 {name} = {r:.4f} < 0.95")
+        ids_before = [[h.id for h in row] for row in q256]
+        del corpus64
+        db.close()
+        db = Database.open(tmp, device=DEVICE)
+        colq = db.get_collection("sift1m_sq8")
+        check(colq.storage_mode.value == "sq8", "storage mode lost on reopen")
+        reopened = colq.search_batch(sift_q[:256], k=K)
+        check(all(set(a) == set(h.id for h in b) for a, b in zip(ids_before, reopened)),
+              "reopened sift1m-sq8 returned other ids")
+        print("sift1m-sq8 close + reopen: same ids for all 256 queries", flush=True)
+        m_sq8 = int(round(colq._rerank_oversample * K))
+        measure(torch, "sift1m-sq8", lambda b: colq.search_batch(b, k=K),
+                f"sift1m-sq8 device path (m={m_sq8}, no rerank)", device_only(colq, m_sq8),
+                sift_q)
+        db.delete_collection("sift1m")
+        db.delete_collection("sift1m_sq8")
+        del sift_all, sift, payloads
+        torch.cuda.empty_cache()
+
+        # -- 6. slice 2: glove100-binary -----------------------------------
+        phase("6. glove100-binary")
+        glove_all = make_clustered(np.random.default_rng(100), GLOVE_N + HELD_OUT, GLOVE_D)
+        glove, glove_q = glove_all[:GLOVE_N], glove_all[GLOVE_N:]
+        t0 = time.perf_counter()
+        colb = db.create_collection("glove", GLOVE_D, metric="cosine", storage_mode="binary")
+        colb.upsert_bulk(range(GLOVE_N), glove)
+        colb.refresh_device()
+        torch.cuda.synchronize()
+        say(f"glove100-binary ingest + refresh (pack + bit shadow): "
+            f"{time.perf_counter() - t0:.2f} s")
+        idx = colb._brute
+        check(idx.n_pad == pad_rows(GLOVE_N), f"glove N_pad {idx.n_pad}")
+        check(colb.info()["serve_engine"] == "hamming-mxu",
+              f"serve_engine {colb.info()['serve_engine']!r}, expected 'hamming-mxu'")
+        gq = torch.from_numpy(glove_q).to(dev)
+        for b in (1, 16, 256):
+            qb = torch.nn.functional.pad((gq[:b] >= 0).to(torch.int8),
+                                         (0, idx._ham_bits.shape[1] - GLOVE_D))
+            qi2 = torch.nn.functional.pad(2 * qb, (0, 0, 0, (-b) % 8))
+            out = bk.hamming_mxu_gm(qi2, idx._ham_bits, idx._ham_aux, CHUNK)
+            torch.cuda.synchronize()
+            errs["hamming_mxu_bucket"] = max(errs["hamming_mxu_bucket"], hold(
+                f"hamming_mxu_bucket B {b} (B_pad {qi2.shape[0]}), N {idx.n_pad}, D_pad 128, "
+                f"chunk {CHUNK}", out, bk.hamming_mxu_ref(qi2, idx._ham_bits, idx._ham_aux, CHUNK)))
+        n = idx.n_pad
+        ms = time_kernel(torch, lambda: bk.hamming_mxu_gm(qi2, idx._ham_bits, idx._ham_aux, CHUNK))
+        plain = time_kernel(torch, lambda: bk.hamming_mxu_ref(qi2, idx._ham_bits, idx._ham_aux,
+                                                              CHUNK), iters=5)
+        kernel_row(
+            "hamming_mxu_bucket", "hamming_mxu_bucket.cu",
+            "velesdb_tpu/ops/bucket_kernel.py:494", ms, plain,
+            2 * 256 * n * 128 / PEAK_INT8 * 1e3,
+            256 * 128 + n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128,
+            errs["hamming_mxu_bucket"], ("dp4a", 256 * n * 128 / 4, dp4a_rate),
+        )
+        # packed scan (#4) at its slice shape on the same packed corpus
+        qp = binary_quantize(gq[:256])
+        pen0 = torch.where(idx._valid, 0.0, torch.inf)
+        for b in (1, 16, 256):
+            qpb = torch.nn.functional.pad(qp[:b], (0, 0, 0, (-b) % 8))
+            out = bk.hamming_bucket_gm(qpb, idx._packed, pen0, bk.HAMMING_CHUNK)
+            torch.cuda.synchronize()
+            errs["hamming_bucket"] = max(errs["hamming_bucket"], hold(
+                f"hamming_bucket B {b} (B_pad {qpb.shape[0]}), N {n}, W 4, "
+                f"chunk {bk.HAMMING_CHUNK}", out,
+                bk.hamming_bucket_ref(qpb, idx._packed, pen0, bk.HAMMING_CHUNK)))
+        ms = time_kernel(torch, lambda: bk.hamming_bucket_gm(qpb, idx._packed, pen0,
+                                                             bk.HAMMING_CHUNK))
+        plain = time_kernel(torch, lambda: bk.hamming_bucket_ref(qpb, idx._packed, pen0,
+                                                                 bk.HAMMING_CHUNK), iters=3)
+        w = idx._packed.shape[1]
+        kernel_row(
+            "hamming_bucket", "hamming_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:362",
+            ms, plain, 256 * n * w / popc_rate * 1e3,
+            4 * 256 * w + 4 * n * w + 4 * n + 8 * 256 * n // bk.HAMMING_CHUNK * 128,
+            errs["hamming_bucket"], ("popc", 256 * n * w, popc_rate),
+        )
+        del out, qi2, qpb
+
+        def hamming_profile(label, queries, device_ids, device_vals):
+            """The raw coarse pass against an exact popcount oracle on the card."""
+            qpk = binary_quantize(torch.from_numpy(queries).to(dev))
+            exact = bk.hamming_distances(qpk, idx._packed)
+            exact = torch.where(idx._valid[None, :], exact, 1 << 20)
+            ids = device_ids.to(dev)
+            dist = torch.round((1.0 - device_vals.to(dev)) * GLOVE_D).to(torch.int32)
+            check(bool((ids >= 0).all()), f"{label}: empty results")
+            check(torch.equal(torch.gather(exact, 1, ids), dist),
+                  f"{label}: returned distances differ from the exact ones")
+            best = torch.topk(exact, K, dim=1, largest=False).values
+            agree = float((torch.sort(dist, dim=1).values == best).float().mean())
+            check(agree >= 0.99, f"{label}: distance profile agrees on {agree:.4f} < 0.99")
+            print(f"{label}: returned distances exact; distance profile agrees with the "
+                  f"exact oracle on {agree:.4f} of positions", flush=True)
+
+        with MainPath(counters, bk, "hamming_mxu_gm", "hamming_mxu_gm") as run:
+            t0 = time.perf_counter()
+            g256 = colb.search_batch(glove_q[:256], k=K)
+            say(f"glove100-binary first search_batch b=256 with the storage gate: "
+                f"{time.perf_counter() - t0:.2f} s (oversample {colb._rerank_oversample}, "
+                f"calibrated recall {colb.info()['storage_recall']})")
+            run.launched("search_batch b=256")
+            colb.search_batch(glove_q[256:272], k=K)
+            run.launched("search_batch b=16")
+            colb.search(glove_q[300], k=K)
+            run.launched("search")
+            gv, gi = colb._search_device(glove_q[:256], K, None)
+            run.launched("raw device pass b=256")
+        launches["hamming_mxu_bucket"] = run.launches()
+        errs["hamming_mxu_bucket"] = max(errs["hamming_mxu_bucket"], run.hold_all(
+            bk.hamming_mxu_ref,
+            lambda qi, bits, aux, ch: (f"hamming_mxu_bucket B_pad {qi.shape[0]}, "
+                                       f"N {bits.shape[0]}, D_pad {bits.shape[1]}, chunk {ch}")))
+        hamming_profile("glove100-binary hamming-mxu raw b=256", glove_q[:256], gi, gv)
+        g64 = torch.from_numpy(glove).to(dev).double()
+        g64 = g64 / g64.norm(dim=1, keepdim=True)
+        o_v, o_i = oracle_topk(torch, g64, glove_q[:256], "cosine", K)
+        del g64
+        rg = score_results(g256, o_v, o_i, 1e-4)
+        print(f"glove100-binary recall@10 vs float64 cosine oracle after auto-rerank "
+              f"(oversample {colb._rerank_oversample}): b=256 {rg:.4f} (no floor)", flush=True)
+        m_bin = int(round(colb._rerank_oversample * K))
+        measure(torch, "glove100-binary", lambda b: colb.search_batch(b, k=K),
+                f"glove100-binary device path (m={m_bin}, no rerank)",
+                device_only(colb, m_bin), glove_q)
+
+        # the same data past the bit-shadow budget: hamming-bucket
+        db.close()
+        os.environ["VELESDB_HAMMING_MXU_MAX_BYTES"] = "0"
+        db = Database.open(tmp, device=DEVICE)
+        colh = db.get_collection("glove")
+        colh.refresh_device()
+        idx = colh._brute
+        check(idx._ham_bits is None, "bit shadow built past its budget")
+        check(colh.info()["serve_engine"] == "hamming-bucket",
+              f"serve_engine {colh.info()['serve_engine']!r}, expected 'hamming-bucket'")
+        with MainPath(counters, bk, "hamming_bucket_gm", "hamming_bucket_gm") as run:
+            hraw = colh.search_batch(glove_q[:256], k=K, _raw=True)
+            run.launched("raw search_batch b=256")
+            colh.search_batch(glove_q[256:272], k=K, _raw=True)
+            run.launched("raw search_batch b=16")
+            hv, hi = colh._search_device(glove_q[:256], K, None)
+            run.launched("raw device pass b=256")
+        launches["hamming_bucket"] = run.launches()
+        errs["hamming_bucket"] = max(errs["hamming_bucket"], run.hold_all(
+            bk.hamming_bucket_ref,
+            lambda q, packed, pen, ch: (f"hamming_bucket B_pad {q.shape[0]}, "
+                                        f"N {packed.shape[0]}, W {packed.shape[1]}, chunk {ch}")))
+        check(len(hraw) == 256 and all(len(r) == K for r in hraw), "hamming-bucket raw rows")
+        hamming_profile("glove100-binary hamming-bucket raw b=256", glove_q[:256], hi, hv)
+        measure(torch, "glove100-binary hamming-bucket raw",
+                lambda b: colh.search_batch(b, k=K, _raw=True),
+                "glove100-binary hamming-bucket device path", device_only(colh, K), glove_q)
+        del os.environ["VELESDB_HAMMING_MXU_MAX_BYTES"]
+        db.delete_collection("glove")
+        del glove_all, glove, gq
+        torch.cuda.empty_cache()
+
+        # -- 7. slice 2: 100k-binary (hamming-topk) -------------------------
+        phase("7. 100k-binary")
+        small_all = make_clustered(np.random.default_rng(101), B100K_N + HELD_OUT, GLOVE_D)
+        small, small_q = small_all[:B100K_N], small_all[B100K_N:]
+        cols = db.create_collection("b100k", GLOVE_D, metric="cosine", storage_mode="binary")
+        cols.upsert_bulk(range(B100K_N), small)
+        cols.refresh_device()
+        idx = cols._brute
+        check(idx.n_pad == pad_rows(B100K_N), f"100k-binary N_pad {idx.n_pad}")
+        check(cols.info()["serve_engine"] == "hamming-topk",
+              f"serve_engine {cols.info()['serve_engine']!r}, expected 'hamming-topk'")
+        sq_pk = binary_quantize(torch.from_numpy(small_q[:256]).to(dev))
+        for b in (1, 16, 256):
+            out = pk.hamming_topk(sq_pk[:b].contiguous(), idx._packed, idx._valid, K)
+            torch.cuda.synchronize()
+            errs["hamming_topk"] = max(errs["hamming_topk"], hold(
+                f"hamming_topk B {b}, N {idx.n_pad}, W 4, k {K}", out,
+                pk.hamming_topk_ref(sq_pk[:b].contiguous(), idx._packed, idx._valid, K)))
+        ms = time_kernel(torch, lambda: pk.hamming_topk(sq_pk, idx._packed, idx._valid, K))
+        plain = time_kernel(torch, lambda: pk.hamming_topk_ref(sq_pk, idx._packed, idx._valid, K),
+                            iters=5)
+        n, w = idx.n_pad, idx._packed.shape[1]
+        kernel_row(
+            "hamming_topk", "hamming_topk.cu", "velesdb_tpu/ops/pallas_kernels.py:317",
+            ms, plain, 256 * int(idx._valid.sum()) * w / popc_rate * 1e3,
+            4 * 256 * w + 4 * n * w + n + 12 * 256 * K,
+            errs["hamming_topk"], ("popc", 256 * B100K_N * w, popc_rate),
+        )
+        with MainPath(counters, brute_mod, "hamming_topk", "hamming_topk") as run:
+            s256 = cols.search_batch(small_q[:256], k=K)
+            run.launched("search_batch b=256")
+            cols.search_batch(small_q[256:272], k=K)
+            run.launched("search_batch b=16")
+            cols.search(small_q[300], k=K)
+            run.launched("search")
+            sv, si = cols._search_device(small_q[:256], K, None)
+            run.launched("raw device pass b=256")
+        launches["hamming_topk"] = run.launches()
+        errs["hamming_topk"] = max(errs["hamming_topk"], run.hold_all(
+            lambda q, packed, valid=None, k=10: pk.hamming_topk_ref(q, packed, valid, k),
+            lambda q, packed, valid=None, k=10: (f"hamming_topk B {q.shape[0]}, "
+                                                 f"N {packed.shape[0]}, k {k}")))
+        exact = bk.hamming_distances(sq_pk, idx._packed).float()
+        exact = torch.where(idx._valid[None, :], exact, torch.inf)
+        o_d, o_ids = torch.sort(exact, dim=1, stable=True)
+        dist = torch.round((1.0 - sv.to(dev)) * GLOVE_D)
+        check(torch.equal(si.to(dev), o_ids[:, :K]) and torch.equal(dist, o_d[:, :K]),
+              "100k-binary raw pass differs from the exact Hamming oracle")
+        print("100k-binary hamming-topk raw b=256: ids and distances equal the exact "
+              "oracle's (stable order)", flush=True)
+        s64 = torch.from_numpy(small).to(dev).double()
+        s64 = s64 / s64.norm(dim=1, keepdim=True)
+        o_v, o_i = oracle_topk(torch, s64, small_q[:256], "cosine", K)
+        rs = score_results(s256, o_v, o_i, 1e-4)
+        print(f"100k-binary recall@10 vs float64 cosine oracle after auto-rerank "
+              f"(oversample {cols._rerank_oversample}): b=256 {rs:.4f} (no floor)", flush=True)
+        m_small = int(round(cols._rerank_oversample * K))
+        measure(torch, "100k-binary", lambda b: cols.search_batch(b, k=K),
+                f"100k-binary device path (m={m_small}, no rerank)",
+                device_only(cols, m_small), small_q)
+        del s64, exact, o_d, o_ids
+
+        # -- 8. slice 2: offset-full-assist (int8-assist) ------------------
+        phase("8. offset-full-assist")
+        off_all = make_clustered(np.random.default_rng(42), OFFSET_N + HELD_OUT, SIFT_D) + 100.0
+        off, off_q = off_all[:OFFSET_N], off_all[OFFSET_N:]
+        colo = db.create_collection("offset", SIFT_D, metric="euclidean")
+        colo.upsert_bulk(range(OFFSET_N), off)
+        colo.refresh_device()
+        check(colo._brute._assist_pd is None, "sq8pd_build accepted the offset corpus")
+        check(colo.info()["serve_engine"] == "int8-assist",
+              f"serve_engine {colo.info()['serve_engine']!r}, expected 'int8-assist'")
+        with MainPath(counters, bk, "sq8i_bucket_gm", "sq8i_bucket_gm") as run:
+            a256 = colo.search_batch(off_q[:256], k=K)
+            run.launched("search_batch b=256")
+            a16 = colo.search_batch(off_q[256:272], k=K)
+            run.launched("search_batch b=16")
+        launches["sq8i_bucket"] += run.launches()
+        errs["sq8i_bucket"] = max(errs["sq8i_bucket"], run.hold_all(sq8i_plain, sq8i_desc))
+        o64 = torch.from_numpy(off).to(dev).double()
+        o_v, o_i = oracle_topk(torch, o64, off_q[:272], "euclidean", K)
+        del o64
+        ra = score_results(a256, o_v[:256], o_i[:256], 1e-4)
+        ra16 = score_results(a16, o_v[256:272], o_i[256:272], 1e-4)
+        print(f"offset-full-assist recall@10 vs float64 oracle: b=256 {ra:.4f}, "
+              f"b=16 {ra16:.4f}", flush=True)
+        check(ra >= 0.99, f"offset-full-assist recall@10 b=256 = {ra:.4f} < 0.99")
+        measure(torch, "offset-full-assist", lambda b: colo.search_batch(b, k=K),
+                "offset-full-assist device path (no hydrate)", device_only(colo, K), off_q)
         db.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     say(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    print(json.dumps({"kernels": [{
-        "name": "sq8pd_bucket",
-        "route": "cuda",
-        "source": "velesdb_tpu_torch/csrc/sq8pd_bucket.cu",
-        "replaces": "velesdb_tpu/ops/bucket_kernel.py:695",
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    for name in KERNELS:
+        record[name]["launches"] = launches[name]
+        record[name]["max_abs_err"] = errs[name]
+    print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s", flush=True)
+    print(json.dumps({"kernels": [record[name] for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -148,7 +148,7 @@ def test_cosine_pd_raw_queries_reference_fault(big):
     assert np.linalg.norm(queries, axis=1).min() > 5.0  # raw, norm >> 1
     truth = np.array(j.search(queries, 10)[1])  # the reference's exact result
     rows_pd, pen_int, _, sdim, _, qu = jbk.sq8pd_build(j._full, j._valid, 32, JMetric.COSINE)
-    chunk = t._pd_chunk
+    chunk = t._chunk
     ptile = jbk.sq8pd_ptile(pen_int, chunk)
 
     def reference_pd(q):
@@ -169,7 +169,7 @@ def test_cosine_pd_raw_queries_reference_fault(big):
 
 
 def test_unported_storage_and_metric_raise():
-    for mode in ("sq8", "binary", "f16", "bf16"):
+    for mode in ("f16", "bf16"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TIndex(16, "cosine", mode, device="cpu")
     for metric in ("hamming", "jaccard"):

@@ -116,6 +116,13 @@ def test_port_never_imports_jax(tmp_path):
         col = db.create_collection("c", 8, metric="euclidean")
         col.upsert_bulk(range(100), np.eye(100, 8, dtype=np.float32))
         assert col.search(np.eye(1, 8, dtype=np.float32)[0], k=1)[0].id == 0
+        x = np.random.default_rng(0).standard_normal((5000, 16)).astype(np.float32)
+        for mode in ("sq8", "binary"):
+            q = db.create_collection(mode, 16, storage_mode=mode)
+            q.upsert_bulk(range(5000), x)
+            assert q.search(x[7], k=3)[0].id == 7
+            assert q.info()["storage_recall"] is not None
+        import velesdb_tpu_torch.ops.pallas_kernels, velesdb_tpu_torch.index.params
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("no-jax-ok")
         """
@@ -136,11 +143,11 @@ def test_default_device_is_cuda(tmp_path):
 @pytest.mark.parametrize(
     "action",
     [
-        "storage_sq8",
-        "storage_binary",
+        "storage_f16",
+        "storage_bf16",
         "index_graph",
         "index_ivf",
-        "quality_perfect",
+        "text_search_batch",
         "text_search",
         "hybrid_search",
         "add_edge",
@@ -152,11 +159,11 @@ def test_unported_surfaces_raise(tmp_path, action):
     col = db.create_collection("c", 4)
     col.upsert(1, np.ones(4, np.float32))
     calls = {
-        "storage_sq8": lambda: db.create_collection("q", 4, storage_mode="sq8"),
-        "storage_binary": lambda: db.create_collection("b", 4, storage_mode="binary"),
+        "storage_f16": lambda: db.create_collection("q", 4, storage_mode="f16"),
+        "storage_bf16": lambda: db.create_collection("q", 4, storage_mode="bf16"),
         "index_graph": lambda: setattr(col, "index_kind", "graph"),
         "index_ivf": lambda: setattr(col, "index_kind", "ivf"),
-        "quality_perfect": lambda: col.search(np.ones(4), k=1, quality="perfect"),
+        "text_search_batch": lambda: col.text_search_batch(["shoes"]),
         "text_search": lambda: col.text_search("shoes"),
         "hybrid_search": lambda: col.hybrid_search(np.ones(4), "shoes"),
         "add_edge": lambda: col.add_edge(1, 1, "self"),
@@ -165,3 +172,108 @@ def test_unported_surfaces_raise(tmp_path, action):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         calls[action]()
     assert not os.path.exists(os.path.join(str(tmp_path), "q", "config.json"))
+
+
+# -- slice 2: quantized storage ---------------------------------------------
+
+QN, QDIM = 6000, 32
+
+
+def _clustered(rng, n, d):
+    centers = rng.standard_normal((64, d)).astype(np.float32) * 2.0
+    return centers[rng.integers(0, 64, n)] + rng.standard_normal((n, d)).astype(np.float32) * 0.7
+
+
+@pytest.fixture(scope="module")
+def qdata():
+    x = _clustered(np.random.default_rng(1), QN + 32, QDIM)
+    return x[:QN], x[QN:]
+
+
+def _oracle(x, q, metric, keep=None):
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    if metric == "euclidean":
+        s = -((q64[:, None, :] - x64[None]) ** 2).sum(-1)
+    elif metric == "cosine":
+        s = (q64 / np.linalg.norm(q64, axis=1, keepdims=True)) @ (
+            x64 / np.linalg.norm(x64, axis=1, keepdims=True)).T
+    else:
+        s = q64 @ x64.T
+    if keep is not None:
+        s = np.where(keep[None, :], s, -np.inf)
+    return np.argsort(-s, axis=1)[:, :10]
+
+
+def _recall(rows, truth):
+    return np.mean([len({h.id for h in r} & set(t.tolist())) / 10 for r, t in zip(rows, truth)])
+
+
+@pytest.mark.parametrize("mode", ["sq8", "binary"])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot_product"])
+def test_quantized_collection_matches_reference(tmp_path, qdata, mode, metric):
+    """Auto-rerank behind the storage gate, filters and reopen, through both
+    packages on the same data: the port's recall@10 against a float64 oracle
+    is no lower than the reference's less 0.01, and the gate settles on the
+    same oversample."""
+    x, q = qdata
+    payloads = [{"cat": i % 4} for i in range(QN)]
+    ref = velesdb_tpu.Database.open(str(tmp_path / "ref")).create_collection(
+        "c", QDIM, metric=metric, storage_mode=mode)
+    db = velesdb_tpu_torch.Database.open(str(tmp_path / "port"), device="cpu")
+    col = db.create_collection("c", QDIM, metric=metric, storage_mode=mode)
+    for c in (ref, col):
+        c.upsert_bulk(range(QN), x, payloads)
+    truth = _oracle(x, q, metric)
+    got, want = col.search_batch(q, k=10), ref.search_batch(q, k=10)
+    assert _recall(got, truth) >= _recall(want, truth) - 0.01
+    assert col._rerank_oversample == ref._rerank_oversample
+    assert col.info()["storage_recall"] == pytest.approx(ref._storage_recall[1], abs=0.01)
+    assert col.info()["storage_mode"] == mode
+    cat3 = np.arange(QN) % 4 == 3
+    filtered = col.search_batch(q, k=10, filter=CAT3)
+    assert all(h.payload == {"cat": 3} for row in filtered for h in row)
+    assert _recall(filtered, _oracle(x, q, metric, cat3)) >= _recall(
+        ref.search_batch(q, k=10, filter=CAT3), _oracle(x, q, metric, cat3)) - 0.01
+    raw = col.search_batch(q, k=10, _raw=True)  # the coarse pass alone
+    assert all(len(row) == 10 for row in raw)
+    db.close()
+    col = velesdb_tpu_torch.Database.open(str(tmp_path / "port"), device="cpu").get_collection("c")
+    assert col.storage_mode.value == mode and col.count() == QN
+    again = col.search_batch(q, k=10)
+    assert [[h.id for h in r] for r in again] == [[h.id for h in r] for r in got]
+
+
+def test_search_with_rerank_and_perfect_quality(tmp_path, qdata):
+    """``search_with_rerank`` returns host f32 scores best-first; FULL storage
+    with ``quality="perfect"`` takes the same host rerank."""
+    x, q = qdata
+    db = velesdb_tpu_torch.Database.open(str(tmp_path), device="cpu")
+    col = db.create_collection("s", QDIM, metric="euclidean", storage_mode="sq8")
+    col.upsert_bulk(range(QN), x)
+    one = col.search_with_rerank(q[0], k=5, oversample=8)
+    want = np.linalg.norm(x - q[0], axis=1)
+    assert [h.id for h in one] == np.argsort(want)[:5].tolist()
+    np.testing.assert_allclose([h.score for h in one], np.sort(want)[:5], rtol=1e-5)
+    assert len(col.search_batch_with_rerank(q[:4], k=5)) == 4
+    full = db.create_collection("f", QDIM, metric="cosine")
+    full.upsert_bulk(range(QN), x)
+    perfect = full.search_batch(q, k=10, quality="perfect")
+    assert _recall(perfect, _oracle(x, q, "cosine")) == 1.0
+    assert full.info()["storage_recall"] is None  # no gate on FULL storage
+
+
+def test_storage_gate_widens_the_oversample(tmp_path):
+    """Sign sketches of 8-dim data are weak: the gate doubles the oversample
+    until the probe clears the bar or the 32x cap, as the reference does."""
+    x = _clustered(np.random.default_rng(2), 5000, 8)
+    db = velesdb_tpu_torch.Database.open(str(tmp_path), device="cpu")
+    col = db.create_collection("b", 8, metric="euclidean", storage_mode="binary")
+    col.upsert_bulk(range(5000), x)
+    col.search(x[0], k=10)
+    r = col.info()["storage_recall"]
+    assert col._rerank_oversample > 4.0
+    assert r >= 0.95 or col._rerank_oversample == 32.0
+    gate_at = col._storage_gate_used
+    col.upsert(6000, x[1])  # under 10% drift: no new probe
+    col.search(x[0], k=10)
+    assert col._storage_gate_used == gate_at

@@ -110,3 +110,171 @@ def test_sq8pd_bucket_kernel_width_not_multiple_of_16(cuda):
     gm = bk.sq8pd_bucket_gm(qi, rows, ptile, 1024)
     torch.cuda.synchronize()
     assert torch.equal(gm, bk.sq8pd_bucket_gm_ref(qi, rows, ptile, 1024))
+
+
+# -- slice 2: the per-row SQ8 kernel and the three Hamming kernels ----------
+
+import velesdb_tpu_torch.ops.pallas_kernels as pk  # noqa: E402
+from velesdb_tpu_torch.ops.quantization import binary_quantize, sq8_quantize  # noqa: E402
+
+
+def _sq8i_inputs(cuda, rng, b, d, n, metric):
+    x = torch.from_numpy(_clustered(rng, n + b, d)).to(cuda)
+    sq = sq8_quantize(x[:n])
+    valid = torch.from_numpy(rng.random(n) > 0.15).to(cuda)
+    index = BruteForceIndex(d, metric, "sq8", device=cuda)
+    from velesdb_tpu_torch.index.brute import _affine_fold
+
+    scale, minv, pen, _ = _affine_fold(sq, valid, index.metric)
+    rows8 = bk.sq8_int8_rows(sq.codes)
+    qi, _, sqi, invqs, _ = bk._sq8i_quantize_queries(x[n:], index.metric, rows8.shape[1])
+    return qi, rows8, scale, 128.0 * scale + minv, pen, sqi, invqs
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
+@pytest.mark.parametrize("b,d,n,chunk", [(13, 100, 131_072, 8192), (1, 128, 16_384, 8192),
+                                         (40, 48, 4096, 512), (256, 128, 65_536, 8192)])
+def test_sq8i_bucket_kernel_equals_plain(cuda, metric, b, d, n, chunk):
+    args = _sq8i_inputs(cuda, np.random.default_rng(d + b), b, d, n, metric)
+    before = bk.LAUNCHES["sq8i_bucket_gm"]
+    gm, gi = bk.sq8i_bucket_gm(*args, chunk)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["sq8i_bucket_gm"] == before + 1
+    rm, ri = bk.sq8i_bucket_ref(*args, chunk)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+def _bits_inputs(cuda, rng, b, d, n):
+    x = torch.from_numpy(_clustered(rng, n + b, d)).to(cuda)
+    bits = bk.hamming_bits_rows(x[:n], d)
+    csum = bits.to(torch.int32).sum(dim=1)
+    knocked = torch.from_numpy(rng.random(n) < 0.15).to(cuda)
+    aux = torch.where(knocked, csum + bk._HAM_BIG, csum).to(torch.int32)
+    qbits = torch.nn.functional.pad((x[n:] >= 0).to(torch.int8), (0, bits.shape[1] - d))
+    return x, bits, aux, knocked, qbits
+
+
+@pytest.mark.parametrize("b,d,n,chunk", [(13, 100, 131_072, 8192), (16, 100, 16_384, 8192),
+                                         (1, 256, 8192, 1024), (64, 100, 65_536, 8192)])
+def test_hamming_mxu_kernel_equals_plain(cuda, b, d, n, chunk):
+    _, bits, aux, _, qbits = _bits_inputs(cuda, np.random.default_rng(b), b, d, n)
+    qi = torch.nn.functional.pad(2 * qbits, (0, 0, 0, (-b) % 8))
+    before = bk.LAUNCHES["hamming_mxu_gm"]
+    gm, gi = bk.hamming_mxu_gm(qi, bits, aux, chunk)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["hamming_mxu_gm"] == before + 1
+    rm, ri = bk.hamming_mxu_ref(qi, bits, aux, chunk)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+@pytest.mark.parametrize("b,d,n,chunk", [(13, 100, 131_072, 2048), (16, 100, 16_384, 2048),
+                                         (1, 768, 8192, 1024), (256, 100, 65_536, 2048)])
+def test_hamming_bucket_kernel_equals_plain(cuda, b, d, n, chunk):
+    x, _, _, knocked, _ = _bits_inputs(cuda, np.random.default_rng(b + 1), b, d, n)
+    packed = binary_quantize(x[:n])
+    q = torch.nn.functional.pad(binary_quantize(x[n:]), (0, 0, 0, (-b) % 8))
+    pen = torch.where(knocked, torch.inf, 0.0)
+    before = bk.LAUNCHES["hamming_bucket_gm"]
+    gm, gi = bk.hamming_bucket_gm(q, packed, pen, chunk)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["hamming_bucket_gm"] == before + 1
+    rm, ri = bk.hamming_bucket_ref(q, packed, pen, chunk)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+@pytest.mark.parametrize("b,d,n,k", [(13, 100, 106_496, 10), (1, 100, 4096, 1),
+                                     (16, 768, 20_000, 100), (40, 32, 3000, 64),
+                                     (8, 100, 4096, 4096)])
+def test_hamming_topk_kernel_equals_plain(cuda, b, d, n, k):
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(_clustered(rng, n + b, d)).to(cuda)
+    packed, q = binary_quantize(x[:n]), binary_quantize(x[n:])
+    valid = torch.from_numpy(rng.random(n) > 0.15).to(cuda)
+    before = pk.LAUNCHES["hamming_topk"]
+    dist, idx = pk.hamming_topk(q, packed, valid, k)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["hamming_topk"] == before + 1
+    rd, ri = pk.hamming_topk_ref(q, packed, valid, k)
+    assert torch.equal(dist, rd) and torch.equal(idx, ri)
+
+
+def test_slice2_kernels_refuse_bad_input(cuda):
+    qi = torch.zeros((8, 128), dtype=torch.int8, device=cuda)
+    rows = torch.zeros((1024, 128), dtype=torch.int8, device=cuda)
+    f = torch.zeros(1024, device=cuda)
+    fq = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError):  # chunk does not divide N
+        bk.sq8i_bucket_gm(qi, rows, f, f, f, fq, fq, 384)
+    with pytest.raises(ValueError):  # mixed devices
+        bk.sq8i_bucket_gm(qi, rows.cpu(), f, f, f, fq, fq, 512)
+    with pytest.raises(TypeError):
+        bk.hamming_mxu_gm(qi, rows, f, 512)  # aux must be int32
+    with pytest.raises(ValueError):  # D_pad not a multiple of 16
+        bk.hamming_mxu_gm(qi[:, :120].contiguous(), rows[:, :120].contiguous(),
+                          torch.zeros(1024, dtype=torch.int32, device=cuda), 512)
+    words = torch.zeros((1024, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        bk.hamming_bucket_gm(words[:8, ::2], words[:, ::2], f, 512)
+    with pytest.raises(TypeError):  # words must be int32
+        pk.hamming_topk(words[:8].float(), words)
+
+
+@pytest.mark.parametrize("mode,engine,counter,n", [
+    ("sq8", "sq8-int8", "sq8i_bucket_gm", 131_072),
+    ("binary", "hamming-mxu", "hamming_mxu_gm", 131_072),
+    ("binary", "hamming-topk", "hamming_topk", 20_000),
+])
+def test_quantized_serve_paths_launch_their_kernels(cuda, mode, engine, counter, n):
+    """Each serve core on the card launches its kernel once per search and
+    serves what the same index serves on the CPU through the plain version."""
+    rng = np.random.default_rng(3)
+    x = _clustered(rng, n + 16, 100)
+    on_card = BruteForceIndex(100, "cosine", mode, device=cuda)
+    on_cpu = BruteForceIndex(100, "cosine", mode, device="cpu")
+    for index in (on_card, on_cpu):
+        index.rebuild(x[:n], np.ones(n, bool))
+        assert index.serve_engine() == engine
+    launches = pk.LAUNCHES if counter == "hamming_topk" else bk.LAUNCHES
+    before = launches[counter]
+    vals, ids = on_card.search(x[n:], 10)
+    assert launches[counter] == before + 1
+    want_vals, want_ids = on_cpu.search(x[n:], 10)
+    if mode == "binary":
+        # sign bits are exact on both devices and ties break by position
+        assert torch.equal(ids.cpu(), want_ids) and torch.equal(vals.cpu(), want_vals)
+        return
+    # the SQ8 state and query quantization sum in another order on the two
+    # devices and may round apart in the last bit: values agree rank by
+    # rank, and an id that clears the k-th value by more than that rounding
+    # on one device is served on the other
+    vals = vals.cpu()
+    torch.testing.assert_close(vals, want_vals, rtol=1e-5, atol=1e-5)
+    kth = want_vals[:, -1:]
+    band = 1e-5 * kth.abs() + 1e-5
+    for row in range(ids.shape[0]):
+        got, want = set(ids.cpu()[row].tolist()), set(want_ids[row].tolist())
+        assert set(want_ids[row][want_vals[row] > kth[row] + band[row]].tolist()) <= got
+        assert set(ids.cpu()[row][vals[row] > kth[row] + band[row]].tolist()) <= want
+
+
+def test_hamming_bucket_serve_path_launches_the_kernel(cuda, monkeypatch):
+    monkeypatch.setenv("VELESDB_HAMMING_MXU_MAX_BYTES", "0")
+    x = _clustered(np.random.default_rng(4), 131_072 + 16, 100)
+    index = BruteForceIndex(100, "euclidean", "binary", device=cuda)
+    index.rebuild(x[:131_072], np.ones(131_072, bool))
+    assert index.serve_engine() == "hamming-bucket"
+    before = bk.LAUNCHES["hamming_bucket_gm"]
+    index.search(x[131_072:], 10)
+    assert bk.LAUNCHES["hamming_bucket_gm"] == before + 1
+
+
+def test_int8_assist_serve_path_launches_the_kernel(cuda):
+    """A corpus offset far from the origin makes ``sq8pd_build`` refuse; the
+    per-row int8 kernel then serves FULL storage."""
+    x = _clustered(np.random.default_rng(6), 131_072 + 16, 128) + 100.0
+    index = BruteForceIndex(128, "euclidean", device=cuda)
+    index.rebuild(x[:131_072], np.ones(131_072, bool))
+    assert index.serve_engine() == "int8-assist"
+    before = bk.LAUNCHES["sq8i_bucket_gm"]
+    index.search(x[131_072:], 10)
+    assert bk.LAUNCHES["sq8i_bucket_gm"] == before + 1

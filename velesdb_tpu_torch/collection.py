@@ -4,13 +4,20 @@ Counterpart of ``velesdb_tpu/collection.py``, exact search only. The
 canonical store is host-side and append-oriented (memmap vectors + CRC WAL,
 payload log; the on-disk format is the reference package's, byte for byte);
 the device holds a padded snapshot refreshed lazily after mutations, and
-every search runs the exact :class:`~velesdb_tpu_torch.index.brute.BruteForceIndex`.
+every search runs the exact :class:`~velesdb_tpu_torch.index.brute.BruteForceIndex`
+on FULL, SQ8 or BINARY storage.
+
+Quantized collections (SQ8, BINARY) rerank by default (:attr:`auto_rerank`):
+the device pass fetches ``oversample * k`` candidates and the host rescores
+them in f32 from the stored vectors. A storage recall gate measures that
+serve path against a host f32 oracle once per row count and widens the
+oversample until it clears the quality profile's bar. ``quality="perfect"``
+reranks on any storage.
 
 The reference's planner also serves exact below ``ANN_MIN_ROWS`` (2M) rows,
 so at those sizes both packages serve the same engine; above it this package
-still serves exact (ROADMAP.md). Graph/IVF indexes, quantized storage,
-``quality="perfect"``, text, hybrid, VelesQL and graph methods raise
-``NotImplementedError``.
+still serves exact (ROADMAP.md). Graph/IVF indexes, F16/BF16 storage, text,
+hybrid, VelesQL and graph methods raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import numpy as np
 
 from velesdb_tpu_torch.column.store import ColumnStore
 from velesdb_tpu_torch.index.brute import BruteForceIndex, not_in_slice
+from velesdb_tpu_torch.index.params import SearchQuality
 from velesdb_tpu_torch.ops.distance import DistanceMetric
 from velesdb_tpu_torch.ops.quantization import StorageMode
 from velesdb_tpu_torch.storage.payload_log import PayloadLog
@@ -99,6 +107,15 @@ class Collection:
         self._device_dirty = True
         self._slot_ids: np.ndarray | None = None  # [used] int64, -1 = tombstone
         self._index_kind = "auto"
+        # Quantized collections rerank plain searches in host f32 (the
+        # reference's dual-precision default); False serves raw coarse scores.
+        self.auto_rerank = True
+        # serving oversample of that rerank; the storage recall gate widens it
+        # while the calibrated recall misses the profile's bar
+        self._rerank_oversample = 4.0
+        self._storage_gate_used = None  # row count the gate last ran at
+        self._storage_recall = None  # (used, recall) of the last calibration
+        self._storage_probe = None  # (used, version, queries, oracle ids)
         self.columns = ColumnStore()
         self.columns.set_id_source(self.vectors.occupancy)
         self._columns_built = False
@@ -299,15 +316,158 @@ class Collection:
         """Single-query search; returns hydrated results best-first."""
         return self.search_batch([query], k, filter=filter, ef=ef, quality=quality)[0]
 
+    def search_with_rerank(self, query, k: int = 10, oversample: float = 4.0,
+                           filter: dict | None = None, ef: int | None = None):
+        """Quantized first pass + exact f32 rerank (dual-precision search):
+        fetch ``oversample * k`` candidates with the collection's storage
+        mode, rescore them in f32 on the host, keep the exact top-k."""
+        return self.search_batch_with_rerank(
+            [query], k, oversample=oversample, filter=filter, ef=ef
+        )[0]
+
+    def search_batch_with_rerank(self, queries, k: int = 10, oversample: float = 4.0,
+                                 filter: dict | None = None, ef: int | None = None,
+                                 quality=None):
+        """Batched :meth:`search_with_rerank`: one device pass for the
+        candidates, one vectorized fetch of their stored vectors, numpy
+        rescoring per query."""
+        self.refresh_device()
+        q = np.atleast_2d(np.asarray(queries, np.float32))
+        m = max(k, int(round(oversample * k)))
+        coarse = self.search_batch(q, m, filter=filter, ef=ef, quality=quality, _raw=True)
+        all_ids = [[r.id for r in row] for row in coarse]
+        vecs, found = self.vectors.retrieve_batch([vid for ids in all_ids for vid in ids])
+        out = []
+        pos = 0
+        hib = self.metric.higher_is_better
+        for b, row in enumerate(coarse):
+            ids = all_ids[b]
+            v = vecs[pos : pos + len(ids)]
+            f = np.asarray(found[pos : pos + len(ids)], bool)
+            pos += len(ids)
+            # an id deleted between the coarse pass and the fetch comes back
+            # as a zero vector, which could outrank real candidates: drop it
+            keep = np.flatnonzero(f)
+            if keep.size == 0:
+                out.append([])
+                continue
+            scores = _host_scores(q[b], v[keep], self.metric)
+            order = np.argsort(-scores if hib else scores)
+            out.append([
+                SearchResult(id=ids[keep[j]], score=float(scores[j]),
+                             payload=row[keep[j]]["payload"])
+                for j in order[:k]
+            ])
+        return out
+
+    # -- storage recall gate -------------------------------------------------
+
+    def _ensure_storage_gate(self, quality=None) -> None:
+        """Calibrate the quantized serve path and widen the rerank oversample
+        until its measured recall clears the profile bar (or the 32x cap).
+        Runs again only after the row count drifts by 10%."""
+        used = self.vectors.used_slots
+        if used < 4096:  # toy collections: the probe costs more than it informs
+            return
+        prev = self._storage_gate_used
+        if prev is not None and abs(used - prev) < 0.1 * prev:
+            return
+        self._storage_gate_used = used  # set first: calibration re-enters search
+        bar = SearchQuality.parse(quality or SearchQuality.BALANCED).min_recall
+        r = self.calibrate_storage()
+        while r is not None and r < bar and self._rerank_oversample < 32:
+            self._rerank_oversample *= 2.0
+            self._storage_recall = None  # force a fresh probe
+            r = self.calibrate_storage()
+
+    def calibrate_storage(self, sample: int = 128):
+        """True recall@10 of the quantized serve path (auto-rerank included)
+        against a host f32 exact oracle over the stored vectors, on ``sample``
+        probe queries: stored rows perturbed by their nearest-neighbour
+        distance. Cached per row count and reported by :meth:`info`; ``None``
+        for FULL storage.
+
+        The reference ranks with ``argsort`` of per-row f32 scores; this copy
+        ranks with ``argpartition`` on euclidean ``|c|^2 - 2 q.c`` and cosine
+        dots over precomputed norms (the same order up to ties), and keeps
+        the probe set and its oracle ids for the row count and store version,
+        so the gate's later rounds rerun only the serve path. It does not
+        record the recall with a planner: the port has none yet (ROADMAP.md)."""
+        if self.storage_mode not in (StorageMode.SQ8, StorageMode.BINARY):
+            return None
+        used = self.vectors.used_slots
+        if used < 32:
+            return None
+        if self._storage_recall is not None and self._storage_recall[0] == used:
+            return self._storage_recall[1]
+        k = 10
+        probe = self._storage_probe
+        if probe is None or probe[:2] != (used, self.vectors.version):
+            probe = (used, self.vectors.version, *self._storage_oracle(sample, used, k))
+            self._storage_probe = probe
+        _, _, q, gt_ids = probe
+        res = self.search_batch(q, k)
+        hits = sum(len({r.id for r in row} & set(gt.tolist())) for row, gt in zip(res, gt_ids))
+        r = hits / float(len(res) * k)
+        self._storage_recall = (used, r)
+        return r
+
+    def _storage_oracle(self, sample: int, used: int, k: int):
+        """Probe queries and their exact top-``k`` stored ids (host f32)."""
+        take = min(sample, used)
+        slots = np.linspace(0, used - 1, take).astype(np.int64)
+        corpus = np.asarray(self.vectors.slot_view()[:used], np.float32)
+        base = corpus[slots]
+        noise = np.random.default_rng(0).standard_normal(base.shape).astype(np.float32)
+        noise /= np.maximum(np.linalg.norm(noise, axis=1, keepdims=True), 1e-9)
+        slot_ids, live = self.vectors.occupancy()
+        norms = np.einsum("nd,nd->n", corpus, corpus)
+        if self.metric is DistanceMetric.COSINE:
+            norms = np.sqrt(norms)
+
+        def oracle(qs, kk):
+            out = np.empty((len(qs), kk), np.int64)
+            for i, qv in enumerate(qs):  # host BLAS row passes
+                dots = corpus @ qv
+                if self.metric is DistanceMetric.EUCLIDEAN:
+                    s = norms - 2.0 * dots  # |c - q|^2 - |q|^2
+                elif self.metric is DistanceMetric.COSINE:
+                    s = -np.where(norms > 1e-30, dots / np.maximum(norms, 1e-30), 0.0)
+                else:
+                    s = -dots
+                s = np.where(live, s, np.inf)
+                top = np.argpartition(s, kk - 1)[:kk]
+                out[i] = top[np.argsort(s[top], kind="stable")]
+            return out
+
+        nn2 = oracle(base, 2)
+        d1 = np.linalg.norm(base - corpus[nn2[:, 1]], axis=1, keepdims=True)
+        q = base + noise * d1
+        return q, slot_ids[oracle(q, k)]
+
     def search_batch(self, queries, k: int = 10, filter: dict | None = None,
-                     ef: int | None = None, quality=None):
+                     ef: int | None = None, quality=None, _raw: bool = False):
         """Batched exact search: one device pass for the whole batch.
 
         ``ef`` is accepted for API parity and unused (exact search has no
-        beam); ``quality="perfect"`` (the reference's host-f32 rerank pass)
-        is not ported yet."""
-        if quality is not None and str(getattr(quality, "value", quality)).lower() == "perfect":
-            raise not_in_slice('quality="perfect"')
+        beam). Quantized collections route through the host f32 rerank
+        (:attr:`auto_rerank`, behind the storage recall gate), and
+        ``quality="perfect"`` reranks on any storage; ``_raw=True`` is the
+        coarse-pass escape hatch."""
+        wants_perfect = (
+            quality is not None and SearchQuality.parse(quality) is SearchQuality.PERFECT
+        )
+        if not _raw and (
+            wants_perfect
+            or (self.auto_rerank
+                and self.storage_mode in (StorageMode.SQ8, StorageMode.BINARY))
+        ):
+            if not wants_perfect:
+                self._ensure_storage_gate(quality)
+            return self.search_batch_with_rerank(
+                queries, k, filter=filter, ef=ef, quality=quality,
+                oversample=self._rerank_oversample,
+            )
         self.refresh_device()
         q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         if q.shape[1] != self.dim:
@@ -376,8 +536,6 @@ class Collection:
 
     # -- not in this slice (ROADMAP.md) -------------------------------------
 
-    search_with_rerank = _later("search_with_rerank", "quantized rerank")
-    search_batch_with_rerank = _later("search_batch_with_rerank", "quantized rerank")
     text_search = _later("text_search", "text search")
     text_search_batch = _later("text_search_batch", "text search")
     hybrid_search = _later("hybrid_search", "hybrid search")
@@ -417,7 +575,21 @@ class Collection:
             "device": str(self.device),
             # the exact core a plain search dispatches to right now
             "serve_engine": self._brute.serve_engine(),
+            "rerank_oversample": self._rerank_oversample,
+            "storage_recall": None if self._storage_recall is None else self._storage_recall[1],
         }
+
+
+def _host_scores(q: np.ndarray, vecs: np.ndarray, metric: DistanceMetric):
+    """Exact f32 scores of one query against a few candidate rows, in numpy
+    (reference ``collection.py:1775``, the three float metrics)."""
+    dots = vecs @ q
+    if metric is DistanceMetric.DOT_PRODUCT:
+        return dots
+    if metric is DistanceMetric.COSINE:
+        denom = np.linalg.norm(vecs, axis=1) * max(np.linalg.norm(q), 1e-30)
+        return np.where(denom > 1e-30, dots / np.maximum(denom, 1e-30), 0.0)
+    return np.linalg.norm(vecs - q[None, :], axis=1)
 
 
 def _pad_mask(mask: np.ndarray, n_pad: int) -> np.ndarray:

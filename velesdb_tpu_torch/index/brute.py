@@ -1,47 +1,80 @@
 """Brute-force (exact) device index over a padded slot array.
 
-Counterpart of ``velesdb_tpu/index/brute.py`` for FULL (f32) storage: the
-corpus lives as a padded ``[N_pad, D]`` fp32 tensor on the index's device and
-every search scores the whole batch against it. Two serve cores, in order:
+Counterpart of ``velesdb_tpu/index/brute.py`` for FULL, SQ8 and BINARY
+storage. The corpus lives as padded ``[N_pad, ...]`` tensors on the index's
+device and every search scores the whole batch against it. The serve cores,
+which :meth:`BruteForceIndex.serve_engine` names as the reference does:
 
-1. ``int8-assist-pd`` — D < 512 and ``n_pad >= BUCKET_MIN_ROWS``: the
-   per-dim int8 coarse scan (CUDA kernel ``csrc/sq8pd_bucket.cu``) keeps
-   m = clamp(2k-4, 16, 256) candidates per query, then an exact fp32 rerank.
-2. ``streamed-scan`` — everything else: a chunked fp32 matmul with an exact
-   per-chunk top-k and merge (``ops/streamed.py``).
+- FULL (f32 rows; cosine rows pre-normalized):
+  1. ``int8-assist-pd`` — D < 512, at least ``BUCKET_MIN_ROWS`` padded rows:
+     the per-dim int8 scan (``csrc/sq8pd_bucket.cu``) keeps
+     m = clamp(2k-4, 16, 256) candidates, then an exact fp32 rerank;
+  2. ``int8-assist`` — the same regime when ``sq8pd_build`` refuses the corpus
+     (penalties over its int32 budget): the per-row int8 scan
+     (``csrc/sq8i_bucket.cu``) over an SQ8 shadow, then the exact rerank;
+  3. ``streamed-scan`` — everything else: chunked fp32 matmul + exact top-k.
+- SQ8 (uint8 codes + per-row affine): ``sq8-int8`` (``csrc/sq8i_bucket.cu``)
+  where the bucket collision guard holds, else ``sq8-streamed`` (plain torch).
+- BINARY (packed sign bits): ``hamming-mxu`` (``csrc/hamming_mxu_bucket.cu``)
+  while the 1 byte/bit shadow fits ``VELESDB_HAMMING_MXU_MAX_BYTES``, else
+  ``hamming-bucket`` (``csrc/hamming_bucket.cu``) where the guard holds, else
+  ``hamming-topk`` (``csrc/hamming_topk.cu``, exact).
 
-Where the reference serves its per-row int8 kernel because ``sq8pd_build``
-refused the corpus, this package serves ``streamed-scan`` (the per-row kernel is
-still to be ported; ROADMAP.md). There is no fallback between cores at run
-time: a failing kernel raises.
+There is no fallback between cores at run time: a failing kernel raises.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from velesdb_tpu_torch.ops.bucket_kernel import (
+    _HAM_BIG,
     BUCKET_MIN_ROWS,
+    HAMMING_CHUNK,
+    _div,
     _pd_invalid_pen,
-    pd_chunk,
+    bucket_chunk,
+    hamming_bits_rows,
+    hamming_bucket_topk,
+    hamming_mxu_topk,
+    sq8_int8_rows,
+    sq8i_bucket_topk,
+    sq8i_rerank_topk,
     sq8pd_build,
     sq8pd_ptile,
     sq8pd_rerank_topk,
 )
 from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
-from velesdb_tpu_torch.ops.quantization import StorageMode
-from velesdb_tpu_torch.ops.streamed import streamed_topk
+from velesdb_tpu_torch.ops.pallas_kernels import hamming_topk
+from velesdb_tpu_torch.ops.quantization import (
+    SQ8Vectors,
+    StorageMode,
+    binary_quantize,
+    sq8_dequantize,
+    sq8_quantize,
+)
+from velesdb_tpu_torch.ops.streamed import sq8_streamed_topk, streamed_topk
 
 __all__ = ["BruteForceIndex", "pad_rows", "state_from_jax"]
 
 _METRICS = (DistanceMetric.COSINE, DistanceMetric.EUCLIDEAN, DistanceMetric.DOT_PRODUCT)
+_MODES = (StorageMode.FULL, StorageMode.SQ8, StorageMode.BINARY)
 
 
 def not_in_slice(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to velesdb_tpu_torch yet (see ROADMAP.md)"
     )
+
+
+def _ham_mxu_max_bytes() -> int:
+    """Device-memory budget of the 1 byte/bit Hamming shadow, read at each
+    rebuild as the reference reads it (``brute.py:63-71``)."""
+    return int(os.environ.get("VELESDB_HAMMING_MXU_MAX_BYTES", 4 << 30))
 
 
 def _bucket_safe(n_pad: int, chunk: int, k: int) -> bool:
@@ -63,88 +96,174 @@ def pad_rows(n: int, minimum: int = 1024) -> int:
 
 
 def _pd_m(k: int) -> int:
-    """Coarse candidates per query for a top-k pd search."""
+    """Coarse candidates per query for a top-k assist search."""
     return min(max(2 * k - 4, 16), 256)
 
 
+def _affine_fold(sq: SQ8Vectors, valid: torch.Tensor, metric: DistanceMetric):
+    """Per-metric scan state of an SQ8 corpus (reference ``:285-327``):
+    ``(scale, minv, pen, deq_sq)``. Cosine folds ``1/|deq|`` into scale and
+    minv so raw dots are cosine scores; euclidean's penalty is ``|deq|^2``;
+    knocked-out rows carry ``pen = +inf``."""
+    deq_sq = torch.sum(sq8_dequantize(sq) ** 2, dim=1)
+    scale, minv = sq.scale, sq.minv
+    base = torch.zeros_like(deq_sq)
+    if metric is DistanceMetric.COSINE:
+        inv = torch.where(deq_sq > 1e-30, torch.rsqrt(deq_sq.clamp_min(1e-30)), 0.0)
+        scale, minv = scale * inv, minv * inv
+    elif metric is DistanceMetric.EUCLIDEAN:
+        base = deq_sq
+    return scale, minv, torch.where(valid, base, torch.inf), deq_sq
+
+
+def _assist_shadow(x: torch.Tensor, valid: torch.Tensor, metric: DistanceMetric):
+    """The per-row SQ8 shadow of a FULL corpus that ``sq8pd_build`` refused:
+    ``(rows8, scale, minv, pen, shift)``. It refuses corpora whose
+    norms dwarf their spread, and per-row codes of such rows spend their 255
+    steps on the offset. For euclidean the port therefore quantizes the rows
+    centered on the valid rows' mean ``shift`` (the coarse pass shifts the
+    queries alike; distances are unchanged). The reference quantizes the raw
+    rows (ROADMAP.md, faults of the reference); cosine and dot, whose pd
+    shadow is never refused for its penalty, keep ``shift = None``."""
+    shift = None
+    if metric is DistanceMetric.EUCLIDEAN:
+        count = valid.sum().clamp_min(1).to(torch.float32)
+        shift = torch.sum(torch.where(valid[:, None], x, 0.0), dim=0) / count
+        x = x - shift[None, :]
+    sq = sq8_quantize(x)
+    scale, minv, pen, _ = _affine_fold(sq, valid, metric)
+    return sq8_int8_rows(sq.codes), scale, minv, pen, shift
+
+
 class BruteForceIndex:
-    """Exact search over a device-resident padded corpus (FULL storage)."""
+    """Exact search over a device-resident padded corpus."""
 
     def __init__(self, dim: int, metric: DistanceMetric,
                  storage_mode: StorageMode = StorageMode.FULL, device="cuda"):
         self.dim = int(dim)
         self.metric = DistanceMetric.parse(metric)
         self.storage_mode = StorageMode.parse(storage_mode)
-        if self.storage_mode is not StorageMode.FULL:
+        if self.storage_mode not in _MODES:
             raise not_in_slice(f"storage_mode={self.storage_mode.value!r}")
         if self.metric not in _METRICS:
             raise not_in_slice(f"exact search with metric={self.metric.value!r}")
         self.device = torch.device(device)
         self.n_pad = 0
+        self._chunk = 0  # bucket_chunk(n_pad): the one chunk rule of #1/#7/#5
         self._valid = None  # [N_pad] bool
+        # FULL
         self._full = None  # [N_pad, D] f32 (cosine rows pre-normalized)
         self._full_sqnorm = None  # [N_pad] f32
         self._assist_pd = None  # (rows_pd, pen_int, pen_f32, sdim, mid, qu)
-        self._pd_chunk = 0
         self._pd_ptile = None  # [N_pad] int32, built with the shadow
+        self._assist = None  # (rows8, scale, minv, pen, shift) when the pd build refuses
+        # SQ8
+        self._sq8 = None  # SQ8Vectors (codes [N_pad, D] uint8, scale, minv)
+        self._sq_norm = None  # [N_pad] f32: |deq|^2 (euclidean), |deq| (cosine)
+        self._sq8_rows8 = None  # [N_pad, D_pad] int8 (code - 128)
+        self._sq8_scale = None  # [N_pad] f32 (cosine: scale/|deq| folded)
+        self._sq8_minv = None  # [N_pad] f32 (cosine: minv/|deq| folded)
+        self._sq8_pen = None  # [N_pad] f32 additive penalty, +inf knocked out
+        # BINARY
+        self._packed = None  # [N_pad, W] int32 words (uint32 bits)
+        self._ham_bits = None  # [N_pad, D_pad] int8 0/1, while the budget allows
+        self._ham_aux = None  # [N_pad] int32 |c| + _HAM_BIG * knocked_out
 
     # -- build -------------------------------------------------------------
 
     def rebuild(self, slots: np.ndarray, valid: np.ndarray) -> None:
         """Upload the host slot array ``[used, D]`` as padded device state,
-        with the pd shadow and its ptile when the pd core applies."""
+        with the shadows its serve cores need."""
         used = slots.shape[0]
         n_pad = pad_rows(used)
-        full = torch.zeros((n_pad, self.dim), dtype=torch.float32, device=self.device)
-        full[:used] = torch.from_numpy(np.ascontiguousarray(slots, np.float32)).to(
-            self.device
-        )
+        x = torch.zeros((n_pad, self.dim), dtype=torch.float32, device=self.device)
+        x[:used] = torch.from_numpy(np.ascontiguousarray(slots, np.float32)).to(self.device)
         vmask = torch.zeros(n_pad, dtype=torch.bool, device=self.device)
         vmask[:used] = torch.from_numpy(np.array(valid, dtype=bool)).to(self.device)
-        if self.metric is DistanceMetric.COSINE:
-            # cosine is normalization-invariant: store rows pre-normalized
-            full = normalize(full)
-        self._set_state(full, vmask, torch.sum(full * full, dim=1))
-        pd = None
-        if self.dim < 512 and n_pad >= BUCKET_MIN_ROWS:
-            pd = sq8pd_build(full, vmask, self.dim, self.metric)
-        self._set_pd(pd)
+        self._reset(n_pad, vmask)
+        mode = self.storage_mode
+        if mode is StorageMode.FULL:
+            if self.metric is DistanceMetric.COSINE:
+                # cosine is normalization-invariant: store rows pre-normalized
+                x = normalize(x)
+            self._full, self._full_sqnorm = x, torch.sum(x * x, dim=1)
+            if self.dim < 512 and n_pad >= BUCKET_MIN_ROWS:
+                self._set_pd(sq8pd_build(x, vmask, self.dim, self.metric))
+                if self._assist_pd is None:
+                    self._assist = _assist_shadow(x, vmask, self.metric)
+        elif mode is StorageMode.SQ8:
+            sq = sq8_quantize(x)
+            scale, minv, pen, deq_sq = _affine_fold(sq, vmask, self.metric)
+            self._sq8 = sq
+            if self.metric is DistanceMetric.EUCLIDEAN:
+                self._sq_norm = deq_sq
+            elif self.metric is DistanceMetric.COSINE:
+                self._sq_norm = torch.sqrt(deq_sq)
+            self._sq8_rows8 = sq8_int8_rows(sq.codes)
+            self._sq8_scale, self._sq8_minv, self._sq8_pen = scale, minv, pen
+        else:
+            self._packed = binary_quantize(x)
+            d_pad = -(-self.dim // 128) * 128
+            if n_pad * d_pad <= _ham_mxu_max_bytes():
+                bits = hamming_bits_rows(x, self.dim)
+                csum = bits.to(torch.int32).sum(dim=1)
+                self._ham_bits = bits
+                self._ham_aux = torch.where(vmask, csum, csum + _HAM_BIG).to(torch.int32)
 
-    def load_state(self, state: dict) -> None:
-        """Adopt padded device state, e.g. from :func:`state_from_jax`."""
-        self._set_state(state["full"], state["valid"], state["full_sqnorm"])
-        self._set_pd(state.get("assist_pd"))
-
-    def _set_state(self, full, valid, sqnorm) -> None:
-        self.n_pad = full.shape[0]
-        self._full = full
+    def _reset(self, n_pad: int, valid: torch.Tensor) -> None:
+        for name in ("_full", "_full_sqnorm", "_assist_pd", "_pd_ptile", "_assist",
+                     "_sq8", "_sq_norm", "_sq8_rows8", "_sq8_scale", "_sq8_minv",
+                     "_sq8_pen", "_packed", "_ham_bits", "_ham_aux"):
+            setattr(self, name, None)
+        self.n_pad = n_pad
+        self._chunk = bucket_chunk(n_pad)
         self._valid = valid
-        self._full_sqnorm = sqnorm
 
     def _set_pd(self, pd) -> None:
         self._assist_pd = pd
-        self._pd_chunk = pd_chunk(self.n_pad) if pd is not None else 0
-        self._pd_ptile = sq8pd_ptile(pd[1], self._pd_chunk) if pd is not None else None
+        self._pd_ptile = sq8pd_ptile(pd[1], self._chunk) if pd is not None else None
+
+    def load_state(self, state: dict) -> None:
+        """Adopt padded device state, e.g. from :func:`state_from_jax`."""
+        self._reset(state["valid"].shape[0], state["valid"])
+        for key, value in state.items():
+            if key not in ("valid", "assist_pd"):
+                setattr(self, f"_{key}", value)
+        if state.get("assist_pd") is not None:
+            self._set_pd(state["assist_pd"])
 
     # -- search ------------------------------------------------------------
 
-    def _pd_plan(self, k: int) -> int:
-        """m for the pd core at this k, or 0 when the streamed scan serves.
-        The single source of the dispatch rule for search and serve_engine."""
-        if self._assist_pd is None or self.dim >= 512:
-            return 0
-        m = _pd_m(k)
-        if m >= k and _bucket_safe(self.n_pad, self._pd_chunk, m):
-            return m
-        return 0
+    def _plan(self, k: int) -> tuple[str, int]:
+        """``(engine, m)`` for a top-``k`` search (``m``: coarse candidates of
+        an assist core). The single source of the dispatch rule for
+        :meth:`search` and :meth:`serve_engine`."""
+        mode, n_pad = self.storage_mode, self.n_pad
+        if mode is StorageMode.FULL:
+            m = _pd_m(k)
+            if self.dim < 512 and m >= k and _bucket_safe(n_pad, self._chunk, m):
+                if self._assist_pd is not None:
+                    return "int8-assist-pd", m
+                if self._assist is not None:
+                    return "int8-assist", m
+            return "streamed-scan", 0
+        if mode is StorageMode.SQ8:
+            return ("sq8-int8" if _bucket_safe(n_pad, self._chunk, k) else "sq8-streamed"), 0
+        if self._ham_bits is not None and _bucket_safe(n_pad, self._chunk, k):
+            return "hamming-mxu", 0
+        if _bucket_safe(n_pad, HAMMING_CHUNK, k):
+            return "hamming-bucket", 0
+        return "hamming-topk", 0
 
     def serve_engine(self, k: int = 10) -> str:
         """Name of the core a ``search(..., k)`` would run right now."""
-        return "int8-assist-pd" if self._pd_plan(k) else "streamed-scan"
+        return self._plan(min(k, self.n_pad))[0]
 
     def search(self, queries, k: int, mask=None):
         """Masked exact top-k. Returns ``(values [B, k] f32, slot ids [B, k]
-        int64)`` on the index's device; empty slots are id -1."""
+        int64)`` on the index's device in the metric's native orientation;
+        empty slots are id -1. BINARY storage scores Hamming distance of the
+        sign bits (``1 - dist/dim`` for similarity metrics)."""
         q = torch.atleast_2d(
             torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         )
@@ -154,21 +273,58 @@ class BruteForceIndex:
             if not isinstance(mask, torch.Tensor):
                 mask = torch.from_numpy(np.asarray(mask, bool))
             mask_dev = _pad_to(mask.to(self.device, torch.bool), self.n_pad)
-        m = self._pd_plan(k_eff)
-        if m:
+        engine, m = self._plan(k_eff)
+        valid = self._valid if mask_dev is None else self._valid & mask_dev
+
+        def knock(t, value):
+            return t if mask_dev is None else torch.where(mask_dev, t, value)
+
+        if engine == "int8-assist-pd":
             rows_pd, _, _, sdim, _, qu = self._assist_pd
-            ptile = self._pd_ptile
-            if mask_dev is not None:
-                ptile = torch.where(mask_dev, ptile, -64 * _pd_invalid_pen(self.dim))
+            ptile = knock(self._pd_ptile, -64 * _pd_invalid_pen(self.dim))
             return sq8pd_rerank_topk(
                 q, rows_pd, ptile, sdim, qu, self._full, k=k_eff, m=m,
-                metric=self.metric, chunk=self._pd_chunk, dim=self.dim,
+                metric=self.metric, chunk=self._chunk, dim=self.dim,
             )
-        valid = self._valid if mask_dev is None else self._valid & mask_dev
-        return streamed_topk(
-            q, self._full, valid=valid, k=k_eff, metric=self.metric,
-            corpus_sqnorm=self._full_sqnorm,
-        )
+        if engine == "int8-assist":
+            rows8, scale, minv, pen, shift = self._assist
+            return sq8i_rerank_topk(
+                q, rows8, scale, minv, knock(pen, torch.inf), self._full, k=k_eff, m=m,
+                metric=self.metric, chunk=self._chunk, shift=shift,
+            )
+        if engine == "streamed-scan":
+            return streamed_topk(
+                q, self._full, valid=valid, k=k_eff, metric=self.metric,
+                corpus_sqnorm=self._full_sqnorm,
+            )
+        if engine == "sq8-int8":
+            return sq8i_bucket_topk(
+                q, self._sq8_rows8, self._sq8_scale, self._sq8_minv,
+                knock(self._sq8_pen, torch.inf), k=k_eff, metric=self.metric,
+                chunk=self._chunk,
+            )
+        if engine == "sq8-streamed":
+            cn = self._sq_norm if self._sq_norm is not None else torch.zeros_like(self._sq8.scale)
+            return sq8_streamed_topk(
+                q, self._sq8, cnorm=cn, valid=valid, k=k_eff, metric=self.metric,
+            )
+        if engine == "hamming-mxu":
+            qbits = F.pad((q >= 0.0).to(torch.int8), (0, self._ham_bits.shape[1] - self.dim))
+            dist, idx = hamming_mxu_topk(
+                qbits, self._ham_bits, knock(self._ham_aux, self._ham_aux + _HAM_BIG),
+                k=k_eff, chunk=self._chunk,
+            )
+        elif engine == "hamming-bucket":
+            pen = torch.where(valid, 0.0, torch.inf)
+            dist, idx = hamming_bucket_topk(
+                binary_quantize(q), self._packed, pen, k=k_eff, chunk=HAMMING_CHUNK,
+            )
+        else:
+            dist, idx = hamming_topk(binary_quantize(q), self._packed, valid=valid, k=k_eff)
+        if self.metric.higher_is_better:
+            sim = 1.0 - _div(dist, float(self.dim))
+            return torch.where(idx < 0, -torch.inf, sim), idx
+        return dist, idx
 
 
 def _pad_to(mask: torch.Tensor, n_pad: int) -> torch.Tensor:
@@ -181,30 +337,44 @@ def state_from_jax(arrays: dict, device) -> dict:
     """Turn the JAX index's padded arrays into this package's device state.
 
     ``arrays`` holds numpy copies of the reference ``BruteForceIndex``'s
-    ``_full``, ``_valid`` and ``_full_sqnorm`` under ``full``, ``valid`` and
-    ``full_sqnorm``, and, when its pd shadow exists, the five arrays plus
-    ``qu`` of ``_assist_pd`` under ``rows_pd``, ``pen_int``, ``pen_f32``,
-    ``sdim``, ``mid`` and ``qu``. Other keys (``bucket_pen``, the f32 bucket
-    kernel's penalty) are accepted and not used. The result feeds
-    :meth:`BruteForceIndex.load_state`, so both packages search from
-    identical shadows."""
+    state, under its attribute names without the leading underscore:
+    ``valid`` always; FULL: ``full``, ``full_sqnorm``, and the pd shadow as
+    ``rows_pd``, ``pen_int``, ``pen_f32``, ``sdim``, ``mid``, ``qu`` or the
+    per-row shadow as ``assist`` (the reference's uncentered 4-tuple
+    ``(rows8, scale, minv, pen)``, adopted with ``shift = None``);
+    SQ8: ``sq8`` (the ``(codes, scale, minv)`` tuple), ``sq_norm`` (absent
+    or None for dot), ``sq8_rows8``, ``sq8_scale``, ``sq8_minv``,
+    ``sq8_pen``; BINARY: ``packed`` (uint32 words) and, when built,
+    ``ham_bits`` and ``ham_aux``. Other keys are accepted and not used. The
+    result feeds :meth:`BruteForceIndex.load_state`, so both packages search
+    from identical state."""
 
-    def put(key, dtype):
-        return torch.from_numpy(np.ascontiguousarray(arrays[key], dtype)).to(device)
+    def put(a, dtype):
+        a = np.ascontiguousarray(a)
+        if dtype == np.int32 and a.dtype == np.uint32:
+            a = a.view(np.int32)  # the same bits; torch has no full uint32
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    state = {
-        "full": put("full", np.float32),
-        "valid": put("valid", bool),
-        "full_sqnorm": put("full_sqnorm", np.float32),
-        "assist_pd": None,
+    f32, i32, i8 = np.float32, np.int32, np.int8
+    state = {"valid": put(arrays["valid"], bool)}
+    plain = {
+        "full": f32, "full_sqnorm": f32, "sq_norm": f32, "sq8_rows8": i8,
+        "sq8_scale": f32, "sq8_minv": f32, "sq8_pen": f32, "packed": i32,
+        "ham_bits": i8, "ham_aux": i32,
     }
+    for key, dtype in plain.items():
+        if arrays.get(key) is not None:
+            state[key] = put(arrays[key], dtype)
     if "rows_pd" in arrays:
         state["assist_pd"] = (
-            put("rows_pd", np.int8),
-            put("pen_int", np.int32),
-            put("pen_f32", np.float32),
-            put("sdim", np.float32),
-            put("mid", np.float32),
-            float(arrays["qu"]),
+            put(arrays["rows_pd"], i8), put(arrays["pen_int"], i32),
+            put(arrays["pen_f32"], f32), put(arrays["sdim"], f32),
+            put(arrays["mid"], f32), float(arrays["qu"]),
         )
+    if arrays.get("assist") is not None:
+        rows8, scale, minv, pen = arrays["assist"]
+        state["assist"] = (put(rows8, i8), put(scale, f32), put(minv, f32), put(pen, f32), None)
+    if arrays.get("sq8") is not None:
+        codes, scale, minv = arrays["sq8"]
+        state["sq8"] = SQ8Vectors(put(codes, np.uint8), put(scale, f32), put(minv, f32))
     return state

@@ -6,6 +6,8 @@ library under ``velesdb_tpu_torch/_build/`` and loaded with ``ctypes``. The
 library's file name carries a hash of the source, so an edited source is
 rebuilt and a stale library is never loaded. Nothing is compiled at import
 time, and nothing is ever built from outside the package's ``csrc/``.
+:func:`build_all` starts one ``nvcc`` per source at once, so a caller that
+needs several kernels pays for the slowest build, not the sum.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import subprocess
 import threading
 import time
 
-__all__ = ["library", "BUILD_SECONDS"]
+__all__ = ["library", "build_all", "BUILD_SECONDS", "BUILD_LOG"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -26,10 +28,11 @@ _BUILD = os.path.join(_PKG, "_build")
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: dict[str, float] = {}  # name -> nvcc wall time (0.0 = cached)
+BUILD_LOG: dict[str, str] = {}  # name -> nvcc/ptxas stderr (registers, spills)
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 
@@ -43,33 +46,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _build(name: str) -> str:
+def _paths(name: str) -> tuple[str, str]:
     src = os.path.join(_CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib = os.path.join(_BUILD, f"lib{name}-{digest}.so")
+    return src, os.path.join(_BUILD, f"lib{name}-{digest}.so")
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source; None when its library is already built."""
+    src, lib = _paths(name)
     if os.path.exists(lib):
         BUILD_SECONDS[name] = 0.0
-        return lib
+        return None
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", tmp, src],
-        capture_output=True, text=True,
-    )
+    proc = subprocess.Popen([_nvcc(), *_NVCC_FLAGS, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, src, lib, tmp, time.perf_counter()
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, src, lib, tmp, t0 = job
+    _, err = proc.communicate()
+    BUILD_LOG[name] = err
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {src}:\n{err}")
     os.replace(tmp, lib)
     BUILD_SECONDS[name] = time.perf_counter() - t0
-    return lib
+
+
+def build_all(names) -> None:
+    """Build (and load) every named kernel library, all ``nvcc`` runs at once."""
+    with _LOCK:
+        jobs = {name: _start(name) for name in names if name not in _LIBS}
+        try:
+            for name, job in jobs.items():
+                _finish(name, job)
+        finally:
+            for job in jobs.values():
+                if job is not None and job[0].poll() is None:
+                    job[0].kill()
+                    job[0].wait()
+        for name in jobs:
+            _LIBS[name] = ctypes.CDLL(_paths(name)[1])
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``csrc/<name>.cu``, built on first use."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(_build(name))
-            _LIBS[name] = lib
-        return lib
+    if name not in _LIBS:
+        build_all([name])
+    return _LIBS[name]

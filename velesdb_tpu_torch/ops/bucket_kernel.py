@@ -1,27 +1,33 @@
-"""Per-dimension int8 "enc-select" coarse scan + exact f32 rerank.
+"""Bucket-select coarse scans on the card: the int8 and Hamming kernels.
 
-Counterpart of the pd family of ``velesdb_tpu/ops/bucket_kernel.py``
-(``:595-808`` and ``_exact_rerank_tail`` ``:1124``), the FULL-storage serve
-core at D < 512 and at least ``BUCKET_MIN_ROWS`` padded rows.
+Counterpart of ``velesdb_tpu/ops/bucket_kernel.py``. Every kernel here scores
+a query batch against a padded corpus chunk by chunk and keeps ONE winner per
+128-lane bucket of each chunk (``_bucket_select``), so the ``[B, N]`` score
+matrix never exists in device memory; an exact ``torch.topk`` over the bucket
+winners (``_final_select``) finishes the search. Four hand-written CUDA
+kernels (``csrc/``), each with its plain torch version beside it:
 
-The corpus gets a shadow quantized per DIMENSION with one corpus-calibrated
-query step ``qu``, so every score of the coarse pass is an integer:
+- ``sq8pd_bucket`` (#1, :func:`sq8pd_bucket_gm`): the per-DIMENSION int8
+  "enc-select" scan, the FULL-storage core at D < 512 and at least
+  ``BUCKET_MIN_ROWS`` padded rows (``:595-808`` of the reference). The corpus
+  gets a shadow quantized per dimension with one corpus-calibrated query step
+  ``qu``, so every coarse score is an integer,
+  ``qu * doti - pen ~ 2 q.x - |x|^2`` (euclidean) or ``2 q.x``, and the scan
+  rides one ENCODED int32 tile ``enc = doti * 64 + ptile`` with
+  ``ptile = -64 * pen_int + slice_index``: one integer max per bucket yields
+  the winner's value AND its row. int32 budget (dim <= 512): |doti| <=
+  127*127*dim, valid ``pen_int`` capped at ``_PD_PEN_CAP`` (else
+  :func:`sq8pd_build` refuses), knocked-out rows carry ``_pd_invalid_pen``.
+- ``sq8i_bucket`` (#7, :func:`sq8i_bucket_gm`): the per-ROW SQ8 scan, int8
+  queries against int8 ``code - 128`` rows with the f32 affine epilogue. It
+  serves SQ8 storage, and FULL storage where ``sq8pd_build`` refuses.
+- ``hamming_mxu_bucket`` (#5, :func:`hamming_mxu_gm`): Hamming distance as an
+  int8 dot of 0/1 bit rows (the BINARY default while the bit shadow fits).
+- ``hamming_bucket`` (#4, :func:`hamming_bucket_gm`): XOR + popcount over the
+  packed words (BINARY past the bit-shadow budget).
 
-    qu * doti - pen  ~  2 q.x - |x|^2 (euclidean) or 2 q.x (cosine/dot)
-
-with ``doti`` the int8 x int8 dot and ``pen_int = round(pen / qu)``. The
-scan rides a single ENCODED int32 tile, ``enc = doti * 64 + ptile`` with
-``ptile = -64 * pen_int + slice_index``: the in-chunk slice index lives in
-the low 6 bits, so one integer max per 128-lane bucket yields the bucket
-winner's value AND its row. That scan is the hand-written CUDA kernel
-``csrc/sq8pd_bucket.cu`` (:func:`sq8pd_bucket_gm`); :func:`sq8pd_bucket_gm_ref`
-is its plain torch version. A top-m over the bucket winners, then an exact
-fp32 rescoring of the m candidates from the resident corpus, gives the top-k.
-
-int32 budget (dim <= 512): |doti| <= 127*127*dim, valid ``pen_int`` capped at
-``_PD_PEN_CAP`` (else :func:`sq8pd_build` refuses), knocked-out rows carry
-``_pd_invalid_pen(dim)`` so masked scores sit strictly below every valid score
-and |enc| < 2^31.
+A wrapper takes its plain version only for CPU tensors; on CUDA tensors it
+launches its kernel on the current stream or raises.
 """
 
 from __future__ import annotations
@@ -37,8 +43,21 @@ from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
 
 __all__ = [
     "BUCKET_MIN_ROWS",
+    "HAMMING_CHUNK",
     "LAUNCHES",
-    "pd_chunk",
+    "bucket_chunk",
+    "sq8_int8_rows",
+    "sq8i_bucket_gm",
+    "sq8i_bucket_ref",
+    "sq8i_bucket_topk",
+    "sq8i_rerank_topk",
+    "hamming_bits_rows",
+    "hamming_mxu_gm",
+    "hamming_mxu_ref",
+    "hamming_mxu_topk",
+    "hamming_bucket_gm",
+    "hamming_bucket_ref",
+    "hamming_bucket_topk",
     "sq8pd_build",
     "sq8pd_ptile",
     "sq8pd_bucket_gm",
@@ -55,10 +74,18 @@ BUCKET_MIN_ROWS = 131_072
 _LANES = 128
 _MAX_CHUNK = 8192  # 64 slices of 128 rows: the slice index fits 6 bits
 _PD_PEN_CAP = 1 << 21
+# The packed Hamming scan's chunk, as the reference hard-codes it
+# (``index/brute.py:639``): 16 slices of 128 rows.
+HAMMING_CHUNK = 2048
 
 # Kernel launches per wrapper, counted where the CUDA kernel is launched and
 # nowhere else (the CPU path of a wrapper does not count).
-LAUNCHES = {"sq8pd_bucket_gm": 0}
+LAUNCHES = {
+    "sq8pd_bucket_gm": 0,
+    "sq8i_bucket_gm": 0,
+    "hamming_mxu_gm": 0,
+    "hamming_bucket_gm": 0,
+}
 
 
 def _pd_doti_max(dim: int) -> int:
@@ -96,10 +123,12 @@ def _row_sumsq(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def pd_chunk(n_pad: int) -> int:
-    """Rows per kernel chunk: the largest allowed, ``min(8192, n_pad)``. It
-    divides every padded row count (``pad_rows`` steps are multiples of
-    8192 above 64K rows and powers of two below)."""
+def bucket_chunk(n_pad: int) -> int:
+    """Rows per chunk of the int8 scans (#1, #7, #5): the largest allowed,
+    ``min(8192, n_pad)``. It divides every padded row count (``pad_rows``
+    steps are multiples of 8192 above 64K rows and powers of two below).
+    The reference sizes its chunk from a TPU VMEM model; here it is one rule
+    shared by dispatch, ``serve_engine`` and the collision guard."""
     return min(_MAX_CHUNK, n_pad)
 
 
@@ -167,6 +196,35 @@ def _sq8pd_quantize_queries(queries: torch.Tensor, sdim: torch.Tensor, qu: float
     return F.pad(qi, (0, 0, 0, b_pad - b)), b_pad
 
 
+_P = (ctypes.c_void_p,)
+_IIJ = (ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int)  # B_pad, N, width, chunk
+
+
+@functools.cache
+def _entry(lib: str, symbol: str, argtypes: tuple):
+    """A kernel library's C entry point, built and bound on first use. Every
+    entry takes its pointers and sizes, then the stream, and returns the
+    launch's CUDA error code."""
+    fn = getattr(_cuda.library(lib), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    return fn
+
+
+def _launch(launches: dict, counter: str, lib: str, symbol: str, argtypes: tuple,
+            *args) -> None:
+    """Launch a kernel on the current stream of its first tensor's device,
+    raise on a CUDA error, and count the launch under ``launches[counter]``
+    (the launching module's ``LAUNCHES``)."""
+    dev = args[0].device
+    fn = _entry(lib, symbol, argtypes)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib} launch failed with CUDA error {rc}")
+    launches[counter] += 1
+
+
 def _check_gm_args(qi, rows_pd, ptile, chunk: int) -> None:
     if not (qi.device == rows_pd.device == ptile.device):
         raise ValueError("qi, rows_pd and ptile must be on one device")
@@ -206,19 +264,6 @@ def sq8pd_bucket_gm_ref(qi: torch.Tensor, rows_pd: torch.Tensor,
     return enc.reshape(b, n // chunk, chunk // _LANES, _LANES).amax(dim=2).reshape(b, -1)
 
 
-@functools.cache
-def _gm_launch():
-    """The kernel library's C entry point, built and bound on first use."""
-    fn = _cuda.library("sq8pd_bucket").sq8pd_bucket_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    return fn
-
-
 def sq8pd_bucket_gm(qi: torch.Tensor, rows_pd: torch.Tensor, ptile: torch.Tensor,
                     chunk: int) -> torch.Tensor:
     """Encoded bucket maxima ``gm int32 [B_pad, N/chunk*128]``.
@@ -232,18 +277,11 @@ def sq8pd_bucket_gm(qi: torch.Tensor, rows_pd: torch.Tensor, ptile: torch.Tensor
         raise ValueError(f"unsupported device {qi.device}")
     if rows_pd.data_ptr() % 4 or qi.data_ptr() % 4:
         raise ValueError("qi and rows_pd must be 4-byte aligned")
-    launch = _gm_launch()
     b_pad = qi.shape[0]
     n, d_pad = rows_pd.shape
     gm = torch.empty((b_pad, n // chunk * _LANES), dtype=torch.int32, device=qi.device)
-    stream = torch.cuda.current_stream(qi.device).cuda_stream
-    rc = launch(
-        qi.data_ptr(), rows_pd.data_ptr(), ptile.data_ptr(), gm.data_ptr(),
-        b_pad, n, d_pad, chunk, stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"sq8pd_bucket launch failed with CUDA error {rc}")
-    LAUNCHES["sq8pd_bucket_gm"] += 1
+    _launch(LAUNCHES, "sq8pd_bucket_gm", "sq8pd_bucket", "sq8pd_bucket_launch", _P * 4 + _IIJ,
+            qi, rows_pd, ptile, gm, b_pad, n, d_pad, chunk)
     return gm
 
 
@@ -265,18 +303,20 @@ def sq8pd_candidates(queries, rows_pd, ptile, sdim, qu, *, m, chunk, dim):
 
 def _exact_rerank_tail(queries, corpus, ci, *, k, metric):
     """Gather the ``ci`` candidates ``[B, m, D]`` from the resident f32 corpus
-    and rescore them exactly in fp32 (cosine corpus rows are pre-normalized)."""
+    and rescore them exactly in fp32 (cosine corpus rows are pre-normalized).
+
+    Euclidean distances are summed from the differences, ``|q - c|^2``. The
+    reference expands ``|q|^2 + |c|^2 - 2 q.c``, which cancels in fp32 once
+    the norms dwarf the distances: on a corpus offset by 100 per coordinate
+    it swaps near neighbours at any m (ROADMAP.md, faults of the reference)."""
     cand = corpus[ci.clamp_min(0)]  # [B, m, D]
     q = queries.float()
+    if metric is DistanceMetric.EUCLIDEAN:
+        d2 = torch.sum((cand - q[:, None, :]) ** 2, dim=-1)
+        d2, order = torch.topk(torch.where(ci < 0, torch.inf, d2), k, dim=1, largest=False)
+        return torch.sqrt(d2), torch.gather(ci, 1, order)
     qn = normalize(q) if metric is DistanceMetric.COSINE else q
     dots = torch.bmm(cand, qn[:, :, None])[:, :, 0]  # [B, m]
-    if metric is DistanceMetric.EUCLIDEAN:
-        qq = torch.sum(qn * qn, dim=1, keepdim=True)
-        csq = torch.sum(cand * cand, dim=-1)
-        exact = torch.where(ci < 0, torch.inf, qq + csq - 2.0 * dots)
-        d2, order = torch.topk(exact, k, dim=1, largest=False)
-        ids = torch.gather(ci, 1, order)
-        return torch.sqrt(d2.clamp_min(0.0)), ids
     exact = torch.where(ci < 0, -torch.inf, dots)
     vals, order = torch.topk(exact, k, dim=1)
     ids = torch.gather(ci, 1, order)
@@ -317,3 +357,344 @@ def sq8pd_topk(queries, rows_pd, ptile, sdim, mid, qu, *, k, chunk, dim, metric)
         qn = torch.sqrt(torch.sum(q * q, dim=1).clamp_min(1e-30))
         dots = dots / qn[:, None]
     return torch.where(empty, -torch.inf, dots), idx
+
+
+# ---------------------------------------------------------------------------
+# shared bucket helpers (reference ``:117-149``)
+# ---------------------------------------------------------------------------
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _bucket_select(s: torch.Tensor, chunk: int):
+    """One (max, argmax) winner per 128-lane bucket of each chunk of the
+    ``[B, N]`` scores: ``(gm [B, N/chunk*128], gi int32 global rows)``. Ties
+    go to the smallest slice index, as in the reference (``:127-129``), so a
+    bucket of ``-inf`` scores returns its slice-0 row."""
+    b, n = s.shape
+    t = s.reshape(b, n // chunk, chunk // _LANES, _LANES)
+    gm = t.amax(dim=2)
+    off = torch.argmax((t == gm[:, :, None, :]).to(torch.uint8), dim=2)
+    base = torch.arange(0, n, chunk, device=s.device)[:, None]
+    lane = torch.arange(_LANES, device=s.device)[None, :]
+    gi = base[None] + off * _LANES + lane[None]
+    return gm.reshape(b, -1), gi.reshape(b, -1).to(torch.int32)
+
+
+def _final_select(gm: torch.Tensor, gi: torch.Tensor, k: int, b: int):
+    """Exact top-k over the bucket winners (the reference's PartialReduce is
+    ``approx_max_k``, exact ``top_k`` on its CPU path), empties mapped to id
+    -1. Equal scores go to the smallest bucket position, as ``top_k`` breaks
+    them, on every device: ``torch.topk`` orders ties one way on the CPU and
+    another on CUDA, and Hamming scores tie often. The select runs on one
+    int64 key per winner, the f32 score's order-preserving bits above the
+    reversed position, so no two keys are equal."""
+    bits = (gm + 0.0).view(torch.int32)  # -0.0 -> +0.0 first
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    rev = (1 << 32) - 1 - torch.arange(gm.shape[1], device=gm.device)
+    top = torch.topk(key * (1 << 32) + rev, min(k, gm.shape[1]), dim=1).values
+    pos = (1 << 32) - 1 - (top & 0xFFFFFFFF)
+    vals = torch.gather(gm, 1, pos)
+    idx = torch.gather(gi, 1, pos)[:b].long()
+    vals = vals[:b]
+    return vals, torch.where(vals == -torch.inf, -1, idx)
+
+
+def _restore_euclidean(vals, idx, qq):
+    """Scores were maximize-oriented ``2 q.c - |c|^2``; surface distances."""
+    d2 = (qq[:, None] - vals).clamp_min(0.0)
+    return torch.where(idx < 0, torch.inf, torch.sqrt(d2)), idx
+
+
+def _int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a [B, D] . b [N, D]^T`` of int8 operands through fp32
+    matmuls over blocks of 1,024 dims: every partial sum of a block is an
+    integer below 127 * 128 * 1024 < 2^24, so fp32 holds it exactly (TF32
+    keeps int8 inputs exact too and still accumulates in fp32)."""
+    out = None
+    for d0 in range(0, a.shape[1], 1024):
+        part = (a[:, d0 : d0 + 1024].float() @ b[:, d0 : d0 + 1024].float().T).to(torch.int32)
+        out = part if out is None else out + part
+    return out
+
+
+def _kernel_route(*tensors) -> bool:
+    """True when the plain version serves (CPU tensors). Raises on mixed or
+    unsupported devices, non-contiguous or misaligned tensors."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("all kernel inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("kernel inputs must be contiguous")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("kernel inputs must be 16-byte aligned")
+    return False
+
+
+def _check_rows(q, rows, q_dtype, rows_dtype, chunk: int, vectors: tuple = (),
+                queries: tuple = ()) -> None:
+    """Shared shape/dtype contract: ``q [B_pad, W]``, ``rows [N, W]``,
+    per-row f32/int32 vectors ``[N]``, per-query vectors ``[B_pad]``."""
+    if q.dtype != q_dtype or rows.dtype != rows_dtype:
+        raise TypeError(f"expected q {q_dtype} and rows {rows_dtype}, got {q.dtype}, {rows.dtype}")
+    if q.ndim != 2 or rows.ndim != 2 or q.shape[1] != rows.shape[1] or q.shape[0] < 1:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, rows {tuple(rows.shape)}")
+    n = rows.shape[0]
+    for v in vectors:
+        if v.ndim != 1 or v.shape[0] != n:
+            raise ValueError(f"per-row vector of shape {tuple(v.shape)} for N={n}")
+    for v in queries:
+        if v.ndim != 1 or v.shape[0] != q.shape[0]:
+            raise ValueError(f"per-query vector of shape {tuple(v.shape)} for B={q.shape[0]}")
+    if chunk <= 0 or chunk % _LANES or chunk > _MAX_CHUNK or n % chunk:
+        raise ValueError(
+            f"chunk={chunk} must be a multiple of 128, <= {_MAX_CHUNK}, and divide N={n}"
+        )
+
+
+def _gm_gi(b_pad: int, n: int, chunk: int, device):
+    nb = n // chunk * _LANES
+    return (torch.empty((b_pad, nb), dtype=torch.float32, device=device),
+            torch.empty((b_pad, nb), dtype=torch.int32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# #7: SQ8 per-row int8 scan (reference ``sq8_int8_rows`` :983,
+# ``_sq8i_kernel`` :996, ``sq8i_bucket_topk`` :1018, ``sq8i_rerank_topk`` :1088)
+# ---------------------------------------------------------------------------
+
+
+def sq8_int8_rows(codes: torch.Tensor) -> torch.Tensor:
+    """Shift ``[N, D] uint8`` SQ8 codes to signed ``[N, D_pad] int8`` rows
+    (``code - 128``, D padded to a multiple of 128 with code 128, i.e. 0)."""
+    d = codes.shape[1]
+    c = F.pad(codes.to(torch.int16), (0, _round_up(d, _LANES) - d), value=128)
+    return (c - 128).to(torch.int8)
+
+
+_SQ8I_MAX_DPAD = 12288  # 16 queries x D_pad bytes of shared memory
+
+
+def _check_sq8i(qi, rows8, scale, am, pen, sqi, invqs, chunk):
+    _check_rows(qi, rows8, torch.int8, torch.int8, chunk, (scale, am, pen), (sqi, invqs))
+    if any(v.dtype != torch.float32 for v in (scale, am, pen, sqi, invqs)):
+        raise TypeError("scale, am, pen, sqi and invqs must be float32")
+    if qi.shape[1] % 16 or qi.shape[1] > _SQ8I_MAX_DPAD:
+        raise ValueError(f"D_pad={qi.shape[1]} must be a multiple of 16, <= {_SQ8I_MAX_DPAD}")
+
+
+def sq8i_bucket_ref(qi, rows8, scale, am, pen, sqi, invqs, chunk: int):
+    """Plain torch version of #7: ``s = doti*scale_n + sqi_b*am_n -
+    invqs_b*pen_n`` per (query, row), each product and sum rounded to fp32
+    in this order, then the bucket select. Returns ``(gm f32, gi int32)``."""
+    s = _int8_dot(qi, rows8).float() * scale[None, :] + sqi[:, None] * am[None, :]
+    s = s - invqs[:, None] * pen[None, :]
+    return _bucket_select(s, chunk)
+
+
+def sq8i_bucket_gm(qi, rows8, scale, am, pen, sqi, invqs, chunk: int):
+    """Bucket winners of the per-row SQ8 scan, ``(gm f32, gi int32)
+    [B_pad, N/chunk*128]``. CUDA tensors launch ``csrc/sq8i_bucket.cu``;
+    CPU tensors take :func:`sq8i_bucket_ref`."""
+    _check_sq8i(qi, rows8, scale, am, pen, sqi, invqs, chunk)
+    if _kernel_route(qi, rows8, scale, am, pen, sqi, invqs):
+        return sq8i_bucket_ref(qi, rows8, scale, am, pen, sqi, invqs, chunk)
+    (b_pad, d_pad), n = qi.shape, rows8.shape[0]
+    gm, gi = _gm_gi(b_pad, n, chunk, qi.device)
+    _launch(LAUNCHES, "sq8i_bucket_gm", "sq8i_bucket", "sq8i_bucket_launch", _P * 9 + _IIJ,
+            qi, rows8, scale, am, pen, sqi, invqs, gm, gi, b_pad, n, d_pad, chunk)
+    return gm, gi
+
+
+def _sq8i_quantize_queries(queries: torch.Tensor, metric: DistanceMetric, d_pad: int):
+    """Per-query symmetric int8 quantization (reference ``:1033-1048``):
+    ``(qi [B_pad, D_pad] int8, qs [B_pad], sqi [B_pad], invqs [B_pad], qq [B])``
+    with B padded to a multiple of 8 (pad rows: qi 0, qs 1)."""
+    b = queries.shape[0]
+    b_pad = _round_up(max(b, 8), 8)
+    q = queries.float()
+    qq = torch.sum(q * q, dim=1)
+    if metric is DistanceMetric.COSINE:
+        q = normalize(q)
+    elif metric is DistanceMetric.EUCLIDEAN:
+        q = 2.0 * q
+    qs = _div(torch.amax(torch.abs(q), dim=1), 127.0).clamp_min(1e-30)
+    qi = torch.round(q / qs[:, None]).to(torch.int8)
+    qi = F.pad(qi, (0, d_pad - qi.shape[1], 0, b_pad - b))
+    qs = F.pad(qs, (0, b_pad - b), value=1.0)
+    invqs = torch.ones_like(qs) / qs
+    sqi = qi.float().sum(dim=1)
+    return qi, qs, sqi, invqs, qq
+
+
+def sq8i_bucket_topk(queries, rows8, scale, minv, penalty, *, k, metric, chunk):
+    """Bucket-selection top-k over int8 SQ8 rows (reference ``:1018``).
+    ``penalty`` is the per-metric additive penalty, ``+inf`` on rows knocked
+    out. Returns metric-native ``(vals [B, k], ids [B, k] int64)``."""
+    metric = DistanceMetric.parse(metric)
+    b = queries.shape[0]
+    qi, qs, sqi, invqs, qq = _sq8i_quantize_queries(queries, metric, rows8.shape[1])
+    am = 128.0 * scale + minv  # folds the code-128 shift back in
+    gm, gi = sq8i_bucket_gm(qi, rows8, scale, am, penalty, sqi, invqs, chunk)
+    vals, idx = _final_select(gm, gi, k, b)
+    vals = vals * qs[:b, None]  # undo the 1/qs ranking normalization
+    if metric is DistanceMetric.EUCLIDEAN:
+        return _restore_euclidean(vals, idx, qq)
+    return vals, idx
+
+
+def sq8i_rerank_topk(queries, rows8, scale, minv, penalty, corpus, *, k, m, metric,
+                     chunk, shift=None):
+    """Coarse per-row int8 scan for ``m`` candidates, then the exact fp32
+    rerank from the resident corpus (reference ``:1088``): the FULL-storage
+    ``int8-assist`` core where the pd shadow is refused. ``shift [D]``, when
+    given, is the point the shadow was centered on (euclidean only): the
+    coarse pass scores ``queries - shift`` against it, which ranks rows by
+    the same distances."""
+    metric = DistanceMetric.parse(metric)
+    coarse_q = queries.float() if shift is None else queries.float() - shift[None, :]
+    _, ci = sq8i_bucket_topk(coarse_q, rows8, scale, minv, penalty, k=m, metric=metric,
+                             chunk=chunk)
+    return _exact_rerank_tail(queries, corpus, ci, k=k, metric=metric)
+
+
+# ---------------------------------------------------------------------------
+# #5: bit-plane Hamming as an int8 dot (reference ``_HAM_BIG`` :491,
+# ``_hamming_mxu_kernel`` :494, ``hamming_bits_rows`` :507,
+# ``hamming_mxu_topk`` :519). popcount(q ^ c) = |q| + |c| - 2 q.c on 0/1 rows.
+# ---------------------------------------------------------------------------
+
+_HAM_BIG = 1 << 20  # knockout >> max popcount(D), far from int32 overflow
+_HAM_MAX_DPAD = 6144  # 32 queries x D_pad bytes of shared memory
+
+
+def hamming_bits_rows(slots: torch.Tensor, dim: int) -> torch.Tensor:
+    """The bit shadow: unpacked int8 0/1 sign bits ``[N, D_pad]``, D padded
+    to a multiple of 128 with zero bits (they cancel in |q| + |c| - 2 q.c)."""
+    bits = (slots[:, :dim] >= 0.0).to(torch.int8)
+    return F.pad(bits, (0, _round_up(dim, _LANES) - dim))
+
+
+def _check_mxu(qi, bits, aux, chunk):
+    _check_rows(qi, bits, torch.int8, torch.int8, chunk)
+    if aux.dtype != torch.int32 or aux.ndim != 1 or aux.shape[0] != bits.shape[0]:
+        raise TypeError("aux must be int32 [N]")
+    if qi.shape[1] % 16 or qi.shape[1] > _HAM_MAX_DPAD:
+        raise ValueError(f"D_pad={qi.shape[1]} must be a multiple of 16, <= {_HAM_MAX_DPAD}")
+
+
+def hamming_mxu_ref(qi, bits, aux, chunk: int):
+    """Plain torch version of #5: ``s = qi . bits_n - aux_n`` in int32
+    (``qi = 2 * qbits``), the bucket select, ``gm`` cast to f32 (exact:
+    |s| < 2^24)."""
+    gm, gi = _bucket_select(_int8_dot(qi, bits) - aux[None, :], chunk)
+    return gm.float(), gi
+
+
+def hamming_mxu_gm(qi, bits, aux, chunk: int):
+    """Bucket winners of the bit-plane Hamming scan, ``(gm f32, gi int32)``.
+    CUDA tensors launch ``csrc/hamming_mxu_bucket.cu``; CPU tensors take
+    :func:`hamming_mxu_ref`."""
+    _check_mxu(qi, bits, aux, chunk)
+    if _kernel_route(qi, bits, aux):
+        return hamming_mxu_ref(qi, bits, aux, chunk)
+    (b_pad, d_pad), n = qi.shape, bits.shape[0]
+    gm, gi = _gm_gi(b_pad, n, chunk, qi.device)
+    _launch(LAUNCHES, "hamming_mxu_gm", "hamming_mxu_bucket", "hamming_mxu_launch", _P * 5 + _IIJ,
+            qi, bits, aux, gm, gi, b_pad, n, d_pad, chunk)
+    return gm, gi
+
+
+def hamming_mxu_topk(qbits, rows_bits, aux, *, k, chunk):
+    """Smallest Hamming distances first: ``qbits [B, D_pad] int8 0/1`` vs the
+    bit shadow; ``aux [N_pad] int32 = |c| + _HAM_BIG * knocked_out``. Returns
+    ``(dist [B, k] f32, ids [B, k] int64)`` with +inf / -1 empties."""
+    b = qbits.shape[0]
+    b_pad = _round_up(max(b, 8), 8)
+    qi = F.pad(2 * qbits, (0, 0, 0, b_pad - b))
+    qsum = qbits.to(torch.int32).sum(dim=1)
+    gm, gi = hamming_mxu_gm(qi, rows_bits, aux, chunk)
+    vals, idx = _final_select(gm, gi, k, b)
+    empty = vals < -(_HAM_BIG // 2)  # int32 scores have no -inf
+    dist = torch.where(empty, torch.inf, qsum[:, None].float() - vals)
+    return dist, torch.where(empty, -1, idx)
+
+
+# ---------------------------------------------------------------------------
+# #4: packed XOR + popcount bucket scan (reference ``_hamming_kernel`` :362,
+# ``hamming_bucket_topk`` :377). The reference pads W to 128 words (a TPU lane
+# artifact); here the scan reads the true W = ceil(D/32) words.
+# ---------------------------------------------------------------------------
+
+_HAM_MAX_WORDS = 256
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of 32-bit values held in int64 ``[0, 2^32)`` (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def hamming_distances(q: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """Exact ``[B, N]`` int32 Hamming distances between packed words, in
+    row blocks that keep each int64 intermediate near 2^24 elements."""
+    b, w = q.shape
+    n = packed.shape[0]
+    out = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    step = max(1, (1 << 24) // max(b, 1))
+    q64 = q.to(torch.int64)
+    for r0 in range(0, n, step):
+        c = packed[r0 : r0 + step].to(torch.int64)
+        acc = torch.zeros((b, c.shape[0]), dtype=torch.int64, device=q.device)
+        for i in range(w):
+            acc += _popcount32((q64[:, i, None] ^ c[None, :, i]) & 0xFFFFFFFF)
+        out[:, r0 : r0 + c.shape[0]] = acc.to(torch.int32)
+    return out
+
+
+def _check_packed(q, packed, pen, chunk):
+    _check_rows(q, packed, torch.int32, torch.int32, chunk, (pen,))
+    if pen.dtype != torch.float32:
+        raise TypeError("pen must be float32")
+    if q.shape[1] > _HAM_MAX_WORDS:
+        raise ValueError(f"W={q.shape[1]} words above {_HAM_MAX_WORDS}")
+
+
+def hamming_bucket_ref(q, packed, pen, chunk: int):
+    """Plain torch version of #4: ``s = -popc(q ^ c) - pen_n`` in fp32, the
+    bucket select. Returns ``(gm f32, gi int32)``."""
+    s = -hamming_distances(q, packed).float() - pen[None, :]
+    return _bucket_select(s, chunk)
+
+
+def hamming_bucket_gm(q, packed, pen, chunk: int):
+    """Bucket winners of the packed Hamming scan, ``(gm f32, gi int32)``.
+    CUDA tensors launch ``csrc/hamming_bucket.cu``; CPU tensors take
+    :func:`hamming_bucket_ref`."""
+    _check_packed(q, packed, pen, chunk)
+    if _kernel_route(q, packed, pen):
+        return hamming_bucket_ref(q, packed, pen, chunk)
+    (b_pad, w), n = q.shape, packed.shape[0]
+    gm, gi = _gm_gi(b_pad, n, chunk, q.device)
+    _launch(LAUNCHES, "hamming_bucket_gm", "hamming_bucket", "hamming_bucket_launch", _P * 5 + _IIJ,
+            q, packed, pen, gm, gi, b_pad, n, w, chunk)
+    return gm, gi
+
+
+def hamming_bucket_topk(packed_q, packed_corpus, penalty, *, k, chunk=HAMMING_CHUNK):
+    """Smallest packed-Hamming distances first; ``penalty [N_pad] f32`` is 0
+    on valid rows and +inf on knocked-out ones. Returns ``(dist [B, k] f32,
+    ids [B, k] int64)`` with +inf / -1 empties."""
+    b = packed_q.shape[0]
+    q = F.pad(packed_q, (0, 0, 0, _round_up(max(b, 8), 8) - b))
+    gm, gi = hamming_bucket_gm(q, packed_corpus, penalty, chunk)
+    vals, idx = _final_select(gm, gi, k, b)
+    return torch.where(idx < 0, torch.inf, -vals), idx

@@ -1,16 +1,39 @@
-"""Storage modes of a collection.
+"""Vector quantization: storage modes, SQ8 affine codes, 1-bit sign packing.
 
-Counterpart of ``StorageMode`` in ``velesdb_tpu/ops/quantization.py``
-(``quantization.rs:20``). Only ``FULL`` is served by this package so far; the
-SQ8/binary quantizers and the half-precision modes are still to be ported
-(ROADMAP.md).
+Counterpart of ``velesdb_tpu/ops/quantization.py`` (``quantization.rs``):
+
+- **SQ8** (``QuantizedVector::from_f32``, ``quantization.rs:229``): per-vector
+  min/max affine mapping to ``uint8`` (4x memory), ``deq = code * scale + min``.
+- **Binary** (``BinaryQuantizedVector::from_f32``, ``quantization.rs:68``):
+  ``v >= 0`` -> bit 1, packed 32 dims per word LSB-first (32x memory). Torch
+  has no full uint32 dtype, so the words are ``int32`` tensors holding the
+  reference's uint32 bits unchanged (``.view(uint32)`` in numpy gives them
+  back).
+
+FULL, SQ8 and BINARY are served by this package; F16 and BF16 storage are
+still to be ported (ROADMAP.md). Both packages round half to even, and every
+constant here is an fp32 tensor, never a Python scalar (a scalar divisor
+becomes a reciprocal multiply on CUDA), so the codes equal the reference's
+bit for bit on the CPU.
 """
 
 from __future__ import annotations
 
 import enum
+from typing import NamedTuple
 
-__all__ = ["StorageMode"]
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "StorageMode",
+    "SQ8Vectors",
+    "sq8_quantize",
+    "sq8_dequantize",
+    "packed_words",
+    "binary_quantize",
+    "binary_unpack",
+]
 
 
 class StorageMode(str, enum.Enum):
@@ -23,3 +46,62 @@ class StorageMode(str, enum.Enum):
     @classmethod
     def parse(cls, v) -> "StorageMode":
         return v if isinstance(v, cls) else cls(str(v).strip().lower())
+
+
+class SQ8Vectors(NamedTuple):
+    """Per-vector affine-quantized batch: ``deq = codes * scale + minv``."""
+
+    codes: torch.Tensor  # [N, D] uint8
+    scale: torch.Tensor  # [N] f32 (range / 255)
+    minv: torch.Tensor  # [N] f32
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def sq8_quantize(x: torch.Tensor) -> SQ8Vectors:
+    """Per-vector min/max affine quantization (``quantization.rs:229-252``)."""
+    x = x.float()
+    minv = torch.amin(x, dim=-1)
+    maxv = torch.amax(x, dim=-1)
+    rng = maxv - minv
+    # XLA folds the reference's ``rng / 255.0`` into a multiply by the fp32
+    # reciprocal of 255; the code division below is a true division in both
+    scale = torch.where(rng > 0, rng * _f32(1.0 / 255.0, rng), 1.0)
+    codes = torch.clamp(torch.round((x - minv[..., None]) / scale[..., None]), 0, 255)
+    return SQ8Vectors(codes.to(torch.uint8), scale, minv)
+
+
+def sq8_dequantize(q: SQ8Vectors) -> torch.Tensor:
+    """``quantization.rs:267-270``: ``f32(code) * scale + min``."""
+    return q.codes.float() * q.scale[..., None] + q.minv[..., None]
+
+
+def packed_words(dim: int) -> int:
+    """Number of 32-bit words for ``dim`` packed bits."""
+    return (dim + 31) // 32
+
+
+def binary_quantize(x: torch.Tensor) -> torch.Tensor:
+    """Sign-pack ``[N, D] f32`` into ``[N, ceil(D/32)] int32`` words: ``v >= 0``
+    -> 1, bit ``d`` of word ``w`` is dimension ``w * 32 + d``."""
+    n, d = x.shape
+    w = packed_words(d)
+    bits = F.pad((x >= 0.0).to(torch.int64), (0, w * 32 - d)).reshape(n, w, 32)
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=x.device),
+        torch.arange(32, device=x.device),
+    )
+    words = torch.sum(bits * weights, dim=-1)  # [0, 2^32) in int64
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def binary_unpack(packed: torch.Tensor, dim: int) -> torch.Tensor:
+    """Unpack ``[N, W]`` words back to ``[N, dim]`` {0, 1} float32."""
+    n, w = packed.shape
+    shifts = torch.arange(32, device=packed.device)
+    bits = torch.bitwise_and(
+        torch.bitwise_right_shift(packed.to(torch.int64)[..., None], shifts), 1
+    )
+    return bits.reshape(n, w * 32)[:, :dim].float()

@@ -1,11 +1,12 @@
 """Streamed exact top-k: a chunked matmul, a per-chunk top-k and an exact merge.
 
 Counterpart of ``velesdb_tpu/ops/streamed.py`` (``streamed_topk`` ->
-``_streamed_entry``, ``approx=False``). The reference runs this in plain XLA
-outside any Pallas kernel, so here it is plain torch: per corpus chunk one
-fp32 ``matmul`` of the whole query batch, a metric fixup, ``torch.topk``,
-and an exact merge into the running ``[B, k]`` result. The ``[B, N]`` score
-matrix is never materialized beyond one chunk.
+``_streamed_entry``, ``approx=False``; ``sq8_streamed_topk`` ``:205``). The
+reference runs this in plain XLA outside any Pallas kernel, so here it is
+plain torch: per corpus chunk one fp32 ``matmul`` of the whole query batch,
+a metric fixup, ``torch.topk``, and an exact merge into the running
+``[B, k]`` result. The ``[B, N]`` score matrix is never materialized beyond
+one chunk.
 
 Scoring is maximize-oriented: dot products for DOT/COSINE (queries
 normalized for cosine; the corpus norms fold in per chunk), and
@@ -18,8 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
+from velesdb_tpu_torch.ops.quantization import SQ8Vectors, sq8_dequantize
 
-__all__ = ["streamed_topk", "STREAM_CHUNK"]
+__all__ = ["streamed_topk", "sq8_streamed_topk", "STREAM_CHUNK"]
 
 STREAM_CHUNK = 65536  # corpus rows per step ([B, C] f32 scores = 64MB @ B=256)
 
@@ -94,9 +96,61 @@ def streamed_topk(
         run_i = torch.gather(torch.cat([run_i, ci + c0], dim=1), 1, pos)
         run_v = mv
 
+    return _finish(run_v, run_i, qq, metric)
+
+
+def _finish(run_v, run_i, qq, metric):
     empty = run_v == -torch.inf
     ids = torch.where(empty, -1, run_i)
     if metric is DistanceMetric.EUCLIDEAN:
         d2 = (qq[:, None] - run_v).clamp_min(0.0)
         return torch.where(empty, torch.inf, torch.sqrt(d2)), ids
     return run_v, ids
+
+
+def sq8_streamed_topk(queries, sq: SQ8Vectors, cnorm=None, valid=None, k: int = 10,
+                      metric: DistanceMetric = DistanceMetric.COSINE,
+                      chunk: int = STREAM_CHUNK):
+    """Exact top-k over an SQ8 corpus without a dequantized copy: per chunk
+    one fp32 matmul on the raw codes plus the rank-1 affine correction
+    ``q . deq(c) = scale * (q . codes) + minv * sum(q)``, then the metric
+    fixup, ``torch.topk`` and the merge. ``cnorm``: euclidean -> squared
+    dequantized norms, cosine -> dequantized norms, dot -> unused. Same
+    output contract as :func:`streamed_topk`.
+
+    The reference casts the queries to bf16 before this matmul and selects
+    with ``approx_max_k``; the port keeps fp32 queries and selects exactly
+    (ROADMAP.md), so its scores are those of the dequantized corpus."""
+    metric = DistanceMetric.parse(metric)
+    codes = sq.codes
+    dev = codes.device
+    q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
+    n = codes.shape[0]
+    k = min(k, n)
+    scale, minv = sq.scale.float(), sq.minv.float()
+    if cnorm is None:
+        sqn = torch.sum(sq8_dequantize(sq) ** 2, dim=1)
+        cnorm = torch.sqrt(sqn) if metric is DistanceMetric.COSINE else sqn
+    v = torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid.bool()
+    qq = torch.sum(q * q, dim=1)
+    if metric is DistanceMetric.COSINE:
+        q = normalize(q)
+    qsum = torch.sum(q, dim=1, keepdim=True)
+    b = q.shape[0]
+    run_v = torch.full((b, k), -torch.inf, device=dev)
+    run_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        dots = (q @ codes[c0:c1].float().T) * scale[None, c0:c1] + qsum * minv[None, c0:c1]
+        cc = cnorm[c0:c1].float()
+        if metric is DistanceMetric.DOT_PRODUCT:
+            s = dots
+        elif metric is DistanceMetric.COSINE:
+            s = dots * torch.where(cc > 1e-30, 1.0 / cc.clamp_min(1e-30), 0.0)[None, :]
+        else:  # EUCLIDEAN: maximize 2 q.c - |c|^2
+            s = 2.0 * dots - cc[None, :]
+        s = torch.where(v[None, c0:c1], s, -torch.inf)
+        cv, ci = torch.topk(s, min(k, c1 - c0), dim=1)
+        run_v, pos = torch.topk(torch.cat([run_v, cv], dim=1), k, dim=1)
+        run_i = torch.gather(torch.cat([run_i, ci + c0], dim=1), 1, pos)
+    return _finish(run_v, run_i, qq, metric)
