@@ -6,14 +6,16 @@
 Phases, in order; any failure exits nonzero:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off, build the five hand-written kernels from ``velesdb_tpu_torch/csrc``
+   off, build the nine hand-written kernels from ``velesdb_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and print their ptxas registers
    and spills.
 2. Kernels vs their plain torch versions, bit for bit (``torch.equal``):
    ``sq8pd_bucket`` (#1) at the slice shape (B_pad 256, N 1,048,576, D_pad
    128, chunk 8192), at B 1 and B 16, and at ragged shapes (B 13 -> 16,
    D 100 -> 128, N 131,072, 15% invalid + 15% masked, three metrics); the
-   four slice-2 kernels at the same ragged shapes here, and at their slice
+   four slice-2 kernels and the four slice-3 kernels (``dense_bucket`` #2
+   and ``fused_topk`` #8 on f32, f16 and bf16 rows, ``hl_bucket`` #3,
+   ``sq8_bucket`` #6) at the same ragged shapes here, and at their slice
    shapes and B 1 / B 16 in the phases below, on their collections' state.
 3. Slice 1, SIFT-1M class: 1,000,000 x 128 euclidean FULL, clustered data
    (seed 42, 10K held-out queries), payloads ``{"cat": i % 8}``, through
@@ -22,11 +24,23 @@ Phases, in order; any failure exits nonzero:
    main path and must show its kernel ran on every search; every launch of
    that run is then held against the plain version on its own arguments, bit
    for bit. Recall@10 >= 0.99 against a float64 oracle on the unpadded corpus.
-4. Slice 1, 100K x 768D cosine (streamed scan): recall@10 >= 0.999.
+4. Slice 1, 100K x 768D cosine (streamed scan): recall@10 >= 0.999. Then
+   slice 3 on the same data: the public op ``fused_topk`` (#8) at B 256,
+   f32 cosine, k 10 and k 100, exact against the float64 oracle; and
+   ``100k-768d-f16``, the data as F16 (D >= 512: ``streamed-scan`` on the
+   half corpus), recall@10 >= 0.999 against the float64 oracle of the
+   function it computes (f16 queries on the f16 rows), recall against the
+   f32 data's oracle printed.
 5. Slice 2, ``sift1m-sq8``: the SIFT data as SQ8 (``sq8-int8``, kernel #7),
    auto-rerank behind the storage recall gate: recall@10 >= 0.95 after the
    rerank, the raw coarse pass's recall printed, no filtered-out id, same
-   ids after close + reopen.
+   ids after close + reopen. Slice 3: ``sift1m-sq8-staged``, the collection
+   reopened with ``_SQ8I_MAX_DIM[0] = 128``: block-packed words,
+   ``sq8-bucket`` (#6) behind the same gate, the same checks; and
+   ``sift1m-bf16``, the SIFT data as BF16: ``bucket-f32`` (#2) on every
+   search, recall@10 >= 0.99 against the float64 oracle of the function the
+   kernel computes (``bf16(2q) . bf16(c) - |c|^2``), recall against the f32
+   data's oracle printed, filter and reopen as for sift1m.
 6. Slice 2, ``glove100-binary``: 1,183,514 x 100 cosine BINARY
    (ann-benchmarks glove-100-angular scale), padded to 1,310,720 rows, served
    by ``hamming-mxu`` (#5); reopened with ``VELESDB_HAMMING_MXU_MAX_BYTES=0``
@@ -42,14 +56,19 @@ Phases, in order; any failure exits nonzero:
    clustered data + 100 per coordinate. ``sq8pd_build`` refuses it
    (penalty / step over its int32 budget), so ``int8-assist`` (#7) serves.
    This path exists for corpora with large norms and needs no full scale.
-   Recall@10 >= 0.99.
+   Recall@10 >= 0.99. Slice 3: ``offset-full-hl``, the same collection
+   reopened with ``_SQ8I_MAX_DIM[0] = 128``: ``split-bf16`` (#3) serves;
+   recall@10 printed beside the same scan's on the data without the offset.
 Each configuration ends with its timing (CUDA events): QPS at b=256 and
 b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
 device path alone, the host share, then the profiler last: the device's
 busy time per call and its top kernels. Each kernel is timed at its slice
 shape against its plain version and its bound: the larger of its bytes over
 3.35 TB/s and its operations over their peak (int8 at 1,979 TOPS, fp32 at
-67 TFLOP/s, popcount at 16 per SM per clock), for this run's inputs.
+67 TFLOP/s, popcount at 16 per SM per clock), for this run's inputs; the
+float kernels also print the bf16/f16 tensor-core bound (989 TFLOP/s) that
+a later ``wgmma`` design would face. ``fused_topk`` is also timed against
+``torch.topk(q @ c.T)``, its ``library_ms``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -79,11 +98,17 @@ OFFSET_N = 262_144
 RAGGED_N, RAGGED_B, RAGGED_D = 131_072, 13, 100
 CHUNK = 8192
 KERNELS = ("sq8pd_bucket", "sq8i_bucket", "hamming_mxu_bucket", "hamming_bucket",
-           "hamming_topk")
+           "hamming_topk", "dense_bucket", "hl_bucket", "sq8_bucket", "fused_topk")
 # Published H100 SXM peaks (NVIDIA data sheet, dense rates, 700 W).
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1.979e15
 PEAK_F32 = 67e12
+PEAK_TC16 = 989e12  # bf16 / f16 tensor cores, dense
+# bound_ms takes the peak of the operands' type: bf16/f16 products (#2 on half
+# rows, #3) at the tensor-core rate, f32 x f32 and f32 x code (#6, #8) at the
+# fp32 rate. The other rate is printed beside it.
+TC_DESIGN = "a bf16/f16 tensor-core (wgmma) design would face"
+F32_CORES = "at the fp32 CUDA-core rate the kernel runs at now"
 CARD = ""  # "name, power limit" from nvidia-smi, appended to every number
 T_START = time.perf_counter()
 
@@ -139,6 +164,34 @@ def oracle_topk(torch, corpus64, queries, metric, k, mask=None, chunk=131072):
     if metric == "euclidean":
         best_v = torch.sqrt((-best_v).clamp_min(0.0))
     return best_v.cpu().numpy(), best_i.cpu().numpy()
+
+
+def oracle_ids(torch, rows64, q64, k, pen64=None, scale64=None, mask=None, chunk=131072):
+    """float64 exact top-k ids of ``s = (q . rows) * scale - pen``, maximized:
+    the oracle of the function a kernel computes, on its own rounded
+    operands."""
+    best_v = best_i = None
+    for c0 in range(0, rows64.shape[0], chunk):
+        s = q64 @ rows64[c0 : c0 + chunk].T
+        if scale64 is not None:
+            s = s * scale64[None, c0 : c0 + chunk]
+        if pen64 is not None:
+            s = s - pen64[None, c0 : c0 + chunk]
+        if mask is not None:
+            s = torch.where(mask[None, c0 : c0 + chunk], s, -torch.inf)
+        v, i = torch.topk(s, k, dim=1)
+        if best_v is None:
+            best_v, best_i = v, i + c0
+        else:
+            best_v, pos = torch.topk(torch.cat([best_v, v], 1), k, dim=1)
+            best_i = torch.gather(torch.cat([best_i, i + c0], 1), 1, pos)
+    return best_i.cpu().numpy()
+
+
+def ids_recall(results, o_ids) -> float:
+    """recall@k of hydrated results against oracle ids."""
+    hits = sum(len({h.id for h in row} & set(oi.tolist())) for row, oi in zip(results, o_ids))
+    return hits / (len(results) * o_ids.shape[1])
 
 
 def score_results(results, o_vals, o_ids, rtol):
@@ -357,8 +410,14 @@ def main() -> None:
     from velesdb_tpu_torch.index.brute import _affine_fold, pad_rows
     from velesdb_tpu_torch.ops import _cuda, bucket_kernel as bk
     from velesdb_tpu_torch.ops import pallas_kernels as pk
-    from velesdb_tpu_torch.ops.distance import DistanceMetric
-    from velesdb_tpu_torch.ops.quantization import binary_quantize, sq8_quantize
+    from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
+    from velesdb_tpu_torch.ops.quantization import (
+        binary_quantize,
+        sq8_pack_blocked,
+        sq8_quantize,
+    )
+
+    F = torch.nn.functional
 
     counters = (bk.LAUNCHES, pk.LAUNCHES)
     t0 = time.perf_counter()
@@ -381,12 +440,13 @@ def main() -> None:
     popc_rate = 16 * n_sm * sm_mhz * 1e6
     record = {}  # kernel name -> JSON row
 
-    def kernel_row(name, source, replaces, ms, plain_ms, ops_ms, bytes_, err, issue=None):
+    def kernel_row(name, source, replaces, ms, plain_ms, ops_ms, bytes_, err, issue=None,
+                   library_ms=None, other=None):
         b_ms, b_by = bound(ops_ms, bytes_)
         record[name] = {
             "name": name, "route": "cuda", "source": f"velesdb_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         }
         extra = ""
         if issue is not None:
@@ -394,9 +454,13 @@ def main() -> None:
             extra = (f"; {what} issue {count / (ms * 1e-3) / 1e12:.4f} T/s = "
                      f"{count / (ms * 1e-3) / rate:.4f} of the derived ceiling "
                      f"{rate / 1e12:.4f} T/s")
+        if other is not None:  # (what, ops, peak): the same work at another peak rate
+            what, ops, peak = other
+            extra += f"; {what} {bound(ops / peak * 1e3, bytes_)[0]:.4f} ms"
+        lib = ("no single PyTorch call computes this function, so library_ms is null"
+               if library_ms is None else f"library call {library_ms:.4f} ms")
         say(f"{name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}; {b_ms / ms:.4f} of it){extra}; no single PyTorch call computes "
-            f"this function, so library_ms is null")
+            f"({b_by}; {b_ms / ms:.4f} of it){extra}; {lib}")
 
     rng = np.random.default_rng(42)
     sift_all = make_clustered(rng, SIFT_N + HELD_OUT, SIFT_D)
@@ -508,7 +572,52 @@ def main() -> None:
     errs["hamming_topk"] = hold(
         f"hamming_topk B {RAGGED_B}, N {RAGGED_N}, W 4, k {K}, 15% invalid + 15% masked",
         out, pk.hamming_topk_ref(binary_quantize(rq), packed_r, r_keep, K))
-    del rx, rq, bits, aux, qbits, qi2, packed_r, qp, pen0, out, sq, rows8
+    # the slice-3 kernels at the ragged shapes, each on the operands its
+    # wrapper prepares: cosine normalized, euclidean queries doubled
+    ragged = f"B {RAGGED_B}, N {RAGGED_N}, D {RAGGED_D}, 15% invalid + 15% masked"
+    floats = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16}
+    for metric in ("euclidean", "cosine", "dot_product"):
+        m = DistanceMetric.parse(metric)
+        rows, q = rx[:RAGGED_N], rq
+        if m is DistanceMetric.COSINE:
+            rows, q = normalize(rows), normalize(q)
+        q2 = 2.0 * q if m is DistanceMetric.EUCLIDEAN else q
+        base = (rows * rows).sum(1) if m is DistanceMetric.EUCLIDEAN else torch.zeros_like(rows[:, 0])
+        cc = torch.where(r_keep, base, torch.inf)
+        qp2 = F.pad(q2, (0, 128 - RAGGED_D, 0, 3))
+        rp = F.pad(rows, (0, 128 - RAGGED_D))
+        for dname, dt in floats.items():
+            args = (qp2.to(dt), rp.to(dt).contiguous(), cc, CHUNK)
+            out = bk.dense_bucket_gm(*args)
+            torch.cuda.synchronize()
+            errs["dense_bucket"] = max(errs["dense_bucket"], hold(
+                f"dense_bucket {ragged}, chunk {CHUNK}, {dname}, {metric}", out,
+                bk.dense_bucket_ref(*args)))
+            qf = F.pad(q, (0, 128 - RAGGED_D)).contiguous()
+            rf = rp.to(dt).contiguous()
+            cn = (rf.float() ** 2).sum(1)
+            aux = (torch.where(cn > 1e-30, torch.rsqrt(cn.clamp_min(1e-30)), 0.0)
+                   if m is DistanceMetric.COSINE else cn)
+            args = (qf, rf, r_keep, aux, (qf * qf).sum(1), K, metric)
+            out = pk.fused_topk_scan(*args)
+            torch.cuda.synchronize()
+            errs["fused_topk"] = max(errs["fused_topk"], hold(
+                f"fused_topk {ragged}, k {K}, {dname}, {metric}", out, pk.fused_topk_ref(*args)))
+        args = (*bk.split_f32_rows(qp2), *bk.split_f32_rows(rp), cc, CHUNK)
+        out = bk.hl_bucket_gm(*args)
+        torch.cuda.synchronize()
+        errs["hl_bucket"] = max(errs["hl_bucket"], hold(
+            f"hl_bucket {ragged}, chunk {CHUNK}, {metric}", out, bk.hl_bucket_ref(*args)))
+        sq = sq8_quantize(rx[:RAGGED_N])
+        scale, minv, pen, _ = _affine_fold(sq, r_keep, m)
+        q6 = F.pad(q2, (0, 0, 0, 3))
+        qsum = bk._ordered_dot(q6, torch.ones((1, RAGGED_D), device=dev))[:, 0]
+        args = (q6, sq8_pack_blocked(sq.codes), scale, minv, pen, qsum, CHUNK)
+        out = bk.sq8_bucket_gm(*args)
+        torch.cuda.synchronize()
+        errs["sq8_bucket"] = max(errs["sq8_bucket"], hold(
+            f"sq8_bucket {ragged}, chunk {CHUNK}, {metric}", out, bk.sq8_bucket_ref(*args)))
+    del rx, rq, bits, aux, qbits, qi2, packed_r, qp, pen0, out, sq, rows8, args, rows, rp, rf
     torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="velesdb_chip_smoke_")
@@ -594,7 +703,6 @@ def main() -> None:
         rec768 = score_results(r768, o_v, o_i, 1e-4)
         print(f"100k-768d cosine recall@10 vs float64 oracle: b=256 {rec768:.4f}", flush=True)
         check(rec768 >= 0.999, f"100k-768d recall@10 = {rec768:.4f} < 0.999")
-        del c64, c768_all, c768
 
         def device_only(c, k):
             return lambda b: c._search_device(b, k, None)[1].cpu()
@@ -604,6 +712,88 @@ def main() -> None:
         measure(torch, "100k-768d", lambda b: col768.search_batch(b, k=K),
                 "100k-768d device path (no hydrate)", device_only(col768, K), c768_q)
         db.delete_collection("c768")
+
+        # -- 4b. slice 3: the op fused_topk (#8), B 256 x 100K x 768 f32 cosine
+        phase("4b. fused_topk op")
+        ct = torch.from_numpy(c768).to(dev)
+        qt = torch.from_numpy(c768_q[:256]).to(dev)
+        with MainPath(counters, pk, "fused_topk_scan", "fused_topk") as run:
+            fv, fi = pk.fused_topk(qt, ct, k=K, metric="cosine")
+            run.launched("fused_topk k=10")
+            fv100, fi100 = pk.fused_topk(qt, ct, k=100, metric="cosine")
+            run.launched("fused_topk k=100")
+            fv16, fi16 = pk.fused_topk(qt[:16], ct, k=K, metric="cosine")
+            run.launched("fused_topk B 16")
+            pk.fused_topk(qt[:1], ct, k=K, metric="cosine")
+            run.launched("fused_topk B 1")
+        launches["fused_topk"] = run.launches()
+        errs["fused_topk"] = max(errs["fused_topk"], run.hold_all(
+            pk.fused_topk_ref,
+            lambda q, rows, valid, aux, qq, k, metric: (
+                f"fused_topk B {q.shape[0]}, N {rows.shape[0]}, D_pad {q.shape[1]}, k {k}, "
+                f"{rows.dtype}, {metric}")))
+        o100_v, o100_i = oracle_topk(torch, c64, c768_q[:256], "cosine", 100)
+        got = fi.cpu().numpy()
+        r8 = np.mean([len(set(a) & set(b)) / K for a, b in zip(got, o_i)])
+        r8_100 = np.mean([len(set(a) & set(b)) / 100 for a, b in zip(fi100.cpu().numpy(), o100_i)])
+        same = got == o_i
+        err8 = float(np.max(np.abs(fv.cpu().numpy()[same] - o_v[same]) / np.abs(o_v[same])))
+        print(f"fused_topk cosine B 256 vs float64 oracle: recall@10 {r8:.4f}, recall@100 "
+              f"{r8_100:.4f}, max rel err on shared ids {err8:.3e}", flush=True)
+        check(r8 >= 0.999 and r8_100 >= 0.999, "fused_topk is not exact")
+        check(err8 <= 1e-4, f"fused_topk score error {err8:.3e} above 1e-4")
+        qn = normalize(qt)
+        cn = (ct * ct).sum(1)
+        aux = torch.where(cn > 1e-30, torch.rsqrt(cn.clamp_min(1e-30)), 0.0)
+        ones = torch.ones(C768_N, dtype=torch.bool, device=dev)
+        qq = (qn * qn).sum(1)
+        fused_ms = {}
+        for k in (K, 100):
+            fused_ms[k] = (
+                time_kernel(torch, lambda: pk.fused_topk_scan(qn, ct, ones, aux, qq, k, "cosine")),
+                time_kernel(torch, lambda: pk.fused_topk_ref(qn, ct, ones, aux, qq, k, "cosine"),
+                            iters=3),
+                time_kernel(torch, lambda: torch.topk(qn @ ct.T, k, dim=1)),
+            )
+        ops8 = 2 * 256 * C768_N * C768_D + 2 * 256 * C768_N
+        bytes8 = 4 * 256 * C768_D + 4 * C768_N * C768_D + 5 * C768_N + 4 * 256 + 12 * 256 * K
+        kernel_row(
+            "fused_topk", "fused_topk.cu", "velesdb_tpu/ops/pallas_kernels.py:119",
+            fused_ms[K][0], fused_ms[K][1], ops8 / PEAK_F32 * 1e3, bytes8, errs["fused_topk"],
+            library_ms=fused_ms[K][2], other=(TC_DESIGN, ops8, PEAK_TC16),
+        )
+        say(f"fused_topk at k 100: kernel {fused_ms[100][0]:.4f} ms, plain torch "
+            f"{fused_ms[100][1]:.4f} ms, library call {fused_ms[100][2]:.4f} ms (torch.topk of "
+            f"q @ c.T), bound {bound(ops8 / PEAK_F32 * 1e3, bytes8 + 12 * 256 * 90)[0]:.4f} ms")
+        del fv, fi, fv100, fi100, fv16, fi16, qn, cn, aux, ones, qt, ct
+
+        # -- 4c. slice 3: 100k-768d-f16 (streamed scan on the half corpus) -----
+        phase("4c. 100k-768d-f16")
+        t0 = time.perf_counter()
+        colf = db.create_collection("c768_f16", C768_D, metric="cosine", storage_mode="f16")
+        colf.upsert_bulk(range(C768_N), c768)
+        colf.refresh_device()
+        torch.cuda.synchronize()
+        say(f"100k-768d-f16 ingest + refresh: {time.perf_counter() - t0:.2f} s")
+        idx = colf._brute
+        check(colf.info()["serve_engine"] == "streamed-scan" and idx._full.dtype == torch.float16,
+              f"serve_engine {colf.info()['serve_engine']!r} on {idx._full.dtype}, expected "
+              f"'streamed-scan' on float16")
+        rf16 = colf.search_batch(c768_q[:256], k=K)
+        # the function it computes: f16(normalized q) . f16 rows / |c| (|c|^2 from f32)
+        q64 = normalize(torch.from_numpy(c768_q[:256]).to(dev)).half().double()
+        inv64 = 1.0 / torch.sqrt(idx._full_sqnorm[:C768_N].double())
+        sf_i = oracle_ids(torch, idx._full[:C768_N].double(), q64, K, scale64=inv64)
+        r_same = ids_recall(rf16, sf_i)
+        r_f32 = ids_recall(rf16, o_i)
+        print(f"100k-768d-f16 recall@10: {r_same:.4f} vs the float64 oracle of the function it "
+              f"computes, {r_f32:.4f} vs the f32 data's", flush=True)
+        check(r_same >= 0.999, f"100k-768d-f16 recall@10 = {r_same:.4f} < 0.999")
+        measure(torch, "100k-768d-f16", lambda b: colf.search_batch(b, k=K),
+                "100k-768d-f16 device path (no hydrate)", device_only(colf, K), c768_q)
+        db.delete_collection("c768_f16")
+        del c64, c768_all, c768, q64, inv64
+        torch.cuda.empty_cache()
 
         # -- 5. slice 2: sift1m-sq8 ----------------------------------------
         phase("5. sift1m-sq8")
@@ -663,6 +853,7 @@ def main() -> None:
                      f"N {rows.shape[0]}, D_pad {rows.shape[1]}, chunk {rest[-1]}")
         errs["sq8i_bucket"] = max(errs["sq8i_bucket"], run.hold_all(sq8i_plain, sq8i_desc))
         o_v, o_i = oracle_topk(torch, corpus64, sift_q[:301], "euclidean", K)
+        sift_ov, sift_oi = o_v, o_i
         r256 = score_results(q256, o_v[:256], o_i[:256], 1e-4)
         r16 = score_results(q16, o_v[256:272], o_i[256:272], 1e-4)
         r1 = score_results([q1], o_v[300:301], o_i[300:301], 1e-4)
@@ -692,8 +883,210 @@ def main() -> None:
         measure(torch, "sift1m-sq8", lambda b: colq.search_batch(b, k=K),
                 f"sift1m-sq8 device path (m={m_sq8}, no rerank)", device_only(colq, m_sq8),
                 sift_q)
+
+        # -- 5b. slice 3: sift1m-sq8-staged (block-packed words, #6) ----------
+        phase("5b. sift1m-sq8-staged")
+        db.close()
+        brute_mod._SQ8I_MAX_DIM[0] = 128  # the reference's rule: packed words at D >= it
+        try:
+            db = Database.open(tmp, device=DEVICE)
+            colq = db.get_collection("sift1m_sq8")
+            t0 = time.perf_counter()
+            colq.refresh_device()
+            torch.cuda.synchronize()
+            say(f"sift1m-sq8-staged device refresh (upload + SQ8 + packed words): "
+                f"{time.perf_counter() - t0:.2f} s")
+            idx = colq._brute
+            check(idx._sq8_words is not None and idx._sq8_rows8 is None,
+                  "the staged SQ8 build kept int8 rows")
+            check(colq.info()["serve_engine"] == "sq8-bucket",
+                  f"serve_engine {colq.info()['serve_engine']!r}, expected 'sq8-bucket'")
+            ones = torch.ones((1, idx._sq8_words.shape[1] * 4), device=dev)
+            for b in (1, 16, 256):
+                q6 = F.pad(2.0 * torch.from_numpy(sift_q[:b]).to(dev), (0, 0, 0, (-b) % 8))
+                args = (q6, idx._sq8_words, idx._sq8_scale, idx._sq8_minv, idx._sq8_pen,
+                        bk._ordered_dot(q6, ones)[:, 0], CHUNK)
+                out = bk.sq8_bucket_gm(*args)
+                torch.cuda.synchronize()
+                errs["sq8_bucket"] = max(errs["sq8_bucket"], hold(
+                    f"sq8_bucket B {b} (B_pad {q6.shape[0]}), N {idx.n_pad}, D_pad 128, "
+                    f"chunk {CHUNK}", out, bk.sq8_bucket_ref(*args)))
+            n = idx.n_pad
+            ms = time_kernel(torch, lambda: bk.sq8_bucket_gm(*args))
+            plain = time_kernel(torch, lambda: bk.sq8_bucket_ref(*args), iters=3)
+            ops6 = 2 * 256 * n * 128 + 4 * 256 * n
+            kernel_row(
+                "sq8_bucket", "sq8_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:894", ms, plain,
+                ops6 / PEAK_F32 * 1e3,
+                4 * 256 * 128 + n * 128 + 12 * n + 4 * 256 + 8 * 256 * n // CHUNK * 128,
+                errs["sq8_bucket"], other=(TC_DESIGN, ops6, PEAK_TC16),
+            )
+            del out, args, q6
+            with MainPath(counters, bk, "sq8_bucket_gm", "sq8_bucket_gm") as run:
+                t0 = time.perf_counter()
+                s256 = colq.search_batch(sift_q[:256], k=K)
+                say(f"sift1m-sq8-staged first search_batch b=256 with the storage gate: "
+                    f"{time.perf_counter() - t0:.2f} s (oversample {colq._rerank_oversample}, "
+                    f"calibrated recall {colq.info()['storage_recall']})")
+                run.launched("search_batch b=256")
+                s16 = colq.search_batch(sift_q[256:272], k=K)
+                run.launched("search_batch b=16")
+                s1 = colq.search(sift_q[300], k=K)
+                run.launched("search")
+                sf = colq.search_batch(sift_q[:256], k=K, filter=filt)
+                run.launched("filtered search_batch")
+                sraw = colq.search_batch(sift_q[:256], k=K, _raw=True)
+                run.launched("raw search_batch")
+            launches["sq8_bucket"] = run.launches()
+            errs["sq8_bucket"] = max(errs["sq8_bucket"], run.hold_all(
+                bk.sq8_bucket_ref,
+                lambda q, words, *rest: (f"sq8_bucket B_pad {q.shape[0]}, N {words.shape[0]}, "
+                                         f"W {words.shape[1]}, chunk {rest[-1]}")))
+            r256 = score_results(s256, sift_ov[:256], sift_oi[:256], 1e-4)
+            r16 = score_results(s16, sift_ov[256:272], sift_oi[256:272], 1e-4)
+            r1 = score_results([s1], sift_ov[300:301], sift_oi[300:301], 1e-4)
+            rraw = score_results(sraw, sift_ov[:256], sift_oi[:256], None)
+            rf = score_results(sf, of_v, of_i, 1e-4)
+            bad = [h.id for row in sf for h in row if h.id % 8 != 3 or h.payload != {"cat": 3}]
+            check(not bad, f"sift1m-sq8-staged filtered search returned filtered-out ids {bad[:5]}")
+            print(
+                f"sift1m-sq8-staged recall@10 vs float64 oracle after auto-rerank (oversample "
+                f"{colq._rerank_oversample}): b=256 {r256:.4f}, b=16 {r16:.4f}, search {r1:.4f}, "
+                f"filtered b=256 {rf:.4f}; raw coarse pass b=256 {rraw:.4f}",
+                flush=True,
+            )
+            for name, r in (("b=256", r256), ("b=16", r16)):
+                check(r >= 0.95, f"sift1m-sq8-staged recall@10 {name} = {r:.4f} < 0.95")
+            ids_before = [[h.id for h in row] for row in s256]
+            db.close()
+            db = Database.open(tmp, device=DEVICE)
+            colq = db.get_collection("sift1m_sq8")
+            reopened = colq.search_batch(sift_q[:256], k=K)
+            check(colq.info()["serve_engine"] == "sq8-bucket", "sq8-bucket lost on reopen")
+            check(all(set(a) == set(h.id for h in b) for a, b in zip(ids_before, reopened)),
+                  "reopened sift1m-sq8-staged returned other ids")
+            print("sift1m-sq8-staged close + reopen: same ids for all 256 queries", flush=True)
+            m_sq8 = int(round(colq._rerank_oversample * K))
+            measure(torch, "sift1m-sq8-staged", lambda b: colq.search_batch(b, k=K),
+                    f"sift1m-sq8-staged device path (m={m_sq8}, no rerank)",
+                    device_only(colq, m_sq8), sift_q)
+        finally:
+            brute_mod._SQ8I_MAX_DIM[0] = 1 << 30
         db.delete_collection("sift1m")
         db.delete_collection("sift1m_sq8")
+        torch.cuda.empty_cache()
+
+        # -- 5c. slice 3: sift1m-bf16 (bucket-f32, #2) --------------------------
+        phase("5c. sift1m-bf16")
+        t0 = time.perf_counter()
+        colh = db.create_collection("sift1m_bf16", SIFT_D, metric="euclidean",
+                                    storage_mode="bf16")
+        colh.upsert_bulk(range(SIFT_N), sift, payloads)
+        say(f"sift1m-bf16 ingest with payloads: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        colh.refresh_device()
+        torch.cuda.synchronize()
+        say(f"sift1m-bf16 device refresh (upload + bf16 cast + penalty): "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(colh.info()["serve_engine"] == "bucket-f32",
+              f"serve_engine {colh.info()['serve_engine']!r}, expected 'bucket-f32'")
+        idx = colh._brute
+        n = idx.n_pad
+        q2 = 2.0 * torch.from_numpy(sift_q[:256]).to(dev)  # euclidean: the wrapper's 2q
+        sift_rows = F.pad(torch.from_numpy(sift).to(dev), (0, 0, 0, n - SIFT_N))
+        ops2 = 2 * 256 * n * 128 + 256 * n
+        for dname, rows in (("bf16", idx._full), ("f16", sift_rows.half())):
+            for b in (1, 16, 256):
+                qb = F.pad(q2[:b], (0, 0, 0, (-b) % 8)).to(rows.dtype)
+                out = bk.dense_bucket_gm(qb, rows, idx._bucket_pen, CHUNK)
+                torch.cuda.synchronize()
+                errs["dense_bucket"] = max(errs["dense_bucket"], hold(
+                    f"dense_bucket B {b} (B_pad {qb.shape[0]}), N {n}, D_pad 128, chunk {CHUNK}, "
+                    f"{dname}", out, bk.dense_bucket_ref(qb, rows, idx._bucket_pen, CHUNK)))
+            ms = time_kernel(torch, lambda: bk.dense_bucket_gm(qb, rows, idx._bucket_pen, CHUNK))
+            plain = time_kernel(torch, lambda: bk.dense_bucket_ref(qb, rows, idx._bucket_pen,
+                                                                   CHUNK), iters=3)
+            bytes2 = 2 * 256 * 128 + 2 * n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128
+            if dname == "bf16":
+                kernel_row(
+                    "dense_bucket", "dense_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:152",
+                    ms, plain, ops2 / PEAK_TC16 * 1e3, bytes2, errs["dense_bucket"],
+                    other=(F32_CORES, ops2, PEAK_F32),
+                )
+            else:
+                say(f"dense_bucket on f16 rows at the slice shape: kernel {ms:.4f} ms, plain "
+                    f"torch {plain:.4f} ms, bound {bound(ops2 / PEAK_TC16 * 1e3, bytes2)[0]:.4f} "
+                    f"ms; {F32_CORES} {bound(ops2 / PEAK_F32 * 1e3, bytes2)[0]:.4f} ms")
+        # #3 at the slice shape on the SIFT rows' (hi, lo) split
+        hi, lo = bk.split_f32_rows(sift_rows)
+        for b in (1, 16, 256):
+            qb = F.pad(q2[:b], (0, 0, 0, (-b) % 8))
+            args = (*bk.split_f32_rows(qb), hi, lo, idx._bucket_pen, CHUNK)
+            out = bk.hl_bucket_gm(*args)
+            torch.cuda.synchronize()
+            errs["hl_bucket"] = max(errs["hl_bucket"], hold(
+                f"hl_bucket B {b} (B_pad {qb.shape[0]}), N {n}, D_pad 128, chunk {CHUNK}", out,
+                bk.hl_bucket_ref(*args)))
+        ms = time_kernel(torch, lambda: bk.hl_bucket_gm(*args))
+        plain = time_kernel(torch, lambda: bk.hl_bucket_ref(*args), iters=3)
+        ops3 = 6 * 256 * n * 128 + 2 * 256 * n
+        kernel_row(
+            "hl_bucket", "hl_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:279", ms, plain,
+            ops3 / PEAK_TC16 * 1e3,
+            4 * 256 * 128 + 4 * n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128,
+            errs["hl_bucket"], other=(F32_CORES, ops3, PEAK_F32),
+        )
+        del out, args, qb, hi, lo, rows, sift_rows
+        torch.cuda.empty_cache()
+        with MainPath(counters, bk, "dense_bucket_gm", "dense_bucket_gm") as run:
+            h256 = colh.search_batch(sift_q[:256], k=K)
+            run.launched("search_batch b=256")
+            h16 = colh.search_batch(sift_q[256:272], k=K)
+            run.launched("search_batch b=16")
+            h1 = colh.search(sift_q[300], k=K)
+            run.launched("search")
+            hf = colh.search_batch(sift_q[:256], k=K, filter=filt)
+            run.launched("filtered search_batch")
+        launches["dense_bucket"] = run.launches()
+        errs["dense_bucket"] = max(errs["dense_bucket"], run.hold_all(
+            bk.dense_bucket_ref,
+            lambda q, rows, cc, ch: (f"dense_bucket B_pad {q.shape[0]}, N {rows.shape[0]}, "
+                                     f"D_pad {rows.shape[1]}, chunk {ch}, {rows.dtype}")))
+        # the function the kernel computes: bf16(2q) . bf16(c) - |c|^2 (f32 rows)
+        rows64 = idx._full[:SIFT_N].double()
+        pen64 = torch.from_numpy(sift).to(dev).double().pow(2).sum(1)
+        qb64 = (2.0 * torch.from_numpy(sift_q[:301]).to(dev)).to(torch.bfloat16).double()
+        sf_i = oracle_ids(torch, rows64, qb64, K, pen64=pen64)
+        sff_i = oracle_ids(torch, rows64, qb64[:256], K, pen64=pen64, mask=cat_mask)
+        del rows64, pen64, qb64
+        rec = {
+            "b=256": (ids_recall(h256, sf_i[:256]), ids_recall(h256, sift_oi[:256])),
+            "b=16": (ids_recall(h16, sf_i[256:272]), ids_recall(h16, sift_oi[256:272])),
+            "search": (ids_recall([h1], sf_i[300:301]), ids_recall([h1], sift_oi[300:301])),
+            "filtered b=256": (ids_recall(hf, sff_i), ids_recall(hf, of_i)),
+        }
+        print("sift1m-bf16 recall@10 vs the float64 oracle of the function the kernel computes "
+              "(vs the f32 data's oracle): " + ", ".join(
+                  f"{name} {a:.4f} ({b:.4f})" for name, (a, b) in rec.items()), flush=True)
+        for name in ("b=256", "b=16"):
+            check(rec[name][0] >= 0.99, f"sift1m-bf16 recall@10 {name} = {rec[name][0]:.4f}")
+        check(rec["search"][0] >= 0.9 and rec["filtered b=256"][0] >= 0.9,
+              "sift1m-bf16 single-query or filtered recall@10 under 0.9")
+        bad = [h.id for row in hf for h in row if h.id % 8 != 3 or h.payload != {"cat": 3}]
+        check(not bad, f"sift1m-bf16 filtered search returned filtered-out ids {bad[:5]}")
+        ids_before = [[h.id for h in row] for row in h256]
+        db.close()
+        db = Database.open(tmp, device=DEVICE)
+        colh = db.get_collection("sift1m_bf16")
+        reopened = colh.search_batch(sift_q[:256], k=K)
+        check(colh.info()["serve_engine"] == "bucket-f32" and colh.storage_mode.value == "bf16",
+              "bf16 bucket-f32 lost on reopen")
+        check(all(set(a) == set(h.id for h in b) for a, b in zip(ids_before, reopened)),
+              "reopened sift1m-bf16 returned other ids")
+        print("sift1m-bf16 close + reopen: same ids for all 256 queries", flush=True)
+        measure(torch, "sift1m-bf16", lambda b: colh.search_batch(b, k=K),
+                "sift1m-bf16 device path (no hydrate)", device_only(colh, K), sift_q)
+        db.delete_collection("sift1m_bf16")
         del sift_all, sift, payloads
         torch.cuda.empty_cache()
 
@@ -925,6 +1318,57 @@ def main() -> None:
         check(ra >= 0.99, f"offset-full-assist recall@10 b=256 = {ra:.4f} < 0.99")
         measure(torch, "offset-full-assist", lambda b: colo.search_batch(b, k=K),
                 "offset-full-assist device path (no hydrate)", device_only(colo, K), off_q)
+        db.close()
+
+        # -- 8b. slice 3: offset-full-hl (split-bf16, #3) ------------------------
+        phase("8b. offset-full-hl")
+        brute_mod._SQ8I_MAX_DIM[0] = 128  # the reference's rule: (hi, lo) at D >= it
+        try:
+            db = Database.open(tmp, device=DEVICE)
+            colo = db.get_collection("offset")
+            t0 = time.perf_counter()
+            colo.refresh_device()
+            torch.cuda.synchronize()
+            say(f"offset-full-hl device refresh (upload + pd refusal + hi/lo split): "
+                f"{time.perf_counter() - t0:.2f} s")
+            idx = colo._brute
+            check(idx._assist_pd is None and idx._assist is None and idx._full_hl is not None,
+                  "offset-full-hl did not build the (hi, lo) shadow alone")
+            check(colo.info()["serve_engine"] == "split-bf16",
+                  f"serve_engine {colo.info()['serve_engine']!r}, expected 'split-bf16'")
+            with MainPath(counters, bk, "hl_bucket_gm", "hl_bucket_gm") as run:
+                l256 = colo.search_batch(off_q[:256], k=K)
+                run.launched("search_batch b=256")
+                l16 = colo.search_batch(off_q[256:272], k=K)
+                run.launched("search_batch b=16")
+                l1 = colo.search(off_q[256], k=K)
+                run.launched("search")
+            launches["hl_bucket"] = run.launches()
+            errs["hl_bucket"] = max(errs["hl_bucket"], run.hold_all(
+                bk.hl_bucket_ref,
+                lambda qhi, qlo, hi, lo, cc, ch: (f"hl_bucket B_pad {qhi.shape[0]}, "
+                                                  f"N {hi.shape[0]}, D_pad {hi.shape[1]}, "
+                                                  f"chunk {ch}")))
+            rl = ids_recall(l256, o_i[:256])
+            rl16 = ids_recall(l16, o_i[256:272])
+            rl1 = ids_recall([l1], o_i[256:257])
+            # the same scan on the same data without the offset, for comparison
+            base_all = make_clustered(np.random.default_rng(42), OFFSET_N + HELD_OUT, SIFT_D)
+            bx = torch.from_numpy(base_all[:OFFSET_N]).to(dev)
+            _, bi = bk.bucket_topk_hl(torch.from_numpy(base_all[OFFSET_N:OFFSET_N + 256]).to(dev),
+                                      *bk.split_f32_rows(bx), (bx * bx).sum(1), k=K,
+                                      metric="euclidean", chunk=CHUNK)
+            _, ob_i = oracle_topk(torch, bx.double(), base_all[OFFSET_N:OFFSET_N + 256],
+                                  "euclidean", K)
+            rb = np.mean([len(set(a) & set(b)) / K for a, b in zip(bi.cpu().numpy(), ob_i)])
+            print(f"offset-full-hl recall@10 vs float64 oracle: b=256 {rl:.4f}, b=16 {rl16:.4f}, "
+                  f"search {rl1:.4f}; the same split-bf16 scan on the data without the offset: "
+                  f"b=256 {rb:.4f}", flush=True)
+            del bx, bi, base_all
+            measure(torch, "offset-full-hl", lambda b: colo.search_batch(b, k=K),
+                    "offset-full-hl device path (no hydrate)", device_only(colo, K), off_q)
+        finally:
+            brute_mod._SQ8I_MAX_DIM[0] = 1 << 30
         db.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -169,9 +169,6 @@ def test_cosine_pd_raw_queries_reference_fault(big):
 
 
 def test_unported_storage_and_metric_raise():
-    for mode in ("f16", "bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TIndex(16, "cosine", mode, device="cpu")
     for metric in ("hamming", "jaccard"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TIndex(16, metric, device="cpu")

@@ -143,8 +143,6 @@ def test_default_device_is_cuda(tmp_path):
 @pytest.mark.parametrize(
     "action",
     [
-        "storage_f16",
-        "storage_bf16",
         "index_graph",
         "index_ivf",
         "text_search_batch",
@@ -159,8 +157,6 @@ def test_unported_surfaces_raise(tmp_path, action):
     col = db.create_collection("c", 4)
     col.upsert(1, np.ones(4, np.float32))
     calls = {
-        "storage_f16": lambda: db.create_collection("q", 4, storage_mode="f16"),
-        "storage_bf16": lambda: db.create_collection("q", 4, storage_mode="bf16"),
         "index_graph": lambda: setattr(col, "index_kind", "graph"),
         "index_ivf": lambda: setattr(col, "index_kind", "ivf"),
         "text_search_batch": lambda: col.text_search_batch(["shoes"]),

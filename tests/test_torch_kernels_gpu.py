@@ -278,3 +278,207 @@ def test_int8_assist_serve_path_launches_the_kernel(cuda):
     before = bk.LAUNCHES["sq8i_bucket_gm"]
     index.search(x[131_072:], 10)
     assert bk.LAUNCHES["sq8i_bucket_gm"] == before + 1
+
+
+# -- slice 3: the float-score kernels #2, #3, #6 and #8 ---------------------
+
+FLOAT_DTYPES = [torch.float32, torch.float16, torch.bfloat16]
+
+
+def _float_inputs(cuda, rng, b, d, n, metric):
+    """Ragged inputs as a wrapper prepares them: queries normalized (cosine)
+    or doubled (euclidean), padded to (B_pad, D_pad); 15% invalid rows."""
+    x = torch.from_numpy(_clustered(rng, n + b, d)).to(cuda)
+    rows, q = x[:n], x[n:]
+    if metric == "cosine":
+        rows = rows / rows.norm(dim=1, keepdim=True)
+        q = q / q.norm(dim=1, keepdim=True)
+    elif metric == "euclidean":
+        q = 2.0 * q
+    invalid = torch.from_numpy(rng.random(n) < 0.15).to(cuda)
+    base = (rows * rows).sum(1) if metric == "euclidean" else torch.zeros(n, device=cuda)
+    cc = torch.where(invalid, torch.inf, base)
+    d_pad = -(-d // 128) * 128
+    q = torch.nn.functional.pad(q, (0, d_pad - d, 0, (-b) % 8))
+    rows = torch.nn.functional.pad(rows, (0, d_pad - d))
+    return q, rows, cc, ~invalid
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES)
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
+@pytest.mark.parametrize("b,d,n,chunk", [(13, 100, 131_072, 8192), (1, 128, 16_384, 8192),
+                                         (256, 128, 65_536, 8192), (40, 48, 4096, 512)])
+def test_dense_bucket_kernel_equals_plain(cuda, dtype, metric, b, d, n, chunk):
+    q, rows, cc, _ = _float_inputs(cuda, np.random.default_rng(d + b), b, d, n, metric)
+    q, rows = q.to(dtype), rows.to(dtype).contiguous()
+    before = bk.LAUNCHES["dense_bucket_gm"]
+    gm, gi = bk.dense_bucket_gm(q, rows, cc, chunk)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["dense_bucket_gm"] == before + 1
+    rm, ri = bk.dense_bucket_ref(q, rows, cc, chunk)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
+@pytest.mark.parametrize("b,d,n,chunk", [(13, 100, 131_072, 8192), (256, 128, 65_536, 8192),
+                                         (8, 48, 4096, 512)])
+def test_hl_bucket_kernel_equals_plain(cuda, metric, b, d, n, chunk):
+    q, rows, cc, _ = _float_inputs(cuda, np.random.default_rng(d + b + 1), b, d, n, metric)
+    qhi, qlo = bk.split_f32_rows(q)
+    hi, lo = bk.split_f32_rows(rows)
+    before = bk.LAUNCHES["hl_bucket_gm"]
+    gm, gi = bk.hl_bucket_gm(qhi, qlo, hi, lo, cc, chunk)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["hl_bucket_gm"] == before + 1
+    rm, ri = bk.hl_bucket_ref(qhi, qlo, hi, lo, cc, chunk)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
+@pytest.mark.parametrize("b,d,n,chunk", [(13, 100, 131_072, 8192), (256, 128, 65_536, 8192),
+                                         (1, 768, 8192, 1024)])
+def test_sq8_bucket_kernel_equals_plain(cuda, metric, b, d, n, chunk):
+    from velesdb_tpu_torch.index.brute import _affine_fold
+    from velesdb_tpu_torch.ops.quantization import sq8_pack_blocked
+
+    rng = np.random.default_rng(d + b + 2)
+    x = torch.from_numpy(_clustered(rng, n + b, d)).to(cuda)
+    sq = sq8_quantize(x[:n])
+    valid = torch.from_numpy(rng.random(n) > 0.15).to(cuda)
+    index = BruteForceIndex(d, metric, "sq8", device=cuda)
+    scale, minv, pen, _ = _affine_fold(sq, valid, index.metric)
+    words = sq8_pack_blocked(sq.codes)
+    q = x[n:] / x[n:].norm(dim=1, keepdim=True) if metric == "cosine" else x[n:]
+    q = torch.nn.functional.pad(q, (0, words.shape[1] * 4 - d, 0, (-b) % 8))
+    qsum = q.sum(1)
+    before = bk.LAUNCHES["sq8_bucket_gm"]
+    gm, gi = bk.sq8_bucket_gm(q, words, scale, minv, pen, qsum, chunk)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["sq8_bucket_gm"] == before + 1
+    rm, ri = bk.sq8_bucket_ref(q, words, scale, minv, pen, qsum, chunk)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES)
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
+@pytest.mark.parametrize("b,d,n,k", [(13, 100, 131_072, 10), (1, 768, 5000, 1),
+                                     (16, 128, 20_000, 100), (9, 64, 3000, 1024),
+                                     (3, 32, 100, 50)])
+def test_fused_topk_kernel_equals_plain(cuda, dtype, metric, b, d, n, k):
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(_clustered(rng, n + b, d)).to(cuda)
+    q = x[n:]
+    if metric == "cosine":
+        q = q / q.norm(dim=1, keepdim=True)
+    d_pad = -(-d // 128) * 128
+    q = torch.nn.functional.pad(q, (0, d_pad - d)).contiguous()
+    rows = torch.nn.functional.pad(x[:n], (0, d_pad - d)).to(dtype).contiguous()
+    cn = (rows.float() ** 2).sum(1)
+    aux = torch.where(cn > 1e-30, torch.rsqrt(cn.clamp_min(1e-30)), 0.0) \
+        if metric == "cosine" else cn
+    valid = torch.from_numpy(rng.random(n) > 0.15).to(cuda)
+    qq = (q * q).sum(1)
+    before = pk.LAUNCHES["fused_topk"]
+    vals, idx = pk.fused_topk_scan(q, rows, valid, aux, qq, k, metric)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["fused_topk"] == before + 1
+    rv, ri = pk.fused_topk_ref(q, rows, valid, aux, qq, k, metric)
+    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+
+
+def test_fused_topk_kernel_slices_the_batch_to_its_scratch(cuda, monkeypatch):
+    """Past ``FUSED_SCRATCH_BYTES`` the batch launches in slices of 8 queries,
+    with the same result as one launch."""
+    monkeypatch.setattr(pk, "FUSED_SCRATCH_BYTES", 1)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(_clustered(rng, 3029, 64)).to(cuda)
+    q, rows = x[3000:].contiguous(), x[:3000].contiguous()
+    valid = torch.from_numpy(rng.random(3000) > 0.15).to(cuda)
+    aux, qq = (rows * rows).sum(1), (q * q).sum(1)
+    before = pk.LAUNCHES["fused_topk"]
+    vals, idx = pk.fused_topk_scan(q, rows, valid, aux, qq, 50, "euclidean")
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["fused_topk"] == before + 4  # 29 queries, 8 a launch
+    rv, ri = pk.fused_topk_ref(q, rows, valid, aux, qq, 50, "euclidean")
+    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+
+
+def test_slice3_kernels_refuse_bad_input(cuda):
+    q = torch.zeros((8, 128), device=cuda)
+    rows = torch.zeros((1024, 128), device=cuda)
+    cc = torch.zeros(1024, device=cuda)
+    with pytest.raises(TypeError):  # q and rows of different dtypes
+        bk.dense_bucket_gm(q.half(), rows, cc, 512)
+    with pytest.raises(ValueError):  # chunk does not divide N
+        bk.dense_bucket_gm(q, rows, cc, 384)
+    with pytest.raises(TypeError):  # hl takes bf16 only
+        bk.hl_bucket_gm(q, q, rows, rows, cc, 512)
+    words = torch.zeros((1024, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # q width must be 4 W
+        bk.sq8_bucket_gm(q[:, :64].contiguous(), words, cc, cc, cc, q[:, 0].contiguous(), 512)
+    valid = torch.ones(1024, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="1024"):
+        pk.fused_topk_scan(q, rows, valid, cc, q[:, 0].contiguous(), 1025, "dot_product")
+
+
+@pytest.mark.parametrize("mode,metric,engine,counter", [
+    ("bf16", "euclidean", "bucket-f32", "dense_bucket_gm"),
+    ("f16", "cosine", "bucket-f32", "dense_bucket_gm"),
+    ("full", "euclidean", "split-bf16", "hl_bucket_gm"),
+    ("sq8", "cosine", "sq8-bucket", "sq8_bucket_gm"),
+])
+def test_float_serve_paths_launch_their_kernels(cuda, monkeypatch, mode, metric, engine,
+                                                counter):
+    """Each slice-3 serve core on the card launches its kernel once per
+    search and serves what the same index serves on the CPU through the
+    plain version. split-bf16 and sq8-bucket are reached by lowering
+    ``_SQ8I_MAX_DIM`` (and, for split-bf16, an offset corpus that
+    ``sq8pd_build`` refuses)."""
+    import velesdb_tpu_torch.index.brute as brute
+
+    monkeypatch.setattr(brute, "_SQ8I_MAX_DIM", [128])
+    x = _clustered(np.random.default_rng(7), 131_072 + 16, 128)
+    if engine == "split-bf16":
+        x = x + 100.0
+    on_card = BruteForceIndex(128, metric, mode, device=cuda)
+    on_card.rebuild(x[:131_072], np.ones(131_072, bool))
+    assert on_card.serve_engine() == engine
+    # the same state on the CPU, so only the kernel and the query prep differ
+    on_cpu = BruteForceIndex(128, metric, mode, device="cpu")
+    state = {"valid": on_card._valid.cpu()}
+    for key in ("full", "full_sqnorm", "bucket_pen", "full_hl", "sq8", "sq_norm", "sq8_words",
+                "sq8_scale", "sq8_minv", "sq8_pen"):
+        value = getattr(on_card, f"_{key}")
+        if isinstance(value, tuple):  # (hi, lo) or SQ8Vectors
+            moved = [t.cpu() for t in value]
+            state[key] = type(value)(*moved) if hasattr(value, "_fields") else tuple(moved)
+        elif value is not None:
+            state[key] = value.cpu()
+    on_cpu.load_state(state)
+    assert on_cpu.serve_engine() == engine
+    before = bk.LAUNCHES[counter]
+    vals, ids = on_card.search(x[131_072:], 10)
+    assert bk.LAUNCHES[counter] == before + 1
+    want_vals, want_ids = on_cpu.search(x[131_072:], 10)
+    # the queries' norms (cosine) and |q|^2 (the euclidean restore) are summed
+    # in another order on the two devices; at the offset corpus's |q|^2 near
+    # 1.3e6 an fp32 ulp is 0.125, ~1e-3 of a restored distance
+    same = ids.cpu() == want_ids
+    assert same.float().mean() >= 0.99
+    tol = 5e-3 if engine == "split-bf16" else 1e-4
+    torch.testing.assert_close(vals.cpu()[same], want_vals[same], rtol=tol, atol=tol)
+
+
+def test_half_streamed_scan_on_the_card(cuda):
+    """F16 at D >= 512 serves the streamed scan on the half corpus, chunk by
+    chunk, with the same ids as the CPU."""
+    x = _clustered(np.random.default_rng(8), 20_016, 768)
+    on_card = BruteForceIndex(768, "cosine", "f16", device=cuda)
+    on_cpu = BruteForceIndex(768, "cosine", "f16", device="cpu")
+    for index in (on_card, on_cpu):
+        index.rebuild(x[:20_000], np.ones(20_000, bool))
+        assert index.serve_engine() == "streamed-scan"
+    vals, ids = on_card.search(x[20_000:], 10)
+    want_vals, want_ids = on_cpu.search(x[20_000:], 10)
+    assert (ids.cpu() == want_ids).float().mean() >= 0.99
+    torch.testing.assert_close(vals.cpu(), want_vals, rtol=1e-4, atol=1e-4)

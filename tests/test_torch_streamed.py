@@ -67,8 +67,9 @@ def test_pick_chunk_matches_reference():
 @pytest.mark.parametrize("n,chunk,masked", [(4096, 1024, True), (3000, 1024, False)])
 def test_sq8_streamed_topk_against_dequantized_oracle(metric, n, chunk, masked):
     """The SQ8 scan without a dequantized copy ranks exactly as a float64
-    scan of the dequantized rows: ids equal except at ties under 1e-5,
-    values to rtol 1e-5."""
+    scan of the dequantized rows against the bf16-rounded queries it scores
+    with (``sum(q)`` from the unrounded ones, as in the reference): ids
+    equal except at ties under 1e-5, values to rtol 1e-5."""
     from velesdb_tpu_torch.ops.quantization import sq8_dequantize, sq8_quantize
     from velesdb_tpu_torch.ops.streamed import sq8_streamed_topk
 
@@ -82,14 +83,21 @@ def test_sq8_streamed_topk_against_dequantized_oracle(metric, n, chunk, masked):
         metric=metric, chunk=chunk,
     )
     deq = sq8_dequantize(sq).double().numpy()
-    q = queries.astype(np.float64)
+    codes = sq.codes.double().numpy()
+    scale, minv = sq.scale.double().numpy(), sq.minv.double().numpy()
+    q = torch.from_numpy(queries)
+    if metric == "cosine":
+        q = q / q.norm(dim=1, keepdim=True)
+    qb = q.to(torch.bfloat16).double().numpy()
+    q = q.double().numpy()
+    dots = (qb @ codes.T) * scale[None, :] + q.sum(1)[:, None] * minv[None, :]
+    dn = (deq ** 2).sum(1)
     if metric == "euclidean":
-        s = -np.sqrt(((q[:, None, :] - deq[None]) ** 2).sum(-1))
+        s = -np.sqrt(np.maximum((q * q).sum(1)[:, None] + dn[None, :] - 2.0 * dots, 0.0))
     elif metric == "cosine":
-        s = (q / np.linalg.norm(q, axis=1, keepdims=True)) @ (
-            deq / np.linalg.norm(deq, axis=1, keepdims=True)).T
+        s = dots / np.sqrt(dn)[None, :]
     else:
-        s = q @ deq.T
+        s = dots
     s = np.where(valid[None, :], s, -np.inf)
     want_i = np.argsort(-s, axis=1, kind="stable")[:, :10]
     want_v = np.take_along_axis(s, want_i, 1)
@@ -100,3 +108,45 @@ def test_sq8_streamed_topk_against_dequantized_oracle(metric, n, chunk, masked):
     differ = ti != want_i
     assert np.all(np.abs(tv[differ] - want_v[differ]) <= 1e-5 * np.abs(want_v[differ]) + 1e-5)
     assert not set(ti.ravel().tolist()) & set(np.flatnonzero(~valid))
+
+
+def _gap_ok(tv, ti, jv, ji):
+    """Ids equal wherever the score gap to the next rank exceeds rtol 1e-5."""
+    for row_v, row_i, ref_v, ref_i in zip(tv, ti, jv, ji):
+        for j in range(len(ref_i)):
+            if row_i[j] == ref_i[j]:
+                continue
+            near = [ref_v[i] for i in (j - 1, j + 1) if 0 <= i < len(ref_v)]
+            tol = RTOL * abs(ref_v[j]) + RTOL
+            assert any(abs(ref_v[j] - x) <= tol for x in near), (j, row_i, ref_i)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("masked", [True, False])
+def test_sq8_streamed_matches_reference(metric, masked):
+    """The port's SQ8 scan against the JAX package's ``sq8_streamed_topk``
+    (``approx=False``) on the same codes: values to rtol 1e-5, ids equal
+    wherever the gap to the next score exceeds that."""
+    import jax.numpy as jnp
+
+    from velesdb_tpu.ops.quantization import sq8_quantize as j_quantize
+    from velesdb_tpu.ops.streamed import sq8_streamed_topk as j_sq8
+    from velesdb_tpu_torch.ops.quantization import SQ8Vectors
+    from velesdb_tpu_torch.ops.streamed import sq8_streamed_topk
+
+    rng = np.random.default_rng(31 + masked)
+    n = 4096
+    corpus = rng.standard_normal((n, 48)).astype(np.float32)
+    queries = (rng.standard_normal((13, 48)) * 3.0).astype(np.float32)
+    valid = (rng.random(n) > 0.15) if masked else None
+    jsq = j_quantize(jnp.asarray(corpus))
+    jv, ji = j_sq8(queries, jsq, valid=valid, k=10, metric=JMetric.parse(metric),
+                   chunk=1024, approx=False)
+    tsq = SQ8Vectors(*(torch.from_numpy(np.array(a)) for a in jsq))
+    tv, ti = sq8_streamed_topk(
+        torch.from_numpy(queries), tsq, valid=None if valid is None else torch.from_numpy(valid),
+        k=10, metric=metric, chunk=1024,
+    )
+    jv, ji, tv, ti = np.array(jv), np.array(ji), tv.numpy(), ti.numpy()
+    np.testing.assert_allclose(tv, jv, rtol=RTOL, atol=RTOL)
+    _gap_ok(tv, ti, jv, ji)

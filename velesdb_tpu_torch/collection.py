@@ -5,19 +5,20 @@ canonical store is host-side and append-oriented (memmap vectors + CRC WAL,
 payload log; the on-disk format is the reference package's, byte for byte);
 the device holds a padded snapshot refreshed lazily after mutations, and
 every search runs the exact :class:`~velesdb_tpu_torch.index.brute.BruteForceIndex`
-on FULL, SQ8 or BINARY storage.
+on FULL, F16, BF16, SQ8 or BINARY storage.
 
 Quantized collections (SQ8, BINARY) rerank by default (:attr:`auto_rerank`):
 the device pass fetches ``oversample * k`` candidates and the host rescores
 them in f32 from the stored vectors. A storage recall gate measures that
 serve path against a host f32 oracle once per row count and widens the
 oversample until it clears the quality profile's bar. ``quality="perfect"``
-reranks on any storage.
+reranks on any storage. Half-precision collections (F16, BF16) serve their
+own scores with no auto-rerank, as in the reference (``collection.py:777``).
 
 The reference's planner also serves exact below ``ANN_MIN_ROWS`` (2M) rows,
 so at those sizes both packages serve the same engine; above it this package
-still serves exact (ROADMAP.md). Graph/IVF indexes, F16/BF16 storage, text,
-hybrid, VelesQL and graph methods raise ``NotImplementedError``.
+still serves exact (ROADMAP.md). Graph/IVF indexes, text, hybrid, VelesQL and
+graph methods raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

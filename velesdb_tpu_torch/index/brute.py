@@ -1,26 +1,39 @@
 """Brute-force (exact) device index over a padded slot array.
 
-Counterpart of ``velesdb_tpu/index/brute.py`` for FULL, SQ8 and BINARY
-storage. The corpus lives as padded ``[N_pad, ...]`` tensors on the index's
-device and every search scores the whole batch against it. The serve cores,
-which :meth:`BruteForceIndex.serve_engine` names as the reference does:
+Counterpart of ``velesdb_tpu/index/brute.py`` for FULL, F16, BF16, SQ8 and
+BINARY storage. The corpus lives as padded ``[N_pad, ...]`` tensors on the
+index's device and every search scores the whole batch against it. The serve
+cores, which :meth:`BruteForceIndex.serve_engine` names as the reference
+does:
 
-- FULL (f32 rows; cosine rows pre-normalized):
-  1. ``int8-assist-pd`` — D < 512, at least ``BUCKET_MIN_ROWS`` padded rows:
-     the per-dim int8 scan (``csrc/sq8pd_bucket.cu``) keeps
-     m = clamp(2k-4, 16, 256) candidates, then an exact fp32 rerank;
-  2. ``int8-assist`` — the same regime when ``sq8pd_build`` refuses the corpus
-     (penalties over its int32 budget): the per-row int8 scan
-     (``csrc/sq8i_bucket.cu``) over an SQ8 shadow, then the exact rerank;
-  3. ``streamed-scan`` — everything else: chunked fp32 matmul + exact top-k.
+- FULL, F16, BF16 (f32, f16 or bf16 rows; cosine rows pre-normalized), at D
+  < 512 and where the bucket collision guard holds (at least
+  ``BUCKET_MIN_ROWS`` padded rows), in this order:
+  1. ``int8-assist-pd`` (FULL): the per-dim int8 scan
+     (``csrc/sq8pd_bucket.cu``) keeps m = clamp(2k-4, 16, 256) candidates,
+     then an exact fp32 rerank;
+  2. ``int8-assist`` (FULL, where ``sq8pd_build`` refuses the corpus and D <
+     ``_SQ8I_MAX_DIM``): the per-row int8 scan (``csrc/sq8i_bucket.cu``) over
+     an SQ8 shadow, then the exact rerank;
+  3. ``split-bf16`` (FULL, where ``sq8pd_build`` refuses and D >=
+     ``_SQ8I_MAX_DIM``): the (hi, lo) bf16 scan (``csrc/hl_bucket.cu``);
+  4. ``bucket-f32`` (F16/BF16, and FULL where the assist guard fails): the
+     float bucket scan (``csrc/dense_bucket.cu``);
+  5. ``streamed-scan`` — everything else: chunked fp32 matmul + exact top-k
+     (half corpora upcast one chunk at a time).
 - SQ8 (uint8 codes + per-row affine): ``sq8-int8`` (``csrc/sq8i_bucket.cu``)
-  where the bucket collision guard holds, else ``sq8-streamed`` (plain torch).
+  where the bucket collision guard holds and D < ``_SQ8I_MAX_DIM``,
+  ``sq8-bucket`` (``csrc/sq8_bucket.cu``, block-packed words) where it holds
+  and D >= ``_SQ8I_MAX_DIM``, else ``sq8-streamed`` (plain torch).
 - BINARY (packed sign bits): ``hamming-mxu`` (``csrc/hamming_mxu_bucket.cu``)
   while the 1 byte/bit shadow fits ``VELESDB_HAMMING_MXU_MAX_BYTES``, else
   ``hamming-bucket`` (``csrc/hamming_bucket.cu``) where the guard holds, else
   ``hamming-topk`` (``csrc/hamming_topk.cu``, exact).
 
 There is no fallback between cores at run time: a failing kernel raises.
+``_SQ8I_MAX_DIM`` is the reference's build-time dispatch rule (``:79``), read
+at each rebuild; lowering it is the one way to the ``split-bf16`` and
+``sq8-bucket`` cores.
 """
 
 from __future__ import annotations
@@ -38,9 +51,13 @@ from velesdb_tpu_torch.ops.bucket_kernel import (
     _div,
     _pd_invalid_pen,
     bucket_chunk,
+    bucket_topk_entry,
+    bucket_topk_hl,
     hamming_bits_rows,
     hamming_bucket_topk,
     hamming_mxu_topk,
+    split_f32_rows,
+    sq8_bucket_topk,
     sq8_int8_rows,
     sq8i_bucket_topk,
     sq8i_rerank_topk,
@@ -51,10 +68,12 @@ from velesdb_tpu_torch.ops.bucket_kernel import (
 from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
 from velesdb_tpu_torch.ops.pallas_kernels import hamming_topk
 from velesdb_tpu_torch.ops.quantization import (
+    STORAGE_DTYPE,
     SQ8Vectors,
     StorageMode,
     binary_quantize,
     sq8_dequantize,
+    sq8_pack_blocked,
     sq8_quantize,
 )
 from velesdb_tpu_torch.ops.streamed import sq8_streamed_topk, streamed_topk
@@ -62,7 +81,14 @@ from velesdb_tpu_torch.ops.streamed import sq8_streamed_topk, streamed_topk
 __all__ = ["BruteForceIndex", "pad_rows", "state_from_jax"]
 
 _METRICS = (DistanceMetric.COSINE, DistanceMetric.EUCLIDEAN, DistanceMetric.DOT_PRODUCT)
-_MODES = (StorageMode.FULL, StorageMode.SQ8, StorageMode.BINARY)
+_FLOAT_MODES = (StorageMode.FULL, StorageMode.F16, StorageMode.BF16)
+_MODES = (*_FLOAT_MODES, StorageMode.SQ8, StorageMode.BINARY)
+
+# The reference's dispatch constant (``brute.py:79``): the per-row int8 shadow
+# (FULL) and int8 rows (SQ8) are built below this dim; at or above it FULL
+# builds the split-bf16 (hi, lo) shadow and SQ8 the block-packed words.
+# Read at each rebuild.
+_SQ8I_MAX_DIM = [1 << 30]
 
 
 def not_in_slice(what: str) -> NotImplementedError:
@@ -151,16 +177,20 @@ class BruteForceIndex:
         self.n_pad = 0
         self._chunk = 0  # bucket_chunk(n_pad): the one chunk rule of #1/#7/#5
         self._valid = None  # [N_pad] bool
-        # FULL
-        self._full = None  # [N_pad, D] f32 (cosine rows pre-normalized)
-        self._full_sqnorm = None  # [N_pad] f32
+        # FULL, F16, BF16
+        self._full_w = None  # [N_pad, round_up(D, 8)] f32/f16/bf16, zero-padded
+        self._full = None  # [:, :D] view of _full_w (cosine rows pre-normalized)
+        self._full_sqnorm = None  # [N_pad] f32, from the f32 rows
+        self._bucket_pen = None  # [N_pad] f32: |c|^2 (euclidean) or 0, +inf invalid
+        self._full_hl = None  # (hi, lo) bf16 [N_pad, D_pad] when the pd build refuses
         self._assist_pd = None  # (rows_pd, pen_int, pen_f32, sdim, mid, qu)
         self._pd_ptile = None  # [N_pad] int32, built with the shadow
         self._assist = None  # (rows8, scale, minv, pen, shift) when the pd build refuses
         # SQ8
         self._sq8 = None  # SQ8Vectors (codes [N_pad, D] uint8, scale, minv)
         self._sq_norm = None  # [N_pad] f32: |deq|^2 (euclidean), |deq| (cosine)
-        self._sq8_rows8 = None  # [N_pad, D_pad] int8 (code - 128)
+        self._sq8_rows8 = None  # [N_pad, D_pad] int8 (code - 128), D < _SQ8I_MAX_DIM
+        self._sq8_words = None  # [N_pad, D_pad/4] int32 packed codes, D >= _SQ8I_MAX_DIM
         self._sq8_scale = None  # [N_pad] f32 (cosine: scale/|deq| folded)
         self._sq8_minv = None  # [N_pad] f32 (cosine: minv/|deq| folded)
         self._sq8_pen = None  # [N_pad] f32 additive penalty, +inf knocked out
@@ -182,15 +212,23 @@ class BruteForceIndex:
         vmask[:used] = torch.from_numpy(np.array(valid, dtype=bool)).to(self.device)
         self._reset(n_pad, vmask)
         mode = self.storage_mode
-        if mode is StorageMode.FULL:
+        if mode in _FLOAT_MODES:
             if self.metric is DistanceMetric.COSINE:
                 # cosine is normalization-invariant: store rows pre-normalized
                 x = normalize(x)
-            self._full, self._full_sqnorm = x, torch.sum(x * x, dim=1)
-            if self.dim < 512 and n_pad >= BUCKET_MIN_ROWS:
+            # norms and penalty from the f32 rows, before any half cast
+            self._full_sqnorm = torch.sum(x * x, dim=1)
+            base = (self._full_sqnorm if self.metric is DistanceMetric.EUCLIDEAN
+                    else torch.zeros_like(self._full_sqnorm))
+            self._bucket_pen = torch.where(vmask, base, torch.inf)
+            self._set_full(x.to(STORAGE_DTYPE[mode]))
+            if mode is StorageMode.FULL and self.dim < 512 and n_pad >= BUCKET_MIN_ROWS:
                 self._set_pd(sq8pd_build(x, vmask, self.dim, self.metric))
-                if self._assist_pd is None:
+                if self._assist_pd is None and self.dim < _SQ8I_MAX_DIM[0]:
                     self._assist = _assist_shadow(x, vmask, self.metric)
+                elif self._assist_pd is None:
+                    d_pad = -(-self.dim // 128) * 128
+                    self._full_hl = split_f32_rows(F.pad(x, (0, d_pad - self.dim)))
         elif mode is StorageMode.SQ8:
             sq = sq8_quantize(x)
             scale, minv, pen, deq_sq = _affine_fold(sq, vmask, self.metric)
@@ -199,7 +237,10 @@ class BruteForceIndex:
                 self._sq_norm = deq_sq
             elif self.metric is DistanceMetric.COSINE:
                 self._sq_norm = torch.sqrt(deq_sq)
-            self._sq8_rows8 = sq8_int8_rows(sq.codes)
+            if self.dim < _SQ8I_MAX_DIM[0]:
+                self._sq8_rows8 = sq8_int8_rows(sq.codes)
+            else:
+                self._sq8_words = sq8_pack_blocked(sq.codes)
             self._sq8_scale, self._sq8_minv, self._sq8_pen = scale, minv, pen
         else:
             self._packed = binary_quantize(x)
@@ -211,13 +252,23 @@ class BruteForceIndex:
                 self._ham_aux = torch.where(vmask, csum, csum + _HAM_BIG).to(torch.int32)
 
     def _reset(self, n_pad: int, valid: torch.Tensor) -> None:
-        for name in ("_full", "_full_sqnorm", "_assist_pd", "_pd_ptile", "_assist",
-                     "_sq8", "_sq_norm", "_sq8_rows8", "_sq8_scale", "_sq8_minv",
-                     "_sq8_pen", "_packed", "_ham_bits", "_ham_aux"):
+        for name in ("_full_w", "_full", "_full_sqnorm", "_bucket_pen", "_full_hl", "_assist_pd",
+                     "_pd_ptile", "_assist", "_sq8", "_sq_norm", "_sq8_rows8", "_sq8_words",
+                     "_sq8_scale", "_sq8_minv", "_sq8_pen", "_packed", "_ham_bits",
+                     "_ham_aux"):
             setattr(self, name, None)
         self.n_pad = n_pad
         self._chunk = bucket_chunk(n_pad)
         self._valid = valid
+
+    def _set_full(self, rows: torch.Tensor) -> None:
+        """Store the float rows ``[N_pad, D]`` once, zero-padded in width to a
+        multiple of 8 (what ``csrc/dense_bucket.cu`` reads): ``bucket-f32``
+        hands ``_full_w`` to the kernel without a copy, the other cores read
+        its ``[:, :D]`` view ``_full``."""
+        pad = (-self.dim) % 8
+        self._full_w = F.pad(rows, (0, pad)) if pad else rows.contiguous()
+        self._full = self._full_w[:, :self.dim]
 
     def _set_pd(self, pd) -> None:
         self._assist_pd = pd
@@ -227,8 +278,10 @@ class BruteForceIndex:
         """Adopt padded device state, e.g. from :func:`state_from_jax`."""
         self._reset(state["valid"].shape[0], state["valid"])
         for key, value in state.items():
-            if key not in ("valid", "assist_pd"):
+            if key not in ("valid", "assist_pd", "full"):
                 setattr(self, f"_{key}", value)
+        if state.get("full") is not None:
+            self._set_full(state["full"])
         if state.get("assist_pd") is not None:
             self._set_pd(state["assist_pd"])
 
@@ -239,16 +292,22 @@ class BruteForceIndex:
         an assist core). The single source of the dispatch rule for
         :meth:`search` and :meth:`serve_engine`."""
         mode, n_pad = self.storage_mode, self.n_pad
-        if mode is StorageMode.FULL:
+        if mode in _FLOAT_MODES:  # reference ``:373-400``
+            if self.dim >= 512:
+                return "streamed-scan", 0
             m = _pd_m(k)
-            if self.dim < 512 and m >= k and _bucket_safe(n_pad, self._chunk, m):
+            if m >= k and _bucket_safe(n_pad, self._chunk, m):
                 if self._assist_pd is not None:
                     return "int8-assist-pd", m
                 if self._assist is not None:
                     return "int8-assist", m
+            if _bucket_safe(n_pad, self._chunk, k):
+                return ("split-bf16" if self._full_hl is not None else "bucket-f32"), 0
             return "streamed-scan", 0
         if mode is StorageMode.SQ8:
-            return ("sq8-int8" if _bucket_safe(n_pad, self._chunk, k) else "sq8-streamed"), 0
+            if _bucket_safe(n_pad, self._chunk, k):
+                return ("sq8-int8" if self._sq8_rows8 is not None else "sq8-bucket"), 0
+            return "sq8-streamed", 0
         if self._ham_bits is not None and _bucket_safe(n_pad, self._chunk, k):
             return "hamming-mxu", 0
         if _bucket_safe(n_pad, HAMMING_CHUNK, k):
@@ -292,6 +351,13 @@ class BruteForceIndex:
                 q, rows8, scale, minv, knock(pen, torch.inf), self._full, k=k_eff, m=m,
                 metric=self.metric, chunk=self._chunk, shift=shift,
             )
+        if engine == "split-bf16":
+            hi, lo = self._full_hl
+            return bucket_topk_hl(q, hi, lo, self._bucket_pen, mask_dev, k=k_eff,
+                                  metric=self.metric, chunk=self._chunk)
+        if engine == "bucket-f32":
+            return bucket_topk_entry(q, self._full_w, self._bucket_pen, mask_dev, k=k_eff,
+                                     metric=self.metric, chunk=self._chunk)
         if engine == "streamed-scan":
             return streamed_topk(
                 q, self._full, valid=valid, k=k_eff, metric=self.metric,
@@ -300,6 +366,12 @@ class BruteForceIndex:
         if engine == "sq8-int8":
             return sq8i_bucket_topk(
                 q, self._sq8_rows8, self._sq8_scale, self._sq8_minv,
+                knock(self._sq8_pen, torch.inf), k=k_eff, metric=self.metric,
+                chunk=self._chunk,
+            )
+        if engine == "sq8-bucket":
+            return sq8_bucket_topk(
+                q, self._sq8_words, self._sq8_scale, self._sq8_minv,
                 knock(self._sq8_pen, torch.inf), k=k_eff, metric=self.metric,
                 chunk=self._chunk,
             )
@@ -338,16 +410,18 @@ def state_from_jax(arrays: dict, device) -> dict:
 
     ``arrays`` holds numpy copies of the reference ``BruteForceIndex``'s
     state, under its attribute names without the leading underscore:
-    ``valid`` always; FULL: ``full``, ``full_sqnorm``, and the pd shadow as
-    ``rows_pd``, ``pen_int``, ``pen_f32``, ``sdim``, ``mid``, ``qu`` or the
+    ``valid`` always; FULL, F16, BF16: ``full`` (f32, f16 or bf16, kept in
+    its dtype), ``full_sqnorm``, ``bucket_pen``, and the pd shadow as
+    ``rows_pd``, ``pen_int``, ``pen_f32``, ``sdim``, ``mid``, ``qu``, or the
     per-row shadow as ``assist`` (the reference's uncentered 4-tuple
-    ``(rows8, scale, minv, pen)``, adopted with ``shift = None``);
-    SQ8: ``sq8`` (the ``(codes, scale, minv)`` tuple), ``sq_norm`` (absent
-    or None for dot), ``sq8_rows8``, ``sq8_scale``, ``sq8_minv``,
-    ``sq8_pen``; BINARY: ``packed`` (uint32 words) and, when built,
-    ``ham_bits`` and ``ham_aux``. Other keys are accepted and not used. The
-    result feeds :meth:`BruteForceIndex.load_state`, so both packages search
-    from identical state."""
+    ``(rows8, scale, minv, pen)``, adopted with ``shift = None``), or the
+    split-bf16 pair as ``full_hl``; SQ8: ``sq8`` (the ``(codes, scale,
+    minv)`` tuple), ``sq_norm`` (absent or None for dot), ``sq8_rows8`` or
+    ``sq8_words``, ``sq8_scale``, ``sq8_minv``, ``sq8_pen``; BINARY:
+    ``packed`` (uint32 words) and, when built, ``ham_bits`` and ``ham_aux``.
+    Other keys are accepted and not used. The result feeds
+    :meth:`BruteForceIndex.load_state`, so both packages search from
+    identical state."""
 
     def put(a, dtype):
         a = np.ascontiguousarray(a)
@@ -355,16 +429,28 @@ def state_from_jax(arrays: dict, device) -> dict:
             a = a.view(np.int32)  # the same bits; torch has no full uint32
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
+    def put_float(a):
+        """f32/f16 as they are; numpy holds JAX's bfloat16 as ml_dtypes'
+        bfloat16, which torch.from_numpy refuses: its bits go over as int16."""
+        a = np.ascontiguousarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+        return torch.from_numpy(a if a.dtype == np.float16 else a.astype(np.float32)).to(device)
+
     f32, i32, i8 = np.float32, np.int32, np.int8
     state = {"valid": put(arrays["valid"], bool)}
     plain = {
-        "full": f32, "full_sqnorm": f32, "sq_norm": f32, "sq8_rows8": i8,
-        "sq8_scale": f32, "sq8_minv": f32, "sq8_pen": f32, "packed": i32,
-        "ham_bits": i8, "ham_aux": i32,
+        "full_sqnorm": f32, "bucket_pen": f32, "sq_norm": f32, "sq8_rows8": i8,
+        "sq8_words": i32, "sq8_scale": f32, "sq8_minv": f32, "sq8_pen": f32,
+        "packed": i32, "ham_bits": i8, "ham_aux": i32,
     }
     for key, dtype in plain.items():
         if arrays.get(key) is not None:
             state[key] = put(arrays[key], dtype)
+    if arrays.get("full") is not None:
+        state["full"] = put_float(arrays["full"])
+    if arrays.get("full_hl") is not None:
+        state["full_hl"] = tuple(put_float(a) for a in arrays["full_hl"])
     if "rows_pd" in arrays:
         state["assist_pd"] = (
             put(arrays["rows_pd"], i8), put(arrays["pen_int"], i32),

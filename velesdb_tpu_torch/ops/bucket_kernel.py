@@ -1,11 +1,23 @@
-"""Bucket-select coarse scans on the card: the int8 and Hamming kernels.
+"""Bucket-select scans on the card: the float, int8, SQ8 and Hamming kernels.
 
 Counterpart of ``velesdb_tpu/ops/bucket_kernel.py``. Every kernel here scores
 a query batch against a padded corpus chunk by chunk and keeps ONE winner per
 128-lane bucket of each chunk (``_bucket_select``), so the ``[B, N]`` score
 matrix never exists in device memory; an exact ``torch.topk`` over the bucket
-winners (``_final_select``) finishes the search. Four hand-written CUDA
+winners (``_final_select``) finishes the search. Seven hand-written CUDA
 kernels (``csrc/``), each with its plain torch version beside it:
+
+- ``dense_bucket`` (#2, :func:`dense_bucket_gm`): f32, f16 or bf16 rows,
+  ``dot - cc`` (:func:`bucket_topk_entry`); the ``bucket-f32`` core of
+  F16/BF16 storage below D 512.
+- ``hl_bucket`` (#3, :func:`hl_bucket_gm`): split-bf16 (hi, lo) rows
+  (:func:`bucket_topk_hl`); the FULL ``split-bf16`` core.
+- ``sq8_bucket`` (#6, :func:`sq8_bucket_gm`): block-packed SQ8 words
+  (:func:`sq8_bucket_topk`); the ``sq8-bucket`` core.
+
+The three float kernels sum each dot over the dims in order, one rounded
+multiply and add per term (:func:`_ordered_dot`), so on the card they equal
+their plain versions bit for bit. The int8 and Hamming kernels:
 
 - ``sq8pd_bucket`` (#1, :func:`sq8pd_bucket_gm`): the per-DIMENSION int8
   "enc-select" scan, the FULL-storage core at D < 512 and at least
@@ -40,12 +52,24 @@ import torch.nn.functional as F
 
 from velesdb_tpu_torch.ops import _cuda
 from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
+from velesdb_tpu_torch.ops.quantization import sq8_unpack_blocked
 
 __all__ = [
     "BUCKET_MIN_ROWS",
     "HAMMING_CHUNK",
     "LAUNCHES",
     "bucket_chunk",
+    "bucket_topk",
+    "bucket_topk_entry",
+    "dense_bucket_gm",
+    "dense_bucket_ref",
+    "split_f32_rows",
+    "bucket_topk_hl",
+    "hl_bucket_gm",
+    "hl_bucket_ref",
+    "sq8_bucket_gm",
+    "sq8_bucket_ref",
+    "sq8_bucket_topk",
     "sq8_int8_rows",
     "sq8i_bucket_gm",
     "sq8i_bucket_ref",
@@ -81,6 +105,9 @@ HAMMING_CHUNK = 2048
 # Kernel launches per wrapper, counted where the CUDA kernel is launched and
 # nowhere else (the CPU path of a wrapper does not count).
 LAUNCHES = {
+    "dense_bucket_gm": 0,
+    "hl_bucket_gm": 0,
+    "sq8_bucket_gm": 0,
     "sq8pd_bucket_gm": 0,
     "sq8i_bucket_gm": 0,
     "hamming_mxu_gm": 0,
@@ -383,18 +410,24 @@ def _bucket_select(s: torch.Tensor, chunk: int):
     return gm.reshape(b, -1), gi.reshape(b, -1).to(torch.int32)
 
 
+def _score_keys(s: torch.Tensor) -> torch.Tensor:
+    """One int64 key per score of ``s [B, M]``: the f32's order-preserving
+    bits (-0.0 as +0.0) above the reversed column, so keys are unique and a
+    larger key is a better score, then a smaller column."""
+    bits = (s + 0.0).view(torch.int32)
+    hi = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    rev = (1 << 32) - 1 - torch.arange(s.shape[1], device=s.device)
+    return hi * (1 << 32) + rev
+
+
 def _final_select(gm: torch.Tensor, gi: torch.Tensor, k: int, b: int):
     """Exact top-k over the bucket winners (the reference's PartialReduce is
     ``approx_max_k``, exact ``top_k`` on its CPU path), empties mapped to id
     -1. Equal scores go to the smallest bucket position, as ``top_k`` breaks
     them, on every device: ``torch.topk`` orders ties one way on the CPU and
     another on CUDA, and Hamming scores tie often. The select runs on one
-    int64 key per winner, the f32 score's order-preserving bits above the
-    reversed position, so no two keys are equal."""
-    bits = (gm + 0.0).view(torch.int32)  # -0.0 -> +0.0 first
-    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
-    rev = (1 << 32) - 1 - torch.arange(gm.shape[1], device=gm.device)
-    top = torch.topk(key * (1 << 32) + rev, min(k, gm.shape[1]), dim=1).values
+    int64 key per winner (:func:`_score_keys`), so no two keys are equal."""
+    top = torch.topk(_score_keys(gm), min(k, gm.shape[1]), dim=1).values
     pos = (1 << 32) - 1 - (top & 0xFFFFFFFF)
     vals = torch.gather(gm, 1, pos)
     idx = torch.gather(gi, 1, pos)[:b].long()
@@ -406,6 +439,18 @@ def _restore_euclidean(vals, idx, qq):
     """Scores were maximize-oriented ``2 q.c - |c|^2``; surface distances."""
     d2 = (qq[:, None] - vals).clamp_min(0.0)
     return torch.where(idx < 0, torch.inf, torch.sqrt(d2)), idx
+
+
+def _prep_queries(queries: torch.Tensor, metric: DistanceMetric):
+    """``(q, |q|^2)``: cosine queries normalized, euclidean ones doubled (the
+    scans maximize ``2 q.c - |c|^2``)."""
+    q = queries.float()
+    qq = torch.sum(q * q, dim=1)
+    if metric is DistanceMetric.COSINE:
+        q = normalize(q)
+    elif metric is DistanceMetric.EUCLIDEAN:
+        q = 2.0 * q
+    return q, qq
 
 
 def _int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -518,12 +563,7 @@ def _sq8i_quantize_queries(queries: torch.Tensor, metric: DistanceMetric, d_pad:
     with B padded to a multiple of 8 (pad rows: qi 0, qs 1)."""
     b = queries.shape[0]
     b_pad = _round_up(max(b, 8), 8)
-    q = queries.float()
-    qq = torch.sum(q * q, dim=1)
-    if metric is DistanceMetric.COSINE:
-        q = normalize(q)
-    elif metric is DistanceMetric.EUCLIDEAN:
-        q = 2.0 * q
+    q, qq = _prep_queries(queries, metric)
     qs = _div(torch.amax(torch.abs(q), dim=1), 127.0).clamp_min(1e-30)
     qi = torch.round(q / qs[:, None]).to(torch.int8)
     qi = F.pad(qi, (0, d_pad - qi.shape[1], 0, b_pad - b))
@@ -698,3 +738,255 @@ def hamming_bucket_topk(packed_q, packed_corpus, penalty, *, k, chunk=HAMMING_CH
     gm, gi = hamming_bucket_gm(q, packed_corpus, penalty, chunk)
     vals, idx = _final_select(gm, gi, k, b)
     return torch.where(idx < 0, torch.inf, -vals), idx
+
+
+# ---------------------------------------------------------------------------
+# The float-score bucket scans, #2, #3 and #6: fixed-order fp32 dots
+# ---------------------------------------------------------------------------
+
+_FLOAT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_DENSE_MAX_DPAD = 3072  # 16 queries x D_pad floats of shared memory
+_HL_MAX_DPAD = 1536  # two such tiles (hi and lo)
+
+
+def _ordered_dot(q: torch.Tensor, rows: torch.Tensor, acc=None) -> torch.Tensor:
+    """fp32 ``q [B, W] . rows [N, W]^T`` summed over ``w = 0 .. W-1`` in
+    order, one elementwise multiply and one add per term (no FMA, no
+    blocking), so every product and partial sum rounds as the CUDA kernels'
+    ``__fmul_rn`` / ``__fadd_rn`` do. ``acc [B, N]``, when given, is the sum
+    to continue."""
+    qf = q.float()
+    rt = rows.float().T.contiguous()  # [W, N]: one contiguous row per term
+    if acc is None:
+        acc = torch.zeros((q.shape[0], rows.shape[0]), dtype=torch.float32, device=q.device)
+    for w in range(q.shape[1]):
+        acc = acc + qf[:, w, None] * rt[w][None, :]
+    return acc
+
+
+def _check_float_scan(q, rows, chunk, max_dpad, vectors=(), queries=()):
+    if rows.dtype not in _FLOAT_CODES:
+        raise TypeError(f"rows must be float32, float16 or bfloat16, got {rows.dtype}")
+    _check_rows(q, rows, rows.dtype, rows.dtype, chunk, vectors, queries)
+    if any(v.dtype != torch.float32 for v in (*vectors, *queries)):
+        raise TypeError("per-row and per-query vectors must be float32")
+    if q.shape[0] % 8:
+        raise ValueError(f"B_pad={q.shape[0]} must be a multiple of 8")
+    if q.shape[1] % 8 or q.shape[1] > max_dpad:
+        raise ValueError(f"D_pad={q.shape[1]} must be a multiple of 8, <= {max_dpad}")
+
+
+def dense_bucket_ref(q, rows, cc, chunk: int):
+    """Plain torch version of #2: ``s = dot - cc`` with the fixed-order fp32
+    dot of the upcast operands, then the bucket select."""
+    return _bucket_select(_ordered_dot(q, rows) - cc[None, :], chunk)
+
+
+def dense_bucket_gm(q, rows, cc, chunk: int):
+    """Bucket winners of the float scan (#2), ``(gm f32, gi int32)
+    [B_pad, N/chunk*128]``: ``q [B_pad, D_pad]`` and ``rows [N, D_pad]`` in
+    one float dtype (f32, f16 or bf16), ``cc [N]`` f32. CUDA tensors launch
+    ``csrc/dense_bucket.cu``; CPU tensors take :func:`dense_bucket_ref`."""
+    _check_float_scan(q, rows, chunk, _DENSE_MAX_DPAD, (cc,))
+    if _kernel_route(q, rows, cc):
+        return dense_bucket_ref(q, rows, cc, chunk)
+    (b_pad, d_pad), n = q.shape, rows.shape[0]
+    gm, gi = _gm_gi(b_pad, n, chunk, q.device)
+    _launch(LAUNCHES, "dense_bucket_gm", "dense_bucket", "dense_bucket_launch",
+            _P * 5 + _IIJ + (ctypes.c_int,), q, rows, cc, gm, gi, b_pad, n, d_pad, chunk,
+            _FLOAT_CODES[rows.dtype])
+    return gm, gi
+
+
+def _fold_mask(penalty: torch.Tensor, mask, n: int) -> torch.Tensor:
+    """The per-call filter folded into the additive penalty (``+inf`` on rows
+    it drops), as the reference folds it (``:219-223``)."""
+    pen = penalty.float()
+    if mask is None:
+        return pen
+    m = mask.to(device=pen.device, dtype=torch.bool)
+    if m.shape[0] < n:
+        m = F.pad(m, (0, n - m.shape[0]))
+    return torch.where(m[:n], pen, torch.inf)
+
+
+def _bucket_call(q, corpus, cc, *, k: int, chunk: int):
+    """The #2 sweep and the exact final select (reference ``:166-196``)."""
+    gm, gi = dense_bucket_gm(q, corpus, cc, chunk)
+    return _final_select(gm, gi, k, q.shape[0])
+
+
+def bucket_topk_entry(queries, corpus, cnorm_or_penalty, mask=None, *, k: int, metric,
+                      chunk: int, prenormalized: bool = True):
+    """Bucket-selection top-k over a float corpus (reference ``:202-250``).
+
+    ``cnorm_or_penalty [N]``: euclidean ``|c|^2``, else 0, with ``+inf`` on
+    rows knocked out; ``mask [N] bool`` is a per-call filter folded into it.
+    ``corpus [N, D']`` may be wider than the queries' D when its extra
+    columns are zero: a corpus already ``[N_pad, round_up(D, 8)]`` goes to the
+    kernel without a copy. Cosine assumes pre-normalized rows unless
+    ``prenormalized=False``. The queries are cast to the corpus dtype when it
+    is not f32. Returns metric-native ``(vals [B, k], ids [B, k] int64)``,
+    ``-1`` for empties."""
+    metric = DistanceMetric.parse(metric)
+    b, d = queries.shape
+    n, d_c = corpus.shape
+    b_pad, d_pad, n_pad = _round_up(b, 8), _round_up(max(d, d_c), 8), _round_up(n, chunk)
+    pen = _fold_mask(cnorm_or_penalty, mask, n)
+    q, qq = _prep_queries(queries, metric)
+    if metric is DistanceMetric.COSINE and not prenormalized:
+        corpus = normalize(corpus.float()).to(corpus.dtype)
+    q = F.pad(q, (0, d_pad - d, 0, b_pad - b))
+    if (n_pad, d_pad) != tuple(corpus.shape):
+        corpus = F.pad(corpus, (0, d_pad - d_c, 0, n_pad - n))
+    pen = F.pad(pen, (0, n_pad - n), value=torch.inf)
+    if corpus.dtype != torch.float32:
+        q = q.to(corpus.dtype)
+    vals, idx = _bucket_call(q, corpus.contiguous(), pen, k=k, chunk=chunk)
+    vals, idx = vals[:b], idx[:b]
+    if metric is DistanceMetric.EUCLIDEAN:
+        return _restore_euclidean(vals, idx, qq)
+    return vals, idx
+
+
+def bucket_topk(queries, corpus, penalty=None, k: int = 10,
+                metric: DistanceMetric = DistanceMetric.COSINE, chunk: int | None = None,
+                prenormalized: bool = False):
+    """Convenience wrapper of :func:`bucket_topk_entry` (reference ``:832``):
+    ``penalty`` None derives it from the corpus (all rows valid); ``chunk``
+    None takes :func:`bucket_chunk` of the 128-padded row count."""
+    metric = DistanceMetric.parse(metric)
+    c = torch.as_tensor(corpus)
+    q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=c.device))
+    if chunk is None:
+        chunk = bucket_chunk(_round_up(c.shape[0], _LANES))
+    if penalty is None:
+        if metric is DistanceMetric.EUCLIDEAN:
+            penalty = torch.sum(c.float() ** 2, dim=1)
+        else:
+            penalty = torch.zeros(c.shape[0], dtype=torch.float32, device=c.device)
+    pen = torch.as_tensor(penalty, dtype=torch.float32, device=c.device)
+    return bucket_topk_entry(q, c, pen, k=k, metric=metric, chunk=chunk,
+                             prenormalized=prenormalized)
+
+
+# -- #3: split-bf16 (reference ``split_f32_rows`` :272, ``bucket_topk_hl`` :296)
+
+
+def split_f32_rows(corpus: torch.Tensor):
+    """``[N, D] f32`` -> ``(hi, lo)`` bf16 pair: ``hi = bf16(x)``,
+    ``lo = bf16(x - hi)``, for :func:`bucket_topk_hl`."""
+    x = corpus.float()
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def hl_bucket_ref(qhi, qlo, hi, lo, cc, chunk: int):
+    """Plain torch version of #3: ``a = qhi.hi``, then ``e = qhi.lo``
+    continued with ``qlo.hi`` (the reference's ``[qhi|qlo].[lo|hi]`` in its
+    concatenated order), each a fixed-order fp32 sum; ``s = (a + e) - cc``;
+    the bucket select."""
+    a = _ordered_dot(qhi, hi)
+    e = _ordered_dot(qlo, hi, acc=_ordered_dot(qhi, lo))
+    return _bucket_select((a + e) - cc[None, :], chunk)
+
+
+def hl_bucket_gm(qhi, qlo, hi, lo, cc, chunk: int):
+    """Bucket winners of the split-bf16 scan (#3), ``(gm f32, gi int32)``.
+    CUDA tensors launch ``csrc/hl_bucket.cu``; CPU tensors take
+    :func:`hl_bucket_ref`."""
+    _check_float_scan(qhi, hi, chunk, _HL_MAX_DPAD, (cc,))
+    if any(t.dtype != torch.bfloat16 for t in (qhi, qlo, hi, lo)):
+        raise TypeError("qhi, qlo, hi and lo must be bfloat16")
+    if qlo.shape != qhi.shape or lo.shape != hi.shape:
+        raise ValueError(f"shape mismatch: qlo {tuple(qlo.shape)}, lo {tuple(lo.shape)}")
+    if _kernel_route(qhi, qlo, hi, lo, cc):
+        return hl_bucket_ref(qhi, qlo, hi, lo, cc, chunk)
+    (b_pad, d_pad), n = qhi.shape, hi.shape[0]
+    gm, gi = _gm_gi(b_pad, n, chunk, qhi.device)
+    _launch(LAUNCHES, "hl_bucket_gm", "hl_bucket", "hl_bucket_launch", _P * 7 + _IIJ,
+            qhi, qlo, hi, lo, cc, gm, gi, b_pad, n, d_pad, chunk)
+    return gm, gi
+
+
+def bucket_topk_hl(queries, hi, lo, cnorm_or_penalty, mask=None, *, k: int, metric,
+                   chunk: int):
+    """Split-bf16 bucket search: the :func:`bucket_topk_entry` contract at
+    near-f32 fidelity. ``hi/lo [N, D_pad]`` bf16 from :func:`split_f32_rows`
+    of the (cosine: pre-normalized) corpus, D padded to 128 at build."""
+    metric = DistanceMetric.parse(metric)
+    b, d = queries.shape
+    n, d_pad = hi.shape
+    b_pad = _round_up(b, 8)
+    pen = _fold_mask(cnorm_or_penalty, mask, n)
+    q, qq = _prep_queries(queries, metric)
+    q = F.pad(q, (0, d_pad - d, 0, b_pad - b))
+    qhi, qlo = split_f32_rows(q)
+    gm, gi = hl_bucket_gm(qhi, qlo, hi, lo, pen, chunk)
+    vals, idx = _final_select(gm, gi, k, b)
+    if metric is DistanceMetric.EUCLIDEAN:
+        return _restore_euclidean(vals, idx, qq)
+    return vals, idx
+
+
+# -- #6: staged SQ8 over block-packed words (reference ``_sq8_kernel`` :894,
+# ``sq8_bucket_topk`` :923, f32 unpack)
+
+
+def _check_sq8_words(q, words, scale, minv, pen, qsum, chunk):
+    if q.dtype != torch.float32 or words.dtype != torch.int32:
+        raise TypeError(f"expected q float32 and words int32, got {q.dtype}, {words.dtype}")
+    if words.ndim != 2 or q.ndim != 2 or q.shape[1] != 4 * words.shape[1]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, words {tuple(words.shape)}")
+    # the row contract on the [B_pad, W] word view of the queries' width
+    _check_rows(q[:, 0::4], words, torch.float32, torch.int32, chunk, (scale, minv, pen),
+                (qsum,))
+    if any(v.dtype != torch.float32 for v in (scale, minv, pen, qsum)):
+        raise TypeError("scale, minv, pen and qsum must be float32")
+    if q.shape[0] % 8 or q.shape[1] > _DENSE_MAX_DPAD:
+        raise ValueError(f"B_pad={q.shape[0]} must be a multiple of 8, D_pad={q.shape[1]} "
+                         f"<= {_DENSE_MAX_DPAD}")
+
+
+def sq8_bucket_ref(q, words, scale, minv, pen, qsum, chunk: int):
+    """Plain torch version of #6: the codes unpacked to dim order, the
+    fixed-order fp32 dot, ``s = (dot*scale + qsum*minv) - pen``, the bucket
+    select."""
+    dot = _ordered_dot(q, sq8_unpack_blocked(words))
+    s = dot * scale[None, :] + qsum[:, None] * minv[None, :]
+    return _bucket_select(s - pen[None, :], chunk)
+
+
+def sq8_bucket_gm(q, words, scale, minv, pen, qsum, chunk: int):
+    """Bucket winners of the staged SQ8 scan (#6), ``(gm f32, gi int32)``:
+    ``q [B_pad, D_pad] f32``, ``words [N, D_pad/4] int32``. CUDA tensors
+    launch ``csrc/sq8_bucket.cu``; CPU tensors take :func:`sq8_bucket_ref`."""
+    _check_sq8_words(q, words, scale, minv, pen, qsum, chunk)
+    if _kernel_route(q, words, scale, minv, pen, qsum):
+        return sq8_bucket_ref(q, words, scale, minv, pen, qsum, chunk)
+    b_pad, (n, w) = q.shape[0], words.shape
+    gm, gi = _gm_gi(b_pad, n, chunk, q.device)
+    _launch(LAUNCHES, "sq8_bucket_gm", "sq8_bucket", "sq8_bucket_launch", _P * 8 + _IIJ,
+            q, words, scale, minv, pen, qsum, gm, gi, b_pad, n, w, chunk)
+    return gm, gi
+
+
+def sq8_bucket_topk(queries, words, scale, minv, penalty, *, k: int, metric, chunk: int):
+    """Bucket-selection search over block-packed SQ8 codes (``words [N_pad,
+    D_pad/4] int32`` from :func:`~velesdb_tpu_torch.ops.quantization.
+    sq8_pack_blocked`); ``penalty``: euclidean dequantized ``|c|^2``, else 0,
+    ``+inf`` on rows knocked out. Cosine's ``1/|c|`` is folded into
+    ``scale``/``minv``. ``sum(q)`` is summed here once, in dim order, and
+    handed to the scan."""
+    metric = DistanceMetric.parse(metric)
+    b, d = queries.shape
+    d_pad = words.shape[1] * 4
+    b_pad = _round_up(max(b, 8), 8)
+    q, qq = _prep_queries(queries, metric)
+    q = F.pad(q, (0, d_pad - d, 0, b_pad - b))
+    qsum = _ordered_dot(q, torch.ones((1, d_pad), device=q.device))[:, 0]
+    gm, gi = sq8_bucket_gm(q, words, scale, minv, penalty.float(), qsum, chunk)
+    vals, idx = _final_select(gm, gi, k, b)
+    if metric is DistanceMetric.EUCLIDEAN:
+        return _restore_euclidean(vals, idx, qq)
+    return vals, idx

@@ -1,7 +1,19 @@
-"""Exact packed-Hamming top-k (kernel #9).
+"""Exact streaming top-k kernels: fused distance top-k (#8) and packed
+Hamming top-k (#9).
 
-Counterpart of ``hamming_topk`` in ``velesdb_tpu/ops/pallas_kernels.py``
-(``:410``, ``_hamming_topk_entry`` ``:366``): the BINARY serve core at small
+Counterpart of ``velesdb_tpu/ops/pallas_kernels.py``.
+
+``fused_topk`` (``:265``, ``_fused_kernel`` ``:119``) is the public op that
+scores f32 queries against an f32, f16 or bf16 corpus and keeps the exact
+top-k (the JAX package's serve path no longer calls it). The TPU kernel
+carries a running top-k across its grid; the CUDA kernel
+``csrc/fused_topk.cu`` scores row ranges in parallel, keeps each range's
+best k, and merges them per query in a second pass. Both select on one int64
+key per score (its order-preserving bits above the reversed row), so ties go
+to the smallest row as in the reference's ``_merge_topk``. ``k`` is capped
+at :data:`MAX_K` (1,024). :func:`fused_topk_ref` is its plain version.
+
+``hamming_topk`` (``:410``, ``_hamming_topk_entry`` ``:366``): the BINARY serve core at small
 N or large k, where one winner per bucket would lose results. The TPU kernel
 carries a running top-k across its sequential grid (k max-extraction passes
 per chunk). Hopper blocks run in no order, so the hand-written CUDA kernel
@@ -15,20 +27,177 @@ the smallest row index, the first-occurrence rule of the reference's
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+import torch.nn.functional as F
 
 from velesdb_tpu_torch.ops.bucket_kernel import (
+    _FLOAT_CODES,
     _IIJ,
     _P,
     _kernel_route,
     _launch,
+    _ordered_dot,
+    _round_up,
+    _score_keys,
     hamming_distances,
 )
+from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
 
-__all__ = ["LAUNCHES", "hamming_topk", "hamming_topk_ref"]
+__all__ = [
+    "DEFAULT_CHUNK",
+    "FUSED_SCRATCH_BYTES",
+    "LAUNCHES",
+    "MAX_K",
+    "fit_chunk",
+    "fused_topk",
+    "fused_topk_ref",
+    "fused_topk_scan",
+    "hamming_topk",
+    "hamming_topk_ref",
+]
 
 # Kernel launches, counted where the CUDA kernel is launched and nowhere else.
-LAUNCHES = {"hamming_topk": 0}
+LAUNCHES = {"fused_topk": 0, "hamming_topk": 0}
+
+DEFAULT_CHUNK = 2048  # the reference's corpus rows per grid step
+MAX_K = 1024  # the rows of one pass-one range of csrc/fused_topk.cu
+_FUSED_ROWS = 1024
+# Pass one's candidate scratch, ``B * ceil(N / 1024) * k`` int64 keys (B*N*k/128
+# bytes: 2 GiB at B 256, N 1M, k 1,024), is capped per launch: larger batches
+# launch in query slices (multiples of 8) that fit it.
+FUSED_SCRATCH_BYTES = 256 << 20
+_FUSED_MAX_DPAD = 4096  # 64 KB of keys + 8 queries x D_pad floats
+_METRIC_CODES = {DistanceMetric.DOT_PRODUCT: 0, DistanceMetric.COSINE: 1,
+                 DistanceMetric.EUCLIDEAN: 2}
+
+
+def fit_chunk(b: int, d: int, k: int, itemsize: int = 4, n: int | None = None) -> int:
+    """The reference's VMEM-fitted corpus chunk (``:61-77``), kept for API
+    parity: the CUDA kernel's row ranges do not depend on it, and no result
+    does."""
+    b_pad = _round_up(b, 8)
+    d_pad = _round_up(d, 128)
+    k_pad = _round_up(max(k, 8), 128)
+    budget = 16 * 1024 * 1024 - b_pad * d_pad * 4 - 8 * b_pad * k_pad
+    denom = 2 * d_pad * itemsize + 4 * b_pad
+    fit = max(256, (budget // denom) // 256 * 256)
+    if n is not None:
+        fit = min(fit, _round_up(n, 256))
+    return int(min(fit, DEFAULT_CHUNK))
+
+
+def _decode_keys(keys: torch.Tensor):
+    """``(score f32, column int64)`` back from :func:`_score_keys`, with the
+    column -1 where the score is -inf."""
+    hi = torch.div(keys, 1 << 32, rounding_mode="floor").to(torch.int32)
+    s = torch.where(hi >= 0, hi, hi ^ 0x7FFFFFFF).view(torch.float32)
+    col = (1 << 32) - 1 - (keys & 0xFFFFFFFF)
+    return s, torch.where(s == -torch.inf, -1, col)
+
+
+def _check_fused(q, rows, valid, aux, qq, k):
+    if rows.dtype not in _FLOAT_CODES or q.dtype != torch.float32:
+        raise TypeError(f"expected q float32 and f32/f16/bf16 rows, got {q.dtype}, {rows.dtype}")
+    if valid.dtype != torch.bool or aux.dtype != torch.float32 or qq.dtype != torch.float32:
+        raise TypeError("valid must be bool, aux and qq float32")
+    if q.ndim != 2 or rows.ndim != 2 or q.shape[1] != rows.shape[1]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, rows {tuple(rows.shape)}")
+    n = rows.shape[0]
+    if valid.shape != (n,) or aux.shape != (n,) or qq.shape != (q.shape[0],):
+        raise ValueError("valid and aux must be [N], qq [B]")
+    if q.shape[1] % 8 or q.shape[1] > _FUSED_MAX_DPAD:
+        raise ValueError(f"D_pad={q.shape[1]} must be a multiple of 8, <= {_FUSED_MAX_DPAD}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} must be in [1, {MAX_K}]")
+
+
+def fused_topk_ref(q, rows, valid, aux, qq, k: int, metric):
+    """Plain torch version of #8: the fixed-order fp32 dot, the metric fixup
+    (dot; ``dot * aux``; ``-max((qq + aux) - 2 dot, 0)``), invalid rows at
+    -inf, and the exact top-k of the score keys. Returns maximize-oriented
+    ``(vals [B, k] f32, ids [B, k] int64)``, -inf / -1 for empties."""
+    metric = DistanceMetric.parse(metric)
+    s = _ordered_dot(q, rows)
+    if metric is DistanceMetric.COSINE:
+        s = s * aux[None, :]
+    elif metric is DistanceMetric.EUCLIDEAN:
+        s = -((qq[:, None] + aux[None, :]) - 2.0 * s).clamp_min(0.0)
+    s = torch.where(valid[None, :], s, -torch.inf)
+    vals, idx = _decode_keys(torch.topk(_score_keys(s), min(k, s.shape[1]), dim=1).values)
+    pad = k - vals.shape[1]
+    return F.pad(vals, (0, pad), value=-torch.inf), F.pad(idx, (0, pad), value=-1)
+
+
+def fused_topk_scan(q, rows, valid, aux, qq, k: int, metric):
+    """The exact top-k of the fused scan (#8): ``q [B, D_pad] f32``, ``rows
+    [N, D_pad]`` f32/f16/bf16, ``valid [N] bool``, ``aux [N]`` (cosine
+    ``1/|c|``, euclidean ``|c|^2``), ``qq [B] = |q|^2``, ``1 <= k <= MAX_K``.
+    CUDA tensors launch ``csrc/fused_topk.cu``, one launch per slice of
+    queries whose candidate scratch fits :data:`FUSED_SCRATCH_BYTES` (at
+    least 8 queries a launch); CPU tensors take :func:`fused_topk_ref`."""
+    metric = DistanceMetric.parse(metric)
+    _check_fused(q, rows, valid, aux, qq, k)
+    if _kernel_route(q, rows, valid, aux, qq):
+        return fused_topk_ref(q, rows, valid, aux, qq, k, metric)
+    (b, d_pad), n = q.shape, rows.shape[0]
+    dev = q.device
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, k), dtype=torch.int64, device=dev)
+    ranges = -(-n // _FUSED_ROWS)
+    step = max(8, FUSED_SCRATCH_BYTES // (8 * ranges * k) // 8 * 8)
+    cand = torch.empty((min(b, step), ranges, k), dtype=torch.int64, device=dev)
+    for i in range(0, b, step):
+        j = min(b, i + step)
+        _launch(LAUNCHES, "fused_topk", "fused_topk", "fused_topk_launch",
+                _P * 8 + _IIJ + (ctypes.c_int,), q[i:j], rows, valid, aux, qq[i:j],
+                vals[i:j], idx[i:j], cand, j - i, n, d_pad, k, _FLOAT_CODES[rows.dtype],
+                _METRIC_CODES[metric])
+    return vals, idx
+
+
+def fused_topk(queries, corpus, valid=None, k: int = 10,
+               metric: DistanceMetric = DistanceMetric.COSINE, chunk: int = DEFAULT_CHUNK,
+               corpus_sqnorm=None):
+    """Fused streaming distance + exact top-k (reference ``:265``).
+
+    ``queries [B, D]`` (f32) against ``corpus [N, D]`` (f32, f16 or bf16,
+    upcast to f32). Returns ``(values [B, k], ids [B, k] int64)`` best-first
+    in the metric's native orientation (cosine/dot similarity, euclidean
+    distance), ``-1`` ids for slots no valid row fills. ``k`` is at most
+    :data:`MAX_K`; ``chunk`` is accepted for API parity and changes nothing.
+    On the card pass one's scratch is ``B * ceil(N / 1024) * k`` int64 keys,
+    at most :data:`FUSED_SCRATCH_BYTES` per launch.
+    The cosine factor ``1/|c|`` and ``|q|^2`` are computed here once."""
+    metric = DistanceMetric.parse(metric)
+    if metric not in _METRIC_CODES:
+        raise ValueError(f"unsupported metric {metric}")
+    c = torch.as_tensor(corpus)
+    q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=c.device))
+    n, d = c.shape
+    v = (torch.ones(n, dtype=torch.bool, device=c.device) if valid is None
+         else torch.as_tensor(valid, device=c.device).bool())
+    if metric is DistanceMetric.COSINE:
+        q = normalize(q)
+    d_pad = _round_up(d, 128)
+    q = F.pad(q, (0, d_pad - d))
+    if d_pad != d:
+        c = F.pad(c, (0, d_pad - d))
+    if corpus_sqnorm is None:
+        cn = torch.sum(c.float() ** 2, dim=1)
+    else:
+        cn = torch.as_tensor(corpus_sqnorm, device=c.device).float()
+    if metric is DistanceMetric.COSINE:
+        aux = torch.where(cn > 1e-30, torch.rsqrt(cn.clamp_min(1e-30)), 0.0)
+    else:
+        aux = cn
+    qq = torch.sum(q * q, dim=1)
+    vals, idx = fused_topk_scan(q, c.contiguous(), v.contiguous(), aux.contiguous(), qq, k,
+                                metric)
+    if metric is DistanceMetric.EUCLIDEAN:
+        return torch.where(idx < 0, torch.inf, torch.sqrt((-vals).clamp_min(0.0))), idx
+    return torch.where(idx < 0, -torch.inf, vals), idx
 
 _MAX_WORDS = 256  # 32 * 256 + 1 histogram bins in shared memory
 

@@ -10,8 +10,13 @@ Counterpart of ``velesdb_tpu/ops/quantization.py`` (``quantization.rs``):
   reference's uint32 bits unchanged (``.view(uint32)`` in numpy gives them
   back).
 
-FULL, SQ8 and BINARY are served by this package; F16 and BF16 storage are
-still to be ported (ROADMAP.md). Both packages round half to even, and every
+- **F16 / BF16** (``half_precision.rs``): the rows cast to half precision
+  (2x memory); :data:`STORAGE_DTYPE` maps the float modes to their dtypes.
+- **Block-packed SQ8 words** (:func:`sq8_pack_blocked`, reference
+  ``bucket_kernel.py:877``): four codes per int32 word for the staged SQ8
+  bucket scan.
+
+Both packages round half to even, and every
 constant here is an fp32 tensor, never a Python scalar (a scalar divisor
 becomes a reciprocal multiply on CUDA), so the codes equal the reference's
 bit for bit on the CPU.
@@ -27,9 +32,12 @@ import torch.nn.functional as F
 
 __all__ = [
     "StorageMode",
+    "STORAGE_DTYPE",
     "SQ8Vectors",
     "sq8_quantize",
     "sq8_dequantize",
+    "sq8_pack_blocked",
+    "sq8_unpack_blocked",
     "packed_words",
     "binary_quantize",
     "binary_unpack",
@@ -46,6 +54,14 @@ class StorageMode(str, enum.Enum):
     @classmethod
     def parse(cls, v) -> "StorageMode":
         return v if isinstance(v, cls) else cls(str(v).strip().lower())
+
+
+# device dtype of the float storage modes' rows
+STORAGE_DTYPE = {
+    StorageMode.FULL: torch.float32,
+    StorageMode.F16: torch.float16,
+    StorageMode.BF16: torch.bfloat16,
+}
 
 
 class SQ8Vectors(NamedTuple):
@@ -76,6 +92,24 @@ def sq8_quantize(x: torch.Tensor) -> SQ8Vectors:
 def sq8_dequantize(q: SQ8Vectors) -> torch.Tensor:
     """``quantization.rs:267-270``: ``f32(code) * scale + min``."""
     return q.codes.float() * q.scale[..., None] + q.minv[..., None]
+
+
+def sq8_pack_blocked(codes: torch.Tensor) -> torch.Tensor:
+    """Pack ``[N, D] uint8`` SQ8 codes into ``[N, D_pad/4] int32`` words,
+    ``D_pad = round_up(D, 4)`` (pad codes 0): byte ``j`` of word ``w`` holds
+    dim ``j * (D_pad / 4) + w``, so each byte plane unpacks to a contiguous
+    block of dims (reference ``bucket_kernel.py:877-891``)."""
+    n, d = codes.shape
+    d_pad = -(-d // 4) * 4
+    planes = F.pad(codes.to(torch.int64), (0, d_pad - d)).reshape(n, 4, d_pad // 4)
+    w = planes[:, 0] | (planes[:, 1] << 8) | (planes[:, 2] << 16) | (planes[:, 3] << 24)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def sq8_unpack_blocked(words: torch.Tensor) -> torch.Tensor:
+    """The codes of :func:`sq8_pack_blocked` back as ``[N, D_pad]`` float32."""
+    planes = [(torch.bitwise_right_shift(words, 8 * j) & 0xFF) for j in range(4)]
+    return torch.cat(planes, dim=1).float()
 
 
 def packed_words(dim: int) -> int:

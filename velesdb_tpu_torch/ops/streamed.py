@@ -48,11 +48,16 @@ def streamed_topk(
     chunk: int = STREAM_CHUNK,
     corpus_sqnorm: torch.Tensor | None = None,
 ):
-    """Exact top-k of ``queries [B, D]`` over ``corpus [N, D]``.
+    """Exact top-k of ``queries [B, D]`` over ``corpus [N, D]`` (f32, f16 or
+    bf16 rows).
 
     Returns ``(values [B, k] f32, ids [B, k] int64)`` best-first in the
     metric's native orientation, with id ``-1`` (and ``-inf``/``+inf``
     values) for slots that no valid row fills. ``k`` is clamped to ``N``.
+    On a half corpus the queries are cast to its dtype, as the reference
+    does (``:82-83``), and each chunk is upcast to fp32 for its matmul on
+    its own: the products of two half values are exact in fp32 and the sums
+    stay fp32, and the whole corpus is never copied.
     """
     metric = DistanceMetric.parse(metric)
     dev = corpus.device
@@ -61,28 +66,25 @@ def streamed_topk(
     k = min(k, n)
     if n % chunk:
         chunk = _pick_chunk(n, chunk) or min(chunk, n)
-    n_pad = -(-n // chunk) * chunk
-    c = corpus.float()
-    if corpus_sqnorm is None:
-        cn = torch.sum(c * c, dim=1)
-    else:
-        cn = corpus_sqnorm.float()
     v = torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid.bool()
-    if n_pad != n:
-        c = F.pad(c, (0, 0, 0, n_pad - n))
-        cn = F.pad(cn, (0, n_pad - cn.shape[0]))
-    v = F.pad(v[:n_pad], (0, n_pad - min(v.shape[0], n_pad)))
+    v = F.pad(v[:n], (0, n - min(v.shape[0], n)))
 
     qq = torch.sum(q * q, dim=1)
     if metric is DistanceMetric.COSINE:
         q = normalize(q)
+    if corpus.dtype != torch.float32:
+        q = q.to(corpus.dtype).float()
     b = q.shape[0]
     run_v = torch.full((b, k), -torch.inf, device=dev)
     run_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
-    kc = min(k, chunk)
-    for c0 in range(0, n_pad, chunk):
-        dots = q @ c[c0 : c0 + chunk].T  # [B, C]
-        cc = cn[c0 : c0 + chunk]
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        rows = corpus[c0:c1].float()
+        dots = q @ rows.T  # [B, C]
+        if corpus_sqnorm is None:
+            cc = torch.sum(rows * rows, dim=1)
+        else:
+            cc = corpus_sqnorm[c0:c1].float()
         if metric is DistanceMetric.DOT_PRODUCT:
             s = dots
         elif metric is DistanceMetric.COSINE:
@@ -90,11 +92,10 @@ def streamed_topk(
             s = dots * inv[None, :]
         else:  # EUCLIDEAN: maximize 2 q.c - |c|^2 == |q|^2 - d^2
             s = 2.0 * dots - cc[None, :]
-        s = torch.where(v[None, c0 : c0 + chunk], s, -torch.inf)
-        cv, ci = torch.topk(s, kc, dim=1)
-        mv, pos = torch.topk(torch.cat([run_v, cv], dim=1), k, dim=1)
+        s = torch.where(v[None, c0:c1], s, -torch.inf)
+        cv, ci = torch.topk(s, min(k, c1 - c0), dim=1)
+        run_v, pos = torch.topk(torch.cat([run_v, cv], dim=1), k, dim=1)
         run_i = torch.gather(torch.cat([run_i, ci + c0], dim=1), 1, pos)
-        run_v = mv
 
     return _finish(run_v, run_i, qq, metric)
 
@@ -118,9 +119,11 @@ def sq8_streamed_topk(queries, sq: SQ8Vectors, cnorm=None, valid=None, k: int = 
     dequantized norms, cosine -> dequantized norms, dot -> unused. Same
     output contract as :func:`streamed_topk`.
 
-    The reference casts the queries to bf16 before this matmul and selects
-    with ``approx_max_k``; the port keeps fp32 queries and selects exactly
-    (ROADMAP.md), so its scores are those of the dequantized corpus."""
+    As in the reference (``:156-171``), the code product takes the
+    (normalized) queries rounded to bf16, while ``sum(q)`` comes from the
+    unrounded ones. The product stays an fp32 matmul: a bf16 value times a
+    code <= 255 is exact in fp32. The reference selects with
+    ``approx_max_k``; the port selects exactly (its ``approx=False``)."""
     metric = DistanceMetric.parse(metric)
     codes = sq.codes
     dev = codes.device
@@ -136,12 +139,13 @@ def sq8_streamed_topk(queries, sq: SQ8Vectors, cnorm=None, valid=None, k: int = 
     if metric is DistanceMetric.COSINE:
         q = normalize(q)
     qsum = torch.sum(q, dim=1, keepdim=True)
+    qb = q.to(torch.bfloat16).float()
     b = q.shape[0]
     run_v = torch.full((b, k), -torch.inf, device=dev)
     run_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
     for c0 in range(0, n, chunk):
         c1 = min(c0 + chunk, n)
-        dots = (q @ codes[c0:c1].float().T) * scale[None, c0:c1] + qsum * minv[None, c0:c1]
+        dots = (qb @ codes[c0:c1].float().T) * scale[None, c0:c1] + qsum * minv[None, c0:c1]
         cc = cnorm[c0:c1].float()
         if metric is DistanceMetric.DOT_PRODUCT:
             s = dots
