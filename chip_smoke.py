@@ -6,7 +6,7 @@
 Phases, in order; any failure exits nonzero:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off, build the nine hand-written kernels from ``velesdb_tpu_torch/csrc``
+   off, build the ten hand-written kernels from ``velesdb_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and print their ptxas registers
    and spills.
 2. Kernels vs their plain torch versions, bit for bit (``torch.equal``):
@@ -16,7 +16,10 @@ Phases, in order; any failure exits nonzero:
    four slice-2 kernels and the four slice-3 kernels (``dense_bucket`` #2
    and ``fused_topk`` #8 on f32, f16 and bf16 rows, ``hl_bucket`` #3,
    ``sq8_bucket`` #6) at the same ragged shapes here, and at their slice
-   shapes and B 1 / B 16 in the phases below, on their collections' state.
+   shapes and B 1 / B 16 in the phases below, on their collections' state;
+   the slice-4 probe kernel ``ivf_probe`` (#10) on f32 rows and SQ8 words at
+   B 13, nprobe 5, L 136, D 100, three metrics, with dead slots and
+   all-dead partitions (as past ``c_real``).
 3. Slice 1, SIFT-1M class: 1,000,000 x 128 euclidean FULL, clustered data
    (seed 42, 10K held-out queries), payloads ``{"cat": i % 8}``, through
    ``Database`` -> ``Collection.search_batch`` / ``search`` / a filtered
@@ -59,6 +62,35 @@ Phases, in order; any failure exits nonzero:
    Recall@10 >= 0.99. Slice 3: ``offset-full-hl``, the same collection
    reopened with ``_SQ8I_MAX_DIM[0] = 128``: ``split-bf16`` (#3) serves;
    recall@10 printed beside the same scan's on the data without the offset.
+5d. Slice 4, ``sift1m-ivf``: the sift1m collection pinned with
+   ``index_kind = "ivf"`` (spill 2, 3,906 k-means clusters, L 1,032, about
+   2.2 GiB of f32 partitions), its build stages timed. The counters are
+   zeroed before the main path; every unmasked ``search_batch`` at b = 16 and
+   b = 64 and ``search`` must launch #10, and every launch is held against
+   the plain version bit for bit. Recall@10 >= 0.95 at ef 128 over 256
+   queries searched 16 at a time, and at b = 256 (the plain probing path);
+   the default profile's served ef (after ``downshift_ef``) and the
+   calibrated recall per ef printed; the 1/8 ``cat`` filter (plain masked
+   path) returns no filtered-out id; close + reopen restores the index from
+   ``ivf.npz`` with no k-means run and the same ids; then 1,000 rows
+   upserted after the build are found through the delta with no rebuild,
+   and the unfiltered searches after them still launch #10 (the stale
+   slots dead in a copy of its state), recall@10 >= 0.95 at b = 16.
+   ``sift1m-sq8-ivf``: the sift1m-sq8 collection pinned to IVF (SQ8 words,
+   #10's quant branch) behind the auto-rerank: recall@10 >= 0.90 after the
+   rerank, no filtered-out id, the same ids after reopen. #10 is timed at b
+   16 and b 64 on both storages against its bound, its plain version and
+   the plain ``ivf_search_impl`` on the same queries (the path the port
+   would serve without it); its bound counts each probed partition once.
+5f. Slice 4, ``hard1m-ivf``: 1,000,000 x 128 euclidean FULL from the same
+   generator with 24 clusters (seed 43), where IVF's recall@10 at ef 128
+   sits just above the balanced bar: >= 0.95 pinned, at b = 16 over 256
+   queries, every launch held bit for bit. Then under ``auto``, for the
+   fast, balanced and accurate profiles and balanced at ef 64, every
+   call's plan must be what the calibration and the planner's costs ask
+   for (the honesty gate, the downshift) and must launch #10 exactly when
+   it is IVF; an IVF plan returns the pinned run's ids at its ef, an exact
+   one reaches the profile's bar.
 Each configuration ends with its timing (CUDA events): QPS at b=256 and
 b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
 device path alone, the host share, then the profiler last: the device's
@@ -96,9 +128,12 @@ GLOVE_N, GLOVE_D = 1_183_514, 100  # glove-100-angular; benchmarks/exp_hamming_m
 B100K_N = 100_000
 OFFSET_N = 262_144
 RAGGED_N, RAGGED_B, RAGGED_D = 131_072, 13, 100
+RAGGED_PROBES, RAGGED_L = 5, 136
+IVF_UPSERTS = 1000
+HARD_BLOBS = 24  # hard1m-ivf: recall@10 at ef 128 near the balanced bar of 0.95
 CHUNK = 8192
 KERNELS = ("sq8pd_bucket", "sq8i_bucket", "hamming_mxu_bucket", "hamming_bucket",
-           "hamming_topk", "dense_bucket", "hl_bucket", "sq8_bucket", "fused_topk")
+           "hamming_topk", "dense_bucket", "hl_bucket", "sq8_bucket", "fused_topk", "ivf_probe")
 # Published H100 SXM peaks (NVIDIA data sheet, dense rates, 700 W).
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1.979e15
@@ -132,7 +167,9 @@ def phase(name: str) -> None:
 
 
 def make_clustered(rng, n, d, n_clusters=64):
-    """Clustered Gaussians: the reference benchmark's data model (bench.py:41)."""
+    """Clustered Gaussians: the reference benchmark's data model (bench.py:41).
+    Fewer clusters make each one a larger blob that k-means cuts into more
+    partitions, so a query's neighbours spread over more of them."""
     centers = rng.standard_normal((n_clusters, d)).astype(np.float32) * 2.0
     assign = rng.integers(0, n_clusters, n)
     return centers[assign] + rng.standard_normal((n, d)).astype(np.float32) * 0.7
@@ -296,18 +333,19 @@ def max_err(got, ref) -> float:
     return float((got.double() - ref.double()).abs()[~same].max())
 
 
-def measure(torch, name, search, device_label, device_fn, queries):
-    """QPS at b=256 and b=16 of ``search`` and of the device path alone, the
-    host share, then the device's busy time from the profiler."""
+def measure(torch, name, search, device_label, device_fn, queries, sizes=(256, 16)):
+    """QPS at each batch size (b=256 and b=16 unless told) of ``search`` and
+    of the device path alone, the host share, then the device's busy time
+    from the profiler."""
     out = {}
     label = f"{name} search_batch"
     for lbl, fn in ((label, search), (device_label, device_fn)):
-        for b in (256, 16):
+        for b in sizes:
             out[lbl, b] = (fn, *report_qps(torch, lbl, fn, queries, b))
-    for b in (256, 16):
+    for b in sizes:
         host = 1.0 - out[device_label, b][1] / out[label, b][1]
         say(f"{label} b={b}: host share {host:.3f} (1 - device path / search_batch)")
-    for b in (256, 16):
+    for b in sizes:
         fn, med, batches = out[label, b]
         report_busy(torch, f"{label} b={b}", fn, batches, med)
 
@@ -374,6 +412,16 @@ class MainPath:
         return err
 
 
+def expected_ef(calib: dict, ef: int, bar: float, margin: float = 0.005) -> int:
+    """The ef a profile's search is served at: the smallest calibrated ef
+    below ``ef`` whose recall clears ``bar + margin``, else ``ef`` (the
+    planner's downshift rule, restated to check it)."""
+    for e in sorted(e for e in calib if e < ef):
+        if calib[e] >= bar + margin:
+            return e
+    return ef
+
+
 def bound(ops_ms: float, bytes_: float) -> tuple[float, str]:
     """The least time for the work: the larger of the bytes over the memory
     rate and the operations over their peak rates (``ops_ms``)."""
@@ -408,7 +456,10 @@ def main() -> None:
     from velesdb_tpu_torch import Database
     import velesdb_tpu_torch.index.brute as brute_mod
     from velesdb_tpu_torch.index.brute import _affine_fold, pad_rows
+    import velesdb_tpu_torch.index.ivf as ivf_mod
+    from velesdb_tpu_torch.index.params import SearchQuality
     from velesdb_tpu_torch.ops import _cuda, bucket_kernel as bk
+    from velesdb_tpu_torch.ops import ivf_kernel as ik
     from velesdb_tpu_torch.ops import pallas_kernels as pk
     from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
     from velesdb_tpu_torch.ops.quantization import (
@@ -419,7 +470,7 @@ def main() -> None:
 
     F = torch.nn.functional
 
-    counters = (bk.LAUNCHES, pk.LAUNCHES)
+    counters = (bk.LAUNCHES, pk.LAUNCHES, ik.LAUNCHES)
     t0 = time.perf_counter()
     _cuda.build_all(KERNELS)
     say(f"build {len(KERNELS)} kernels in parallel: {time.perf_counter() - t0:.2f} s wall "
@@ -617,6 +668,40 @@ def main() -> None:
         torch.cuda.synchronize()
         errs["sq8_bucket"] = max(errs["sq8_bucket"], hold(
             f"sq8_bucket {ragged}, chunk {CHUNK}, {metric}", out, bk.sq8_bucket_ref(*args)))
+        # #10: the ragged rows cut into partitions of 136 slots, the last 40
+        # all dead (as past c_real), each probe drawn over every partition
+        n_parts = RAGGED_N // RAGGED_L
+        keep = r_keep[: n_parts * RAGGED_L].clone()
+        keep[-40 * RAGGED_L:] = False
+        probe = torch.from_numpy(np.random.default_rng(10).integers(
+            0, n_parts, (RAGGED_B, RAGGED_PROBES)).astype(np.int32)).to(dev)
+        probe[:, 0] = n_parts - 1
+        rows = rows[: n_parts * RAGGED_L]
+        psq = (rows * rows).sum(1)
+        inv = torch.rsqrt(psq) if m is DistanceMetric.COSINE else torch.ones_like(psq)
+        pen = torch.where(keep, psq if m is DistanceMetric.EUCLIDEAN else 0.0, torch.inf)
+        sq = sq8_quantize(rx[: n_parts * RAGGED_L])
+        words = sq8_pack_blocked(torch.where(keep[:, None], sq.codes, 0))
+        fold = inv if m is DistanceMetric.COSINE else torch.ones_like(psq)
+        for sname, parts, mul, add, qp in (
+            ("f32", torch.where(keep[:, None], rows, 0.0), inv, torch.zeros_like(psq), q2),
+            ("sq8", words, sq.scale * fold, sq.minv * fold, q2),
+        ):
+            width = parts.shape[1]
+            qk = F.pad(qp, (0, (4 * width if sname == "sq8" else width) - RAGGED_D))
+            qsum = qk.sum(1)
+            if sname == "sq8":
+                qk = qk.to(torch.bfloat16).float()
+            aux = torch.stack([t.reshape(n_parts, RAGGED_L) for t in (mul, add, pen)], 1)
+            args = (qk.contiguous(), qsum, probe,
+                    parts.reshape(n_parts, RAGGED_L, width).contiguous(), aux.contiguous())
+            out = ik.ivf_probe_scores(*args)
+            torch.cuda.synchronize()
+            check(bool(torch.isneginf(out).any()), "ivf_probe: no dead slot reached")
+            errs["ivf_probe"] = max(errs["ivf_probe"], hold(
+                f"ivf_probe {sname} B {RAGGED_B}, nprobe {RAGGED_PROBES}, L {RAGGED_L}, "
+                f"D {RAGGED_D}, 15% dead slots + 40 dead partitions, {metric}", out,
+                ik.ivf_probe_ref(*args)))
     del rx, rq, bits, aux, qbits, qi2, packed_r, qp, pen0, out, sq, rows8, args, rows, rp, rf
     torch.cuda.empty_cache()
 
@@ -972,8 +1057,350 @@ def main() -> None:
                     device_only(colq, m_sq8), sift_q)
         finally:
             brute_mod._SQ8I_MAX_DIM[0] = 1 << 30
+
+        # -- 5d. slice 4: sift1m-ivf and sift1m-sq8-ivf (#10) -------------------
+        phase("5d. sift1m-ivf")
+        db.close()
+        db = Database.open(tmp, device=DEVICE)
+        col = db.get_collection("sift1m")
+        col.refresh_device()
+        col.index_kind = "ivf"
+        prof = {}
+        t0 = time.perf_counter()
+        col._ensure_ivf(profile=prof)
+        ivf = col.ivf
+        say(f"sift1m-ivf build {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in prof.items()))
+        part_gib = ivf._parts.numel() * 4 / 2**30
+        say(f"sift1m-ivf index: c {ivf._kmeans_c} k-means clusters, {ivf.c_real} partitions "
+            f"({ivf.c} padded), L {ivf.part_len}, spill {ivf.spill}, partitions {part_gib:.3f} GiB")
+        check(ivf.spill == 2 and ivf.storage == "f32", "sift1m-ivf: not the spill-2 f32 build")
+        calib = {e: col.planner.engine_recall("ivf", e) for e in (16, 32, 64, 128, 256)}
+        served = expected_ef(calib, 128, 0.95)
+        check(col._plan_search(sift_q[:16], K, None)[2] == served,
+              f"sift1m-ivf default profile not served at ef {served}")
+        print("sift1m-ivf calibrated recall per ef: " + ", ".join(
+            f"ef {e} {r:.4f}" for e, r in calib.items()) + f"; default profile serves ef {served}",
+            flush=True)
+
+        def probe_case(index, queries, nprobe):
+            """#10's operands for ``queries`` on ``index``, as the probe op
+            prepares them."""
+            q, qsum, probe, _ = ik.probe_operands(torch.from_numpy(queries).to(dev),
+                                                  index._centroids, index._cent_sq, index._parts,
+                                                  nprobe=nprobe, metric=index.metric)
+            return q, qsum, probe, index._parts, index._kernel_state()[0]
+
+        np128 = ivf.nprobe_for(128)
+        for b in (1, 16, 64):
+            args = probe_case(ivf, sift_q[:b], np128)
+            out = ik.ivf_probe_scores(*args)
+            torch.cuda.synchronize()
+            errs["ivf_probe"] = max(errs["ivf_probe"], hold(
+                f"ivf_probe f32 B {b}, nprobe {np128}, L {ivf.part_len}, D 128 (sift1m-ivf)", out,
+                ik.ivf_probe_ref(*args)))
+        del out, args
+
+        def probe_desc(q, qsum, probe, rows, aux):
+            return (f"ivf_probe {'sq8' if rows.dtype == torch.int32 else 'f32'} B {q.shape[0]}, "
+                    f"nprobe {probe.shape[1]}, L {rows.shape[1]}, D_pad {q.shape[1]}")
+
+        with MainPath(counters, ik, "ivf_probe_scores", "ivf_probe") as run:
+            i16 = [col.search_batch(sift_q[i:i + 16], k=K, ef=128) for i in range(0, 256, 16)]
+            run.launched("search_batch b=16 ef=128 (x16)")
+            i64 = col.search_batch(sift_q[:64], k=K, ef=128)
+            run.launched("search_batch b=64 ef=128")
+            n_calls = len(run.calls)
+            idef = col.search_batch(sift_q[256:272], k=K)
+            run.launched("search_batch b=16 default profile")
+            check(run.calls[n_calls][0][2].shape[1] == ivf.nprobe_for(served),
+                  f"sift1m-ivf default profile did not probe at the downshifted ef {served}")
+            i1 = col.search(sift_q[300], k=K)
+            run.launched("search")
+        launches["ivf_probe"] = run.launches()
+        errs["ivf_probe"] = max(errs["ivf_probe"], run.hold_all(ik.ivf_probe_ref, probe_desc))
+        before = ik.LAUNCHES["ivf_probe"]
+        i256 = col.search_batch(sift_q[:256], k=K, ef=128)
+        ifl = col.search_batch(sift_q[:256], k=K, ef=128, filter=filt)
+        check(ik.LAUNCHES["ivf_probe"] == before, "b=256 or a filtered search launched #10")
+        r16 = ids_recall([r for rows in i16 for r in rows], sift_oi[:256])
+        r64 = ids_recall(i64, sift_oi[:64])
+        r256 = ids_recall(i256, sift_oi[:256])
+        rdef = ids_recall(idef, sift_oi[256:272])
+        r1 = ids_recall([i1], sift_oi[300:301])
+        rf = ids_recall(ifl, of_i)
+        bad = [h.id for row in ifl for h in row if h.id % 8 != 3 or h.payload != {"cat": 3}]
+        check(not bad, f"sift1m-ivf filtered search returned filtered-out ids {bad[:5]}")
+        cover = np128 * ivf.part_len / (ivf.spill * SIFT_N)
+        print(f"sift1m-ivf recall@10 vs float64 oracle at ef 128 (nprobe {np128}, unique "
+              f"coverage ~{cover:.4f} of the rows): b=16 {r16:.4f} (256 queries), b=64 "
+              f"{r64:.4f}, b=256 {r256:.4f} (plain path), search {r1:.4f}; default profile "
+              f"(ef {served}, nprobe {ivf.nprobe_for(served)}) b=16 {rdef:.4f}; filtered "
+              f"b=256 {rf:.4f}", flush=True)
+        check(r16 >= 0.95, f"sift1m-ivf recall@10 b=16 ef=128 = {r16:.4f} < 0.95")
+        check(r256 >= 0.95, f"sift1m-ivf recall@10 b=256 ef=128 = {r256:.4f} < 0.95")
+
+        def ivf_device(c):
+            return lambda b: c._search_device(b, K, None, ef=128)[1].cpu()
+
+        measure(torch, "sift1m-ivf ef=128", lambda b: col.search_batch(b, k=K, ef=128),
+                "sift1m-ivf device path ef=128 (no hydrate)", ivf_device(col), sift_q, (16, 64))
+        ivf_ms = {}
+
+        def time_probe(label, index, qs):
+            """#10 at ``qs``'s batch against its bound, its plain version, the
+            probe op around it and the plain ``ivf_search_impl`` on the same
+            queries (the same probes: one routing rule)."""
+            b = qs.shape[0]
+            args = probe_case(index, qs, np128)
+            q, qsum, probe, rows, aux = args
+            quant = rows.dtype == torch.int32
+            L, width = rows.shape[1], rows.shape[2]
+            ms = time_kernel(torch, lambda: ik.ivf_probe_scores(*args))
+            plain = time_kernel(torch, lambda: ik.ivf_probe_ref(*args), iters=3)
+            qt = torch.from_numpy(qs).to(dev)
+            k_fetch = index.spill * K + 8
+            kern = index._kernel_state()
+            op_ms = time_kernel(torch, lambda: ik.ivf_probe_topk(
+                qt, index._centroids, index._cent_sq, rows, *kern, k=k_fetch, nprobe=np128,
+                metric=index.metric))
+            parts = (rows, index._part_scale, index._part_minv) if quant else rows
+            impl_ms = time_kernel(torch, lambda: ivf_mod.ivf_search_impl(
+                qt, index._centroids, index._cent_sq, parts, index._part_rows, index._part_sq,
+                None, k=k_fetch, nprobe=np128, metric=index.metric), iters=5)
+            slots = b * np128 * L
+            row_bytes = 4 * width
+            small = 4 * q.numel() + 4 * b + 4 * probe.numel() + 4 * slots  # q, qsum, ids, out
+            ops = 2 * slots * q.shape[1] + 4 * slots
+            # the function needs each probed partition once (rows and aux),
+            # however many queries probe it
+            uniq = int(torch.unique(probe).numel())
+            bytes_ = uniq * L * (row_bytes + 12) + small
+            bytes_pairs = slots * (row_bytes + 12) + small
+            b_ms, b_by = bound(ops / PEAK_F32 * 1e3, bytes_)
+            ivf_ms[label] = (ms, plain, impl_ms, b_ms, b_by, bytes_, ops)
+            say(f"ivf_probe {label} (B {b}, nprobe {np128}, L {L}, D_pad {q.shape[1]}): kernel "
+                f"{ms:.4f} ms, plain torch {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{b_ms / ms:.4f} of it; {uniq} unique partitions of {probe.numel()} probes, "
+                f"{bytes_ / 1e6:.1f} MB, {ops:.3e} operations); read once per (query, probe) "
+                f"as the kernel does: {bytes_pairs / 1e6:.1f} MB, "
+                f"{bound(ops / PEAK_F32 * 1e3, bytes_pairs)[0]:.4f} ms; probe op (route + "
+                f"kernel + select) {op_ms:.4f} ms; plain ivf_search_impl on the same queries "
+                f"{impl_ms:.4f} ms; no single PyTorch call computes this function")
+
+        for b in (16, 64):
+            time_probe(f"f32 b={b}", ivf, sift_q[:b])
+
+        # close + reopen: the recipe restores the index with no k-means run
+        ids_before = [[h.id for h in row] for row in i64]
+        db.close()
+        db = Database.open(tmp, device=DEVICE)
+        col = db.get_collection("sift1m")
+        col.index_kind = "ivf"
+        km_calls = []
+        km = ivf_mod.kmeans
+        ivf_mod.kmeans = lambda *a, **kw: km_calls.append(1) or km(*a, **kw)
+        try:
+            t0 = time.perf_counter()
+            re64 = col.search_batch(sift_q[:64], k=K, ef=128)
+            say(f"sift1m-ivf reopen: first search with the reassembly and calibration "
+                f"{time.perf_counter() - t0:.2f} s")
+        finally:
+            ivf_mod.kmeans = km
+        check(not km_calls, "sift1m-ivf reopen ran k-means")
+        check([[h.id for h in row] for row in re64] == ids_before,
+              "reopened sift1m-ivf returned other ids")
+        print("sift1m-ivf close + reopen: restored from ivf.npz with no k-means run; same ids "
+              "for all 64 queries", flush=True)
+        # rows upserted after the build: found through the exact delta
+        new = sift_q[1000:1000 + IVF_UPSERTS] + 0.01
+        col.upsert_bulk(range(SIFT_N, SIFT_N + IVF_UPSERTS), new,
+                        [{"cat": 8}] * IVF_UPSERTS)
+        with MainPath(counters, ik, "ivf_probe_scores", "ivf_probe") as run:
+            found = col.search_batch(new[:64], k=K, ef=128)
+            run.launched("search_batch b=64 ef=128 after the upserts")
+            u16 = [col.search_batch(sift_q[i:i + 16], k=K, ef=128) for i in range(0, 256, 16)]
+            run.launched("search_batch b=16 ef=128 after the upserts (x16)")
+        launches["ivf_probe"] += run.launches()
+        errs["ivf_probe"] = max(errs["ivf_probe"], run.hold_all(ik.ivf_probe_ref, probe_desc))
+        check(not col.ivf.dirty, "sift1m-ivf upserts marked the index dirty")
+        check([row[0].id for row in found] == list(range(SIFT_N, SIFT_N + 64)),
+              "sift1m-ivf upserted rows not found through the delta")
+        ru16 = ids_recall([r for rows in u16 for r in rows], sift_oi[:256])
+        check(ru16 >= 0.95, f"sift1m-ivf recall@10 b=16 after the upserts = {ru16:.4f} < 0.95")
+        print(f"sift1m-ivf: {IVF_UPSERTS} rows upserted after the build found through the "
+              f"delta ({len(col._stale)} stale slots), no rebuild; unfiltered searches stay on "
+              f"#10 with the stale slots dead; recall@10 b=16 ef=128 {ru16:.4f} (against the "
+              f"oracle before the upserts)", flush=True)
+        report_qps(torch, "sift1m-ivf ef=128 after the upserts search_batch",
+                   lambda b: col.search_batch(b, k=K, ef=128), sift_q, 16)
         db.delete_collection("sift1m")
+        torch.cuda.empty_cache()
+
+        phase("5e. sift1m-sq8-ivf")
+        colq = db.get_collection("sift1m_sq8")
+        colq.refresh_device()
+        colq.index_kind = "ivf"
+        prof = {}
+        t0 = time.perf_counter()
+        colq._ensure_ivf(profile=prof)
+        ivq = colq.ivf
+        say(f"sift1m-sq8-ivf build {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in prof.items()))
+        check(ivq.storage == "sq8" and ivq._parts.dtype == torch.int32, "sift1m-sq8-ivf: not SQ8")
+        say(f"sift1m-sq8-ivf index: {ivq.c_real} partitions ({ivq.c} padded), L "
+            f"{ivq.part_len}, words {ivq._parts.numel() * 4 / 2**30:.3f} GiB")
+        for b in (1, 16, 64):
+            args = probe_case(ivq, sift_q[:b], np128)
+            out = ik.ivf_probe_scores(*args)
+            torch.cuda.synchronize()
+            errs["ivf_probe"] = max(errs["ivf_probe"], hold(
+                f"ivf_probe sq8 B {b}, nprobe {np128}, L {ivq.part_len}, D_pad 128 "
+                f"(sift1m-sq8-ivf)", out, ik.ivf_probe_ref(*args)))
+        del out, args
+        with MainPath(counters, ik, "ivf_probe_scores", "ivf_probe") as run:
+            t0 = time.perf_counter()
+            v16 = colq.search_batch(sift_q[256:272], k=K, ef=128)
+            say(f"sift1m-sq8-ivf first search_batch b=16 with the storage gate: "
+                f"{time.perf_counter() - t0:.2f} s (oversample {colq._rerank_oversample}, "
+                f"calibrated recall {colq.info()['storage_recall']})")
+            run.launched("search_batch b=16 ef=128 (auto-rerank)")
+            v64 = colq.search_batch(sift_q[:64], k=K, ef=128)
+            run.launched("search_batch b=64 ef=128 (auto-rerank)")
+            v1 = colq.search(sift_q[300], k=K)
+            run.launched("search")
+        launches["ivf_probe"] += run.launches()
+        errs["ivf_probe"] = max(errs["ivf_probe"], run.hold_all(ik.ivf_probe_ref, probe_desc))
+        vf = colq.search_batch(sift_q[:256], k=K, ef=128, filter=filt)
+        bad = [h.id for row in vf for h in row if h.id % 8 != 3 or h.payload != {"cat": 3}]
+        check(not bad, f"sift1m-sq8-ivf filtered search returned filtered-out ids {bad[:5]}")
+        q16, q64 = ids_recall(v16, sift_oi[256:272]), ids_recall(v64, sift_oi[:64])
+        print(f"sift1m-sq8-ivf recall@10 vs float64 oracle after auto-rerank (oversample "
+              f"{colq._rerank_oversample}, ef 128): b=16 {q16:.4f}, b=64 {q64:.4f}, search "
+              f"{ids_recall([v1], sift_oi[300:301]):.4f}, filtered b=256 "
+              f"{ids_recall(vf, of_i):.4f}", flush=True)
+        check(q64 >= 0.90, f"sift1m-sq8-ivf recall@10 b=64 = {q64:.4f} < 0.90")
+        ids_before = [[h.id for h in row] for row in v64]
+        m_ivq = int(round(colq._rerank_oversample * K))
+        measure(torch, "sift1m-sq8-ivf ef=128",
+                lambda b: colq.search_batch(b, k=K, ef=128),
+                f"sift1m-sq8-ivf device path ef=128 (m={m_ivq}, no rerank)",
+                lambda b: colq._search_device(b, m_ivq, None, ef=128)[1].cpu(), sift_q, (16, 64))
+        for b in (16, 64):
+            time_probe(f"sq8 b={b}", ivq, sift_q[:b])
+        db.close()
+        db = Database.open(tmp, device=DEVICE)
+        colq = db.get_collection("sift1m_sq8")
+        colq.index_kind = "ivf"
+        reopened = colq.search_batch(sift_q[:64], k=K, ef=128)
+        check([[h.id for h in row] for row in reopened] == ids_before,
+              "reopened sift1m-sq8-ivf returned other ids")
+        print("sift1m-sq8-ivf close + reopen: same ids for all 64 queries", flush=True)
+        ms, plain, impl_ms, b_ms, b_by, bytes_, ops = ivf_ms["f32 b=16"]
+        kernel_row("ivf_probe", "ivf_probe.cu", "velesdb_tpu/ops/ivf_kernel.py:82", ms, plain,
+                   ops / PEAK_F32 * 1e3, bytes_, errs["ivf_probe"])
         db.delete_collection("sift1m_sq8")
+        torch.cuda.empty_cache()
+
+        # -- 5f. slice 4: hard1m-ivf, IVF recall near the balanced bar ---------
+        phase("5f. hard1m-ivf")
+        hard_all = make_clustered(np.random.default_rng(43), SIFT_N + 256, SIFT_D,
+                                  n_clusters=HARD_BLOBS)
+        hard, hard_q = hard_all[:SIFT_N], hard_all[SIFT_N:]
+        t0 = time.perf_counter()
+        colx = db.create_collection("hard1m", SIFT_D, metric="euclidean")
+        colx.upsert_bulk(range(SIFT_N), hard)
+        colx.refresh_device()
+        colx.index_kind = "ivf"
+        prof = {}
+        colx._ensure_ivf(profile=prof)
+        ivx = colx.ivf
+        say(f"hard1m-ivf ingest, refresh and build {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in prof.items()))
+        hard64 = torch.from_numpy(hard).to(dev).double()
+        _, hard_oi = oracle_topk(torch, hard64, hard_q, "euclidean", K)
+        del hard64
+        calx = {e: colx.planner.engine_recall("ivf", e) for e in (16, 32, 64, 128, 256)}
+        rx, pinned = {}, {}
+        with MainPath(counters, ik, "ivf_probe_scores", "ivf_probe") as run:
+            for ef in (256, 64, 128):  # ef 128 last: the planner's EMA ends on it
+                got = [r for i in range(0, 256, 16)
+                       for r in colx.search_batch(hard_q[i:i + 16], k=K, ef=ef)]
+                run.launched(f"pinned search_batch b=16 ef={ef} (x16)")
+                rx[ef] = ids_recall(got, hard_oi)
+                pinned[ef] = [[h.id for h in row] for row in got]
+        launches["ivf_probe"] += run.launches()
+        errs["ivf_probe"] = max(errs["ivf_probe"], run.hold_all(ik.ivf_probe_ref, probe_desc))
+        print(f"hard1m-ivf ({HARD_BLOBS} clusters, {ivx._kmeans_c} k-means clusters, "
+              f"{ivx.c_real} partitions, L {ivx.part_len}, spill {ivx.spill}): recall@10 at b=16 "
+              "vs the float64 oracle over 256 queries, calibrated (128 perturbed stored rows, "
+              "eps-recall) beside it: " + ", ".join(
+                  f"ef {e} (nprobe {ivx.nprobe_for(e)}) {rx[e]:.4f} / {calx[e]:.4f}"
+                  for e in (64, 128, 256)) + "; calibrated ef 16 "
+              f"{calx[16]:.4f}, ef 32 {calx[32]:.4f}", flush=True)
+        check(rx[128] >= 0.95, f"hard1m-ivf recall@10 b=16 ef=128 = {rx[128]:.4f} < 0.95")
+        # Unpinned, the planner picks IVF for b=16 while IVF's latency EMA
+        # (fed by the pinned runs) beats exact's cost; the honesty gate holds
+        # IVF to each profile's bar at its ef, and the downshift serves the
+        # smallest calibrated ef that clears it. Before every call the plan
+        # is checked against that rule on the calibration and the planner's
+        # costs of the moment, and the call must launch #10 exactly when the
+        # plan is IVF, and then return the pinned run's ids at the served ef.
+        # Exact's timed calls feed its own EMA, so each case starts from the
+        # EMAs the pinned runs left, where IVF is cheaper.
+        colx.index_kind = "auto"
+        ema0 = dict(colx.planner._ema)
+        for quality, ef in (("balanced", None), ("accurate", None), ("balanced", 64),
+                            ("fast", None)):
+            prof_q = SearchQuality.parse(quality)
+            ask = ef or prof_q.ef
+            bar = prof_q.min_recall
+            gate = calx[ask] >= bar
+            colx.planner._ema.clear()
+            colx.planner._ema.update(ema0)
+            got, served = [], []
+            for i in range(0, 256, 16):
+                cheaper = colx.planner.choose(
+                    SIFT_N, SIFT_D, 16, have_ivf=True, ivf_nprobe=ivx.nprobe_for(ask),
+                    ivf_part_len=ivx.part_len).engine == "ivf"
+                want = (("ivf", ask if ef else expected_ef(calx, ask, bar)) if cheaper and gate
+                        else ("exact", None))
+                engine, _, served_ef, _ = colx._plan_search(hard_q[i:i + 16], K, None, ef, quality)
+                plan = (engine, served_ef if engine == "ivf" else None)
+                check(plan == want, f"hard1m-ivf {quality} ef {ask}: plan {plan}, the "
+                      f"calibration and costs ask for {want}")
+                if i == 0:
+                    check(cheaper, f"hard1m-ivf {quality} ef {ask}: exact cheaper on the first "
+                          "call, so the gate and the downshift were not tested")
+                if ef == 64:
+                    check(not gate, "hard1m-ivf: the honesty gate was not tested (calibrated "
+                          f"recall at ef 64 {calx[64]:.4f} clears 0.95)")
+                before = ik.LAUNCHES["ivf_probe"]
+                res = colx.search_batch(hard_q[i:i + 16], k=K, ef=ef, quality=quality)
+                got += res
+                on_ivf = ik.LAUNCHES["ivf_probe"] > before
+                check(on_ivf == (engine == "ivf"),
+                      f"hard1m-ivf {quality} ef {ask}: {engine} plan, #10 launched {on_ivf}")
+                if engine == "ivf" and served_ef in pinned:
+                    check([[h.id for h in row] for row in res] == pinned[served_ef][i:i + 16],
+                          f"hard1m-ivf {quality}: ids differ from the pinned run at ef {served_ef}")
+                served.append(f"ivf at ef {served_ef}" if engine == "ivf"
+                              else "exact (gate)" if cheaper else "exact (cost)")
+            r = ids_recall(got, hard_oi)
+            tally = ", ".join(f"{served.count(x)} {x}" for x in dict.fromkeys(served))
+            print(f"hard1m-ivf auto, {quality} (bar {bar}) ef {ask}: calibrated recall "
+                  f"{calx[ask]:.4f}; 16 calls of b=16 served: {tally}; recall@10 over 256 "
+                  f"queries {r:.4f}" + ("" if r >= bar else " UNDER THE BAR: the calibration "
+                                        "(perturbed stored rows) overstates recall here"),
+                  flush=True)
+            if all(x.startswith("exact") for x in served):
+                check(r >= bar, f"hard1m-ivf {quality} ef {ask}: exact recall@10 {r:.4f} under "
+                      f"{bar}")
+        colx.index_kind = "ivf"
+        report_qps(torch, "hard1m-ivf ef=128 search_batch",
+                   lambda b: colx.search_batch(b, k=K, ef=128), hard_q, 16)
+        db.delete_collection("hard1m")
+        del hard_all, hard, hard_q
         torch.cuda.empty_cache()
 
         # -- 5c. slice 3: sift1m-bf16 (bucket-f32, #2) --------------------------

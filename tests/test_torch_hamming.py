@@ -175,3 +175,48 @@ def test_state_from_jax_binary_serves_identical_distances(monkeypatch, budget, e
     jd, ji = j.search(x[n:], 10)  # the reference's exact fused scan on the CPU
     np.testing.assert_array_equal(td.numpy(), np.array(jd))
     assert _below_kth(td.numpy(), ti.numpy()) == _below_kth(np.array(jd), np.array(ji))
+
+
+def _hamming_rerank_topk(queries, packed_q, packed_corpus, penalty, corpus, *, k, m, chunk):
+    """The reference's ``hamming_rerank_topk`` (cosine) composed from the
+    port's parts: the packed scan (#4) keeps ``m`` coarse winners per query,
+    which are gathered from the f32 ``corpus`` and rescored in fp32 over
+    their norms. The port serves binary collections with a host rerank
+    instead, so this composition lives here and not in the package."""
+    _, ci = tbk.hamming_bucket_topk(packed_q, packed_corpus, penalty, k=m, chunk=chunk)
+    cand = corpus[ci.clamp_min(0)].float()  # [B, m, D]
+    qn = queries / torch.linalg.norm(queries, dim=1, keepdim=True)
+    dots = torch.bmm(cand, qn[:, :, None])[:, :, 0]
+    dots = dots / torch.sqrt(torch.sum(cand * cand, dim=-1).clamp_min(1e-30))
+    vals, order = tbk.first_topk(torch.where(ci < 0, -torch.inf, dots), k)
+    return vals, torch.where(vals == -torch.inf, -1, torch.gather(ci, 1, order))
+
+
+def test_hamming_rerank_topk_matches_oracle():
+    """``test_recall_validation.py::test_hamming_rerank_topk_matches_oracle``
+    against the port's packed scan, beside the reference on the same inputs:
+    the coarse Hamming winners (#4) rescored exactly reach the oracle's ids,
+    and the values are the exact cosine scores of the returned ids."""
+    rng = np.random.default_rng(5)
+    n, d, b, k = 8192, 128, 16, 10
+    centers = rng.standard_normal((512, d)).astype(np.float32) * 2.0
+    corpus = centers[rng.integers(0, 512, n)] + 0.7 * rng.standard_normal((n, d)).astype(np.float32)
+    queries = corpus[rng.integers(0, n, b)] + 0.02 * rng.standard_normal((b, d)).astype(np.float32)
+    qt, ct = torch.from_numpy(queries), torch.from_numpy(corpus)
+    vals, ids = _hamming_rerank_topk(qt, t_pack(qt), t_pack(ct), torch.zeros(n), ct, k=k, m=64,
+                                     chunk=2048)
+    jv, ji = jbk.hamming_rerank_topk(
+        jnp.asarray(queries), j_pack(jnp.asarray(queries)), j_pack(jnp.asarray(corpus)),
+        jnp.zeros(n, jnp.float32), jnp.asarray(corpus), k=k, m=64, metric=JMetric.COSINE,
+        chunk=2048, interpret=True)
+    qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    cn = corpus / np.linalg.norm(corpus, axis=1, keepdims=True)
+    gt = np.argsort(-(qn @ cn.T), axis=1)[:, :k]
+    ids = ids.numpy()
+
+    def recall(rows):
+        return np.mean([len(set(r.tolist()) & set(g.tolist())) / k for r, g in zip(rows, gt)])
+
+    assert recall(ids) >= 0.9 and recall(ids) >= recall(np.asarray(ji)) - 0.01
+    np.testing.assert_allclose(vals.numpy(), np.einsum("bd,bkd->bk", qn, cn[ids]), atol=2e-5)
+    np.testing.assert_allclose(vals.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-5)

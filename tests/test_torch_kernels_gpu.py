@@ -482,3 +482,124 @@ def test_half_streamed_scan_on_the_card(cuda):
     want_vals, want_ids = on_cpu.search(x[20_000:], 10)
     assert (ids.cpu() == want_ids).float().mean() >= 0.99
     torch.testing.assert_close(vals.cpu(), want_vals, rtol=1e-4, atol=1e-4)
+
+
+# -- slice 4: the IVF probe kernel (#10) ------------------------------------
+
+import velesdb_tpu_torch.ops.ivf_kernel as ik  # noqa: E402
+from velesdb_tpu_torch.index.ivf import IvfIndex  # noqa: E402
+from velesdb_tpu_torch.ops.quantization import sq8_pack_blocked  # noqa: E402
+
+
+def _probe_inputs(device, rng, b, nprobe, L, d, storage, metric, n_parts=300):
+    """Operands as ``ivf_probe_topk`` prepares them: 15% dead slots (pen
+    +inf), the last 20 partitions all dead (past ``c_real``), probes drawn
+    over every partition; SQ8 queries rounded to bf16, ``qsum`` from the
+    unrounded ones."""
+    x = torch.from_numpy(_clustered(rng, n_parts * L + b, d)).to(device)
+    rows, q = x[: n_parts * L], x[n_parts * L:]
+    live = torch.from_numpy(rng.random(n_parts * L) > 0.15).to(device)
+    live[-20 * L:] = False
+    if metric == "cosine":
+        q = q / q.norm(dim=1, keepdim=True)
+    elif metric == "euclidean":
+        q = 2.0 * q
+    if storage == "sq8":
+        sq = sq8_quantize(rows)
+        words = sq8_pack_blocked(torch.where(live[:, None], sq.codes, 0))
+        parts = words.reshape(n_parts, L, -1)
+        mul, add = sq.scale, sq.minv
+        d_pad = 4 * parts.shape[2]
+    else:
+        parts = torch.where(live[:, None], rows, 0.0).reshape(n_parts, L, d).contiguous()
+        mul, add = torch.ones(n_parts * L, device=device), torch.zeros(n_parts * L, device=device)
+        d_pad = d
+    psq = (rows * rows).sum(1)
+    if metric == "cosine":
+        inv = torch.rsqrt(psq)
+        mul, add = mul * inv, add * inv if storage == "sq8" else add
+    pen = torch.where(live, psq if metric == "euclidean" else 0.0, torch.inf)
+    aux = torch.stack([t.reshape(n_parts, L) for t in (mul, add, pen)], dim=1).contiguous()
+    q = torch.nn.functional.pad(q, (0, d_pad - d))
+    qsum = q.sum(1)
+    if storage == "sq8":
+        q = q.to(torch.bfloat16).float()
+    probe = torch.from_numpy(rng.integers(0, n_parts, (b, nprobe)).astype(np.int32)).to(device)
+    return q.contiguous(), qsum, probe, parts, aux
+
+
+
+@pytest.mark.parametrize("storage", ["f32", "sq8"])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
+@pytest.mark.parametrize("b,nprobe,L,d", [(13, 5, 136, 100), (1, 68, 1032, 128),
+                                          (64, 68, 1032, 128), (16, 12, 200, 768),
+                                          (3, 7, 40, 13)])
+def test_ivf_probe_kernel_equals_plain(cuda, storage, metric, b, nprobe, L, d):
+    """Bit for bit at the ragged shape (D 100: W 25, no 16-byte loads for
+    SQ8), the slice shape at b 1 (68 probes, the under-filled grid) and b 64,
+    a 768-dim shape and a width not a multiple of 4 (f32 D 13)."""
+    rng = np.random.default_rng(b * 1000 + L + d)
+    args = _probe_inputs(cuda, rng, b, nprobe, L, d, storage, metric)
+    before = ik.LAUNCHES["ivf_probe"]
+    out = ik.ivf_probe_scores(*args)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["ivf_probe"] == before + 1
+    want = ik.ivf_probe_ref(*args)
+    assert out.shape == (b, nprobe, L)
+    assert torch.equal(out, want)
+    assert bool(torch.isneginf(out).any())  # dead slots reached
+
+
+def test_ivf_probe_kernel_refuses_bad_input(cuda):
+    q, qsum, probe, parts, aux = _probe_inputs(cuda, np.random.default_rng(1), 4, 3, 64, 32,
+                                               "f32", "dot_product")
+    with pytest.raises(TypeError):  # probe ids must be int32
+        ik.ivf_probe_scores(q, qsum, probe.long(), parts, aux)
+    with pytest.raises(TypeError):  # rows f32 or int32 words only
+        ik.ivf_probe_scores(q, qsum, probe, parts.half(), aux)
+    with pytest.raises(ValueError):  # aux must be [P, 3, L]
+        ik.ivf_probe_scores(q, qsum, probe, parts, aux[:, :2].contiguous())
+    with pytest.raises(ValueError):  # q width must match the rows
+        ik.ivf_probe_scores(q[:, :16].contiguous(), qsum, probe, parts, aux)
+    with pytest.raises(ValueError):  # one device
+        ik.ivf_probe_scores(q, qsum, probe.cpu(), parts, aux)
+    with pytest.raises(ValueError):  # contiguous
+        ik.ivf_probe_scores(q, qsum, probe, parts.transpose(0, 1), aux)
+
+
+@pytest.mark.parametrize("storage", ["f32", "sq8"])
+def test_ivf_index_on_the_card(cuda, storage):
+    """An IVF index built on the card: unmasked b <= 64 searches launch #10
+    once, b = 100 and masked searches take the plain probing path; the same
+    partitions on the CPU return the same ids."""
+    from velesdb_tpu_torch.ops.quantization import SQ8Vectors
+
+    rng = np.random.default_rng(3)
+    x = _clustered(rng, 20_000 + 100, 128)
+    base, q = x[:20_000], x[20_000:]
+    src = torch.from_numpy(base).to(cuda)
+    if storage == "sq8":
+        src = sq8_quantize(src)
+    on_card = IvfIndex(128, "euclidean", spill=2, device=cuda)
+    on_card.build(src)
+    before = ik.LAUNCHES["ivf_probe"]
+    vals, ids = on_card.search(q[:16], 10, nprobe=8)
+    assert ik.LAUNCHES["ivf_probe"] == before + 1
+    on_card.search(q, 10, nprobe=8)
+    on_card.search(q[:16], 10, nprobe=8, mask=np.ones(20_000, bool))
+    assert ik.LAUNCHES["ivf_probe"] == before + 1
+    on_cpu = IvfIndex(128, "euclidean", spill=2, device="cpu")
+    for key in ("n", "c", "c_real", "part_len", "storage"):
+        setattr(on_cpu, key, getattr(on_card, key))
+    for key in ("centroids", "cent_sq", "parts", "part_scale", "part_minv", "part_rows",
+                "part_sq"):
+        value = getattr(on_card, f"_{key}")
+        setattr(on_cpu, f"_{key}", None if value is None else value.cpu())
+    on_cpu._kern = tuple(t.cpu() for t in on_card._kernel_state())
+    on_cpu._dirty = False
+    want_vals, want_ids = on_cpu.search(q[:16], 10, nprobe=8)
+    assert (ids.cpu() == want_ids).float().mean() >= 0.99
+    same = ids.cpu() == want_ids
+    torch.testing.assert_close(vals.cpu()[same], want_vals[same], rtol=1e-4, atol=1e-4)
+    if storage == "sq8":
+        assert isinstance(src, SQ8Vectors) and on_card._parts.dtype == torch.int32

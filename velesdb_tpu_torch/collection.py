@@ -15,10 +15,17 @@ oversample until it clears the quality profile's bar. ``quality="perfect"``
 reranks on any storage. Half-precision collections (F16, BF16) serve their
 own scores with no auto-rerank, as in the reference (``collection.py:777``).
 
-The reference's planner also serves exact below ``ANN_MIN_ROWS`` (2M) rows,
-so at those sizes both packages serve the same engine; above it this package
-still serves exact (ROADMAP.md). Graph/IVF indexes, text, hybrid, VelesQL and
-graph methods raise ``NotImplementedError``.
+The IVF engine (:class:`~velesdb_tpu_torch.index.ivf.IvfIndex`, kernel #10)
+serves when pinned with ``index_kind = "ivf"``, and through the planner
+(:class:`~velesdb_tpu_torch.velesql.planner.QueryPlanner`) in ``"auto"``
+once the collection holds ``ann_min_rows`` (2M) rows or a fresh IVF index.
+A post-build recall probe records the IVF recall per ef with the planner: an
+unpinned engine below the quality profile's bar demotes to exact, and a
+smaller calibrated ef that clears it is served instead. Mutations after a
+build land in a delta that is searched exactly beside the index, until it
+outgrows ``delta_rebuild_fraction`` of the rows. The graph index, text,
+hybrid, VelesQL and graph methods raise ``NotImplementedError``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,16 +37,26 @@ import time
 from typing import Any, Iterable
 
 import numpy as np
+import torch
 
 from velesdb_tpu_torch.column.store import ColumnStore
 from velesdb_tpu_torch.index.brute import BruteForceIndex, not_in_slice
+from velesdb_tpu_torch.index.ivf import IvfIndex
 from velesdb_tpu_torch.index.params import SearchQuality
 from velesdb_tpu_torch.ops.distance import DistanceMetric
-from velesdb_tpu_torch.ops.quantization import StorageMode
+from velesdb_tpu_torch.ops.quantization import SQ8Vectors, StorageMode
+from velesdb_tpu_torch.ops.streamed import streamed_topk
 from velesdb_tpu_torch.storage.payload_log import PayloadLog
 from velesdb_tpu_torch.storage.vector_store import VectorStore
+from velesdb_tpu_torch.velesql.planner import QueryPlanner
 
 __all__ = ["Collection", "SearchResult", "CollectionType"]
+
+# ANN engines are auto-built by the planner only past this many rows; an
+# index built or pinned before keeps serving at any size.
+ANN_MIN_ROWS = 2_000_000
+_ANN_METRICS = (DistanceMetric.COSINE, DistanceMetric.EUCLIDEAN, DistanceMetric.DOT_PRODUCT)
+_ANN_MODES = (StorageMode.FULL, StorageMode.F16, StorageMode.BF16)
 
 
 class CollectionType:
@@ -107,7 +124,20 @@ class Collection:
         self.payloads = PayloadLog(path)
         self._device_dirty = True
         self._slot_ids: np.ndarray | None = None  # [used] int64, -1 = tombstone
-        self._index_kind = "auto"
+        self._index_kind = "auto"  # auto | exact | ivf
+        self.ivf: IvfIndex | None = None  # built on demand (pinned or planner-selected)
+        self.ann_min_rows = ANN_MIN_ROWS
+        self._planner: QueryPlanner | None = None
+        # incremental IVF maintenance: slots mutated since the build are
+        # excluded from the index and searched exactly from a compact device
+        # snapshot; a rebuild only triggers past ``delta_rebuild_fraction``
+        self._stale: set[int] = set()
+        self._mut_counter = 0
+        self.delta_rebuild_fraction = 0.10
+        self._delta_cache = None  # (mutation counter, vecs, slots, alive)
+        # (engine, batch bucket, k_fetch, ef) classes already timed: the first
+        # call of a class is a warm-up and stays out of the latency EMA
+        self._timed_sigs: set[tuple] = set()
         # Quantized collections rerank plain searches in host f32 (the
         # reference's dual-precision default); False serves raw coarse scores.
         self.auto_rerank = True
@@ -132,7 +162,7 @@ class Collection:
 
     @index_kind.setter
     def index_kind(self, kind: str) -> None:
-        if kind not in ("auto", "exact"):
+        if kind not in ("auto", "exact", "ivf"):
             raise not_in_slice(f"index_kind={kind!r}")
         self._index_kind = kind
 
@@ -223,7 +253,7 @@ class Collection:
             elif self._ttl.pop(int(vid), None) is not None:
                 self._ttl_dirty = True
             self._flush_ttl(debounce=True)
-            self._on_mutation([int(vid)])
+            self._on_mutation([int(vid)], slots=[slot])
 
     def upsert_bulk(
         self,
@@ -262,7 +292,7 @@ class Collection:
                 # a re-upsert without ttl clears any stale deadline
                 self._ttl_dirty = True
             self._flush_ttl()  # one write per bulk call
-            self._on_mutation(ids)
+            self._on_mutation(ids, slots=slots)
 
     def get(self, vid: int):
         """Fetch ``(vector, payload)`` or None."""
@@ -279,7 +309,7 @@ class Collection:
             if existed:
                 if self._columns_built and slot is not None:
                     self.columns.remove_row(slot)
-                self._on_mutation([int(vid)])
+                self._on_mutation([int(vid)], slots=[slot])
             return existed
 
     def count(self) -> int:
@@ -288,9 +318,74 @@ class Collection:
     def __len__(self) -> int:
         return self.count()
 
-    def _on_mutation(self, ids: list[int]) -> None:
+    def _on_mutation(self, ids: list[int], slots=None) -> None:
         self._device_dirty = True
+        self._mut_counter += 1
         self.columns.invalidate(ids)
+        # a live IVF index absorbs mutations through the delta; before the
+        # first build (or once dirty) the coming full build covers every row
+        if self.ivf is not None and not self.ivf.dirty:
+            if slots is None:
+                slots = [self.vectors.id_to_slot.get(int(v)) for v in ids]
+            self._stale.update(int(s) for s in slots if s is not None)
+            budget = max(1024, int(self.delta_rebuild_fraction * max(self.count(), 1)))
+            if len(self._stale) > budget:
+                self.ivf.invalidate(ids)
+
+    def _delta_snapshot(self):
+        """Compact device snapshot ``(counter, vecs, slots, alive)`` of the
+        stale rows (current vectors + liveness), cached per mutation counter;
+        None while the delta is empty."""
+        if not self._stale:
+            return None
+        if self._delta_cache is not None and self._delta_cache[0] == self._mut_counter:
+            return self._delta_cache
+        slots = np.fromiter(self._stale, np.int64, len(self._stale))
+        free = set(self.vectors._free_slots)
+        alive = np.fromiter((s not in free for s in slots), bool, len(slots))
+        n_pad = 1 << max(8, int(len(slots) - 1).bit_length())
+        vecs = np.pad(np.asarray(self.vectors.slot_view()[slots], np.float32),
+                      ((0, n_pad - len(slots)), (0, 0)))
+        self._delta_cache = (
+            self._mut_counter,
+            torch.from_numpy(vecs).to(self.device),
+            np.pad(slots, (0, n_pad - len(slots)), constant_values=-1),
+            np.pad(alive, (0, n_pad - len(slots))),
+        )
+        return self._delta_cache
+
+    def _ann_delta_search(self, q: np.ndarray, k_fetch: int, ef: int | None, mask,
+                          ivf_nprobe: int | None = None):
+        """IVF search with incremental-delta semantics: stale slots are
+        excluded from the (possibly stale) index and searched exactly from the
+        compact delta snapshot; the two top-k lists merge with a stable sort
+        (index hits first among equal scores, as the reference's host merge).
+        An unfiltered small batch keeps the probe kernel through the
+        exclusion (``IvfIndex.search``'s ``exclude``); the reference masks the
+        stale slots, which moves it to the plain probing path."""
+        used = max(self.vectors.used_slots, 1)
+        delta = self._delta_snapshot()
+        base_mask = None if mask is None else np.asarray(mask)[:used]
+        stale = None
+        if delta is not None:
+            _, dvecs, dslots, dalive = delta
+            stale = dslots[(dslots >= 0) & (dslots < used)]
+        vals, idx = self.ivf.search(q, k_fetch, ef=ef, mask=base_mask, nprobe=ivf_nprobe,
+                                    exclude=stale)
+        if delta is None:
+            return vals, idx
+        dval = dalive
+        if base_mask is not None:
+            in_range = (dslots >= 0) & (dslots < used)
+            dval = dval & np.where(in_range, base_mask[np.maximum(dslots, 0)], False)
+        dv, di = streamed_topk(q, dvecs, valid=torch.from_numpy(dval).to(self.device),
+                               k=min(k_fetch, dvecs.shape[0]), metric=self.metric)
+        dsl = torch.from_numpy(dslots).to(self.device)
+        di = torch.where(di >= 0, dsl[di.clamp_min(0)], -1)
+        allv, alli = torch.cat([vals, dv], dim=1), torch.cat([idx, di], dim=1)
+        order = torch.sort(allv, dim=1, descending=self.metric.higher_is_better,
+                           stable=True).indices[:, :k_fetch]
+        return torch.gather(allv, 1, order), torch.gather(alli, 1, order)
 
     # -- device state ------------------------------------------------------
 
@@ -309,6 +404,134 @@ class Collection:
             self._slot_ids = slot_ids
             self._brute.rebuild(slots, valid)
             self._device_dirty = False
+
+    # -- IVF engine and planner ----------------------------------------------
+
+    @property
+    def planner(self) -> QueryPlanner:
+        if self._planner is None:
+            self._planner = QueryPlanner()
+        return self._planner
+
+    def _choose_engine(self, batch: int, quality=None, ef: int | None = None) -> str:
+        """Cost-based engine pick: a pinned ``index_kind`` wins; otherwise the
+        planner compares exact streaming with IVF probing at this batch size.
+        IVF is a candidate when its index is already built or the corpus is
+        past ``ann_min_rows``; measured latency EMAs override the static
+        model as they accrue, and a calibrated recall below the quality
+        profile's bar disqualifies it. The graph engine is never a candidate
+        until it is ported (ROADMAP.md, queue 7)."""
+        if self.index_kind == "ivf":
+            return "ivf"
+        have_ivf = (self.count() >= self.ann_min_rows
+                    or (self.ivf is not None and not self.ivf.dirty))
+        if not have_ivf:
+            return "exact"
+        built = self.ivf is not None and self.ivf.part_len
+        choice = self.planner.choose(
+            max(self.vectors.used_slots, 1), self.dim, batch,
+            have_ivf=True,
+            # the true serving nprobe (coverage-calibrated, spill-scaled)
+            ivf_nprobe=self.ivf.nprobe_for(ef) if built else 32,
+            ivf_part_len=self.ivf.part_len if built else 512,
+            have_graph=False,
+            min_recall=SearchQuality.parse(quality or SearchQuality.BALANCED).min_recall,
+            ef=ef,
+        )
+        return choice.engine
+
+    def _ensure_ivf(self, profile: dict | None = None) -> bool:
+        """Build (or restore from ``ivf.npz``) the IVF index, then calibrate
+        it. spill=2 (each row in its two nearest partitions) whenever the
+        doubled f32 partition memory stays under 8 GiB. ``profile``, when
+        given, collects the seconds of each stage (build stages, ``ivf.load``
+        or ``ivf.save``, ``ivf.calibrate``)."""
+        if self.metric not in _ANN_METRICS:
+            return False
+        if self.ivf is None:
+            used = max(self.vectors.used_slots, 1)
+            spill = 2 if used * self.dim * 4 * 2 < 8 << 30 else 1
+            self.ivf = IvfIndex(self.dim, self.metric, spill=spill, device=self.device)
+        if self.ivf.dirty:
+            self.refresh_device()
+            used = self.vectors.used_slots
+            _, valid = self.vectors.occupancy()
+            path = os.path.join(self.path, "ivf.npz")
+            version = self.vectors.version
+            brute = self._brute
+            if self.storage_mode in _ANN_MODES:
+                src = brute._full[:used]  # the resident device rows
+            elif self.storage_mode is StorageMode.SQ8:
+                # quantized-storage IVF: partitions stay one byte a dim
+                src = SQ8Vectors(*(a[:used] for a in brute._sq8))
+            else:
+                src = np.asarray(self.vectors.slot_view()[:used], np.float32)
+            t = time.perf_counter()
+            if self.ivf.load(path, src, valid, version=version):
+                t = self.ivf._mark(profile, "ivf.load", t)
+            else:
+                self.ivf.build(src, valid, profile=profile)
+                t = time.perf_counter()
+                self.ivf.save(path, version=version)
+                t = self.ivf._mark(profile, "ivf.save", t)
+            # a fresh build or restore covers every row: the delta drains
+            self._stale.clear()
+            self._delta_cache = None
+            self._calibrate_engine("ivf")
+            self.ivf._mark(profile, "ivf.calibrate", t)
+        return True
+
+    def _calibrate_engine(self, engine: str, sample: int = 128) -> None:
+        """Measured recall probe after an index build, recorded with the
+        planner per ef (16 to 256). Probe queries are sampled stored rows
+        perturbed by their nearest-neighbour distance; a hit is a returned
+        row scoring within 0.1% of the host f32 k-th best (eps-recall), or,
+        past 4 GiB of rows, an id of the exact engine's top-k.
+
+        The reference scores every probe query against every row in numpy
+        (``_host_scores``); this copy takes each query's 4k best rows from one
+        matrix product over precomputed norms and rescores those with
+        ``_host_scores``, so the k-th best is the same. A failing probe
+        raises; the reference keeps the error and serves uncalibrated."""
+        used = self.vectors.used_slots
+        if used < 32:
+            return
+        self.refresh_device()
+        take = min(sample, used)
+        k = 10
+        slots = np.linspace(0, used - 1, take).astype(np.int64)
+        view = self.vectors.slot_view()
+        base = np.array(view[slots])
+        _, nn = self._brute.search(base, 2)
+        nn = nn.cpu().numpy()
+        other = np.where(nn[:, 1] >= 0, nn[:, 1], np.maximum(nn[:, 0], 0))
+        d1 = np.linalg.norm(base - np.asarray(view[other]), axis=1, keepdims=True)
+        noise = np.random.default_rng(0).standard_normal(base.shape).astype(np.float32)
+        noise /= np.maximum(np.linalg.norm(noise, axis=1, keepdims=True), 1e-9)
+        q = base + noise * d1
+        hib = self.metric.higher_is_better
+        host_basis = used * self.dim * 4 <= 4 << 30
+        if host_basis:
+            corpus = np.asarray(view[:used], np.float32)
+            _, live = self.vectors.occupancy()
+            kth = np.empty(take, np.float32)
+            for i, cand in enumerate(_host_topk(corpus, live[:used], q, 4 * k, self.metric)):
+                s = np.sort(_host_scores(q[i], corpus[cand], self.metric))
+                kth[i] = s[::-1][k - 1] if hib else s[k - 1]
+        else:
+            ei = self._brute.search(q, k)[1].cpu().numpy()
+        for ef_probe in (16, 32, 64, 128, 256):
+            ai = self.ivf.search(q, k, ef=ef_probe)[1].cpu().numpy()
+            hits = 0
+            for i in range(take):
+                ids = ai[i][ai[i] >= 0]
+                if host_basis and len(ids):
+                    s = _host_scores(q[i], corpus[ids], self.metric)
+                    hits += int(np.sum(s >= kth[i] - 1e-3 * abs(kth[i]) - 1e-9) if hib
+                                else np.sum(s <= kth[i] * 1.001 + 1e-9))
+                elif not host_basis:
+                    hits += len(set(ids) & set(ei[i][ei[i] >= 0]))
+            self.planner.record_recall(engine, min(hits / float(take * k), 1.0), ef=ef_probe)
 
     # -- search ------------------------------------------------------------
 
@@ -385,15 +608,14 @@ class Collection:
         """True recall@10 of the quantized serve path (auto-rerank included)
         against a host f32 exact oracle over the stored vectors, on ``sample``
         probe queries: stored rows perturbed by their nearest-neighbour
-        distance. Cached per row count and reported by :meth:`info`; ``None``
-        for FULL storage.
+        distance. Cached per row count, recorded with the planner under
+        ``"storage"`` and reported by :meth:`info`; ``None`` for FULL storage.
 
         The reference ranks with ``argsort`` of per-row f32 scores; this copy
         ranks with ``argpartition`` on euclidean ``|c|^2 - 2 q.c`` and cosine
         dots over precomputed norms (the same order up to ties), and keeps
         the probe set and its oracle ids for the row count and store version,
-        so the gate's later rounds rerun only the serve path. It does not
-        record the recall with a planner: the port has none yet (ROADMAP.md)."""
+        so the gate's later rounds rerun only the serve path."""
         if self.storage_mode not in (StorageMode.SQ8, StorageMode.BINARY):
             return None
         used = self.vectors.used_slots
@@ -411,6 +633,7 @@ class Collection:
         hits = sum(len({r.id for r in row} & set(gt.tolist())) for row, gt in zip(res, gt_ids))
         r = hits / float(len(res) * k)
         self._storage_recall = (used, r)
+        self.planner.record_recall("storage", r)
         return r
 
     def _storage_oracle(self, sample: int, used: int, k: int):
@@ -422,39 +645,23 @@ class Collection:
         noise = np.random.default_rng(0).standard_normal(base.shape).astype(np.float32)
         noise /= np.maximum(np.linalg.norm(noise, axis=1, keepdims=True), 1e-9)
         slot_ids, live = self.vectors.occupancy()
-        norms = np.einsum("nd,nd->n", corpus, corpus)
-        if self.metric is DistanceMetric.COSINE:
-            norms = np.sqrt(norms)
-
-        def oracle(qs, kk):
-            out = np.empty((len(qs), kk), np.int64)
-            for i, qv in enumerate(qs):  # host BLAS row passes
-                dots = corpus @ qv
-                if self.metric is DistanceMetric.EUCLIDEAN:
-                    s = norms - 2.0 * dots  # |c - q|^2 - |q|^2
-                elif self.metric is DistanceMetric.COSINE:
-                    s = -np.where(norms > 1e-30, dots / np.maximum(norms, 1e-30), 0.0)
-                else:
-                    s = -dots
-                s = np.where(live, s, np.inf)
-                top = np.argpartition(s, kk - 1)[:kk]
-                out[i] = top[np.argsort(s[top], kind="stable")]
-            return out
-
-        nn2 = oracle(base, 2)
+        nn2 = _host_topk(corpus, live, base, 2, self.metric)
         d1 = np.linalg.norm(base - corpus[nn2[:, 1]], axis=1, keepdims=True)
         q = base + noise * d1
-        return q, slot_ids[oracle(q, k)]
+        return q, slot_ids[_host_topk(corpus, live, q, k, self.metric)]
 
     def search_batch(self, queries, k: int = 10, filter: dict | None = None,
                      ef: int | None = None, quality=None, _raw: bool = False):
-        """Batched exact search: one device pass for the whole batch.
+        """Batched search: one device pass for the whole batch, on the engine
+        :meth:`_choose_engine` picks (exact or IVF).
 
-        ``ef`` is accepted for API parity and unused (exact search has no
-        beam). Quantized collections route through the host f32 rerank
-        (:attr:`auto_rerank`, behind the storage recall gate), and
-        ``quality="perfect"`` reranks on any storage; ``_raw=True`` is the
-        coarse-pass escape hatch."""
+        ``quality`` maps to ef through the profiles (fast 64, balanced 128,
+        accurate 256, perfect exact); an explicit ``ef`` wins. Quantized
+        collections route through the host f32 rerank (:attr:`auto_rerank`,
+        behind the storage recall gate), and ``quality="perfect"`` reranks on
+        any storage; ``_raw=True`` is the coarse-pass escape hatch. After its
+        warm-up call, each (engine, batch bucket, k_fetch, ef) class feeds the
+        planner's latency EMA."""
         wants_perfect = (
             quality is not None and SearchQuality.parse(quality) is SearchQuality.PERFECT
         )
@@ -476,12 +683,74 @@ class Collection:
                 f"dimension mismatch: expected {self.dim}, got {q.shape[1]}"
             )
         mask = self._filter_mask(filter)
-        vals, idx = self._search_device(q, k, mask)
-        return self._hydrate(vals.cpu().numpy(), idx.cpu().numpy(), k)
+        plan = self._plan_search(q, k, mask, ef, quality)
+        t0 = time.perf_counter()
+        vals, idx = self._run_search(q, k, mask, plan)
+        out = self._hydrate(vals.cpu().numpy(), idx.cpu().numpy(), k)
+        engine, k_fetch, ef, _ = plan
+        sig = (engine, self.planner._bucket(q.shape[0]), k_fetch, ef)
+        if sig in self._timed_sigs:
+            self.planner.record_latency(engine, q.shape[0], time.perf_counter() - t0)
+        else:
+            self._timed_sigs.add(sig)  # warm-up call: untimed
+        return out
 
-    def _search_device(self, q, k, mask):
-        """Device ``(vals, slot ids)`` of the exact engine."""
+    def _search_device(self, q, k, mask, ef=None, quality=None):
+        """Device ``(vals, slot ids)`` of the engine a search would take."""
+        return self._run_search(q, k, mask, self._plan_search(q, k, mask, ef, quality))
+
+    def _run_search(self, q, k, mask, plan):
+        engine, k_fetch, ef, ivf_nprobe = plan
+        if engine == "ivf":
+            return self._ann_delta_search(q, k_fetch, ef, mask, ivf_nprobe=ivf_nprobe)
         return self._brute.search(q, k, mask=mask)
+
+    def _plan_search(self, q, k, mask, ef=None, quality=None):
+        """``(engine, k_fetch, ef, ivf_nprobe)`` of a search, with any index
+        build done first (a first-call build stays out of the timing).
+
+        The honesty gate demotes an unpinned IVF engine whose calibrated
+        recall misses the profile's bar to exact; a smaller calibrated ef
+        that clears the bar is served when the ef came from the profile; a
+        filter bumps nprobe so that ~nprobe*L*selectivity candidates survive
+        the in-scan mask (quantized to a multiple of 8), or falls back to
+        exact once that nears a half-corpus scan."""
+        quality = SearchQuality.parse(quality) if quality is not None else None
+        ef_from_profile = ef is None
+        if ef is None:
+            ef = (quality or SearchQuality.BALANCED).ef
+        engine = "exact"
+        if (quality is not SearchQuality.PERFECT and self.index_kind != "exact"
+                and self.metric in _ANN_METRICS):
+            engine = self._choose_engine(q.shape[0], quality, ef)
+        k_fetch = max(min(4 * k, ef), k) if mask is not None else k
+        if engine == "ivf" and not self._ensure_ivf():
+            engine = "exact"
+        bar = (quality or SearchQuality.BALANCED).min_recall
+        if engine == "ivf" and self.index_kind != "ivf":
+            r = self.planner.engine_recall("ivf", ef)
+            if r is not None and r < bar:
+                engine = "exact"
+        if engine == "ivf" and ef_from_profile:
+            ef2 = self.planner.downshift_ef("ivf", ef, bar)
+            if ef2 != ef:
+                ef = ef2
+                k_fetch = max(min(4 * k, ef), k) if mask is not None else k
+        ivf_nprobe = None
+        if engine == "ivf" and mask is not None and self.ivf.part_len:
+            used = max(self.vectors.used_slots, 1)
+            sel = float(np.count_nonzero(np.asarray(mask)[:used])) / used
+            L = self.ivf.part_len
+            need_np = int(np.ceil(1.5 * k_fetch / (max(sel, 1e-9) * L)))
+            if sel <= 0.0:
+                engine = "exact"
+            elif need_np > self.ivf.nprobe_for(ef):
+                need_np = ((need_np + 7) // 8) * 8
+                if need_np > (self.ivf.c_real or self.ivf.c) or need_np * L * 2 >= used:
+                    engine = "exact"
+                else:
+                    ivf_nprobe = need_np
+        return engine, k_fetch, ef, ivf_nprobe
 
     # -- filters -----------------------------------------------------------
 
@@ -579,6 +848,37 @@ class Collection:
             "rerank_oversample": self._rerank_oversample,
             "storage_recall": None if self._storage_recall is None else self._storage_recall[1],
         }
+
+
+def _host_topk(corpus: np.ndarray, live: np.ndarray, q: np.ndarray, kk: int,
+               metric: DistanceMetric) -> np.ndarray:
+    """Each query's ``kk`` best live rows, best first, ``[B, kk]`` slots: one
+    f32 matrix product per block of 131,072 rows, ranked by ``|c|^2 - 2 q.c``
+    (euclidean), ``q.c / |c|`` (cosine) or ``q.c`` (the same order as the
+    exact scores, up to ties and rounding)."""
+    kk = min(kk, len(corpus))
+    best_s = np.zeros((len(q), 0), np.float32)
+    best_i = np.zeros((len(q), 0), np.int64)
+    for c0 in range(0, len(corpus), 1 << 17):
+        blk = corpus[c0 : c0 + (1 << 17)]
+        dots = q @ blk.T
+        norms = np.einsum("nd,nd->n", blk, blk)
+        if metric is DistanceMetric.EUCLIDEAN:
+            s = norms[None, :] - 2.0 * dots
+        elif metric is DistanceMetric.COSINE:
+            rn = np.sqrt(norms)
+            s = -np.where(rn > 1e-30, dots / np.maximum(rn, 1e-30), 0.0)
+        else:
+            s = -dots
+        s = np.where(live[None, c0 : c0 + len(blk)], s, np.inf).astype(np.float32)
+        best_s = np.concatenate([best_s, s], axis=1)
+        best_i = np.concatenate([best_i, np.broadcast_to(np.arange(c0, c0 + len(blk)), s.shape)],
+                                axis=1)
+        keep = np.argpartition(best_s, kk - 1, axis=1)[:, :kk]
+        best_s = np.take_along_axis(best_s, keep, axis=1)
+        best_i = np.take_along_axis(best_i, keep, axis=1)
+    order = np.argsort(best_s, axis=1, kind="stable")
+    return np.take_along_axis(best_i, order, axis=1)
 
 
 def _host_scores(q: np.ndarray, vecs: np.ndarray, metric: DistanceMetric):

@@ -1,10 +1,10 @@
 """Quality profiles of a search.
 
 Counterpart of ``SearchQuality`` in ``velesdb_tpu/index/params.py``
-(``index/mod.rs:7-12``). The port serves exact search only, so the profile's
-``ef`` is carried for parity and its ``min_recall`` is what counts: it is the
-bar the storage recall gate of a quantized collection widens its rerank
-oversample to clear.
+(``index/mod.rs:7-12``). The profile's ``ef`` sets the IVF engine's probe
+count (``IvfIndex.nprobe_for``), and its ``min_recall`` is the bar that the
+planner's honesty gate holds an unpinned IVF engine to and that the storage
+recall gate of a quantized collection widens its rerank oversample to clear.
 """
 
 from __future__ import annotations

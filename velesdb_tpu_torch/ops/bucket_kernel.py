@@ -65,6 +65,7 @@ __all__ = [
     "dense_bucket_ref",
     "split_f32_rows",
     "bucket_topk_hl",
+    "first_topk",
     "hl_bucket_gm",
     "hl_bucket_ref",
     "sq8_bucket_gm",
@@ -136,10 +137,13 @@ def _div(a: torch.Tensor, v: float) -> torch.Tensor:
 
 def _row_sumsq(x: torch.Tensor) -> torch.Tensor:
     """Row sums of squares in a fixed order: sequentially within contiguous
-    blocks of 32 columns, then across the blocks. Every step is an
-    elementwise fp32 add, so the sums are the same on every device, and they
-    equal the JAX package's on the CPU (its XLA row reduction adds in this
-    order), so ``pen_int`` rounds the same in both packages."""
+    blocks of 32 columns (zero columns pad the width to a multiple of 32
+    without changing a sum), then across the blocks. Every step is an
+    elementwise fp32 add, so the sums are the same on every device, and at
+    D_pad 128 they equal the JAX package's on the CPU (its XLA row reduction
+    adds in this order there), so ``pen_int`` rounds the same in both
+    packages."""
+    x = F.pad(x, (0, (-x.shape[1]) % 32))
     sq = (x * x).reshape(x.shape[0], -1, 32)
     blocks = sq[:, :, 0]
     for i in range(1, 32):
@@ -420,16 +424,23 @@ def _score_keys(s: torch.Tensor) -> torch.Tensor:
     return hi * (1 << 32) + rev
 
 
+def first_topk(s: torch.Tensor, k: int):
+    """Top-``k`` over the last axis of ``s [B, M]``, best first, with equal
+    scores going to the smallest position (``lax.top_k``'s rule) on every
+    device: ``torch.topk`` orders ties one way on the CPU and another on
+    CUDA, so the select runs on one unique int64 key per score
+    (:func:`_score_keys`). Returns ``(values, int64 positions)``."""
+    top = torch.topk(_score_keys(s), k, dim=1).values
+    pos = (1 << 32) - 1 - (top & 0xFFFFFFFF)
+    return torch.gather(s, 1, pos), pos
+
+
 def _final_select(gm: torch.Tensor, gi: torch.Tensor, k: int, b: int):
     """Exact top-k over the bucket winners (the reference's PartialReduce is
     ``approx_max_k``, exact ``top_k`` on its CPU path), empties mapped to id
-    -1. Equal scores go to the smallest bucket position, as ``top_k`` breaks
-    them, on every device: ``torch.topk`` orders ties one way on the CPU and
-    another on CUDA, and Hamming scores tie often. The select runs on one
-    int64 key per winner (:func:`_score_keys`), so no two keys are equal."""
-    top = torch.topk(_score_keys(gm), min(k, gm.shape[1]), dim=1).values
-    pos = (1 << 32) - 1 - (top & 0xFFFFFFFF)
-    vals = torch.gather(gm, 1, pos)
+    -1, equal scores to the smallest bucket position (:func:`first_topk`;
+    Hamming scores tie often)."""
+    vals, pos = first_topk(gm, min(k, gm.shape[1]))
     idx = torch.gather(gi, 1, pos)[:b].long()
     vals = vals[:b]
     return vals, torch.where(vals == -torch.inf, -1, idx)
