@@ -6,15 +6,20 @@
 Phases, in order; any failure exits nonzero:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off, build the ten hand-written kernels from ``velesdb_tpu_torch/csrc``
+   off, build the eleven hand-written kernels from ``velesdb_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and print their ptxas registers
    and spills.
-2. Kernels vs their plain torch versions, bit for bit (``torch.equal``):
+2. Kernels vs their plain torch versions, bit for bit (``torch.equal``),
+   except ``dense_bucket_tc`` (#2b, half rows on the tensor cores), which is
+   held to ``half_scan_tolerance`` (``|err| <= 2 D_pad 2^-24 A + 2 ulp``, A
+   the winner's sum of |q_d c_d|: the half products are exact in fp32, only
+   the order of the sums differs) on every launch, here and on its main path:
    ``sq8pd_bucket`` (#1) at the slice shape (B_pad 256, N 1,048,576, D_pad
    128, chunk 8192), at B 1 and B 16, and at ragged shapes (B 13 -> 16,
    D 100 -> 128, N 131,072, 15% invalid + 15% masked, three metrics); the
-   four slice-2 kernels and the four slice-3 kernels (``dense_bucket`` #2
-   and ``fused_topk`` #8 on f32, f16 and bf16 rows, ``hl_bucket`` #3,
+   four slice-2 kernels and the four slice-3 kernels (``dense_bucket`` #2 on
+   f32 rows and #2b on f16 and bf16 rows, ``fused_topk`` #8 on all three,
+   ``hl_bucket`` #3,
    ``sq8_bucket`` #6) at the same ragged shapes here, and at their slice
    shapes and B 1 / B 16 in the phases below, on their collections' state;
    the slice-4 probe kernel ``ivf_probe`` (#10) on f32 rows and SQ8 words at
@@ -40,10 +45,14 @@ Phases, in order; any failure exits nonzero:
    ids after close + reopen. Slice 3: ``sift1m-sq8-staged``, the collection
    reopened with ``_SQ8I_MAX_DIM[0] = 128``: block-packed words,
    ``sq8-bucket`` (#6) behind the same gate, the same checks; and
-   ``sift1m-bf16``, the SIFT data as BF16: ``bucket-f32`` (#2) on every
+   ``sift1m-bf16``, the SIFT data as BF16: ``bucket-f32`` (#2b) on every
    search, recall@10 >= 0.99 against the float64 oracle of the function the
    kernel computes (``bf16(2q) . bf16(c) - |c|^2``), recall against the f32
-   data's oracle printed, filter and reopen as for sift1m.
+   data's oracle printed, filter and reopen as for sift1m. #2b is timed at b
+   256 and b 16 and must beat #2's f32-core design on the same bf16 rows
+   (``FIRST_DENSE_MS``, PERF.md) and the library yardstick. Then the
+   public op ``bucket_topk`` on the f32 SIFT rows, b 256 / 16 / 1: #2 on f32
+   rows, every launch bit for bit, recall@10 >= 0.99.
 6. Slice 2, ``glove100-binary``: 1,183,514 x 100 cosine BINARY
    (ann-benchmarks glove-100-angular scale), padded to 1,310,720 rows, served
    by ``hamming-mxu`` (#5); reopened with ``VELESDB_HAMMING_MXU_MAX_BYTES=0``
@@ -66,8 +75,9 @@ Phases, in order; any failure exits nonzero:
    ``index_kind = "ivf"`` (spill 2, 3,906 k-means clusters, L 1,032, about
    2.2 GiB of f32 partitions), its build stages timed. The counters are
    zeroed before the main path; every unmasked ``search_batch`` at b = 16 and
-   b = 64 and ``search`` must launch #10, and every launch is held against
-   the plain version bit for bit. Recall@10 >= 0.95 at ef 128 over 256
+   b = 64 and ``search`` must launch #10 (its probe schedule and the scan that
+   reads each probed partition tile once for the queries that probe it), and
+   every launch is held against the plain version bit for bit. Recall@10 >= 0.95 at ef 128 over 256
    queries searched 16 at a time, and at b = 256 (the plain probing path);
    the default profile's served ef (after ``downshift_ef``) and the
    calibrated recall per ef printed; the 1/8 ``cat`` filter (plain masked
@@ -98,9 +108,12 @@ busy time per call and its top kernels. Each kernel is timed at its slice
 shape against its plain version and its bound: the larger of its bytes over
 3.35 TB/s and its operations over their peak (int8 at 1,979 TOPS, fp32 at
 67 TFLOP/s, popcount at 16 per SM per clock), for this run's inputs; the
-float kernels also print the bf16/f16 tensor-core bound (989 TFLOP/s) that
-a later ``wgmma`` design would face. ``fused_topk`` is also timed against
-``torch.topk(q @ c.T)``, its ``library_ms``.
+f32-core kernels also print the bf16/f16 tensor-core bound (989 TFLOP/s)
+that a ``wgmma`` design would face. Where a product and a bucket max compute
+the function (#1, #2, #2b, #3, #5, #6, #7), the kernel is timed against that
+library yardstick (``torch.mm``, ``torch._int_mm``, then the epilogue and
+``amax`` over the ``[B, N/chunk, chunk/128, 128]`` view), its ``library_ms``;
+``fused_topk`` against ``torch.topk(q @ c.T)``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -133,7 +146,8 @@ IVF_UPSERTS = 1000
 HARD_BLOBS = 24  # hard1m-ivf: recall@10 at ef 128 near the balanced bar of 0.95
 CHUNK = 8192
 KERNELS = ("sq8pd_bucket", "sq8i_bucket", "hamming_mxu_bucket", "hamming_bucket",
-           "hamming_topk", "dense_bucket", "hl_bucket", "sq8_bucket", "fused_topk", "ivf_probe")
+           "hamming_topk", "dense_bucket", "dense_bucket_tc", "hl_bucket", "sq8_bucket",
+           "fused_topk", "ivf_probe")
 # Published H100 SXM peaks (NVIDIA data sheet, dense rates, 700 W).
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1.979e15
@@ -145,6 +159,14 @@ PEAK_TC16 = 989e12  # bf16 / f16 tensor cores, dense
 TC_DESIGN = "a bf16/f16 tensor-core (wgmma) design would face"
 F32_CORES = "at the fp32 CUDA-core rate the kernel runs at now"
 CARD = ""  # "name, power limit" from nvidia-smi, appended to every number
+TC_SEEN = {"checks": 0, "worst": 0.0, "max_tol": 0.0}  # #2b against its tolerance
+# #10's times in its first design, one block per (query, probe, 128-row tile)
+# (PERF.md, row #10; NVIDIA H100 80GB HBM3, 700 W)
+FIRST_PROBE_MS = {"f32 b=16": 0.3428, "f32 b=64": 1.4801, "sq8 b=16": 0.1701, "sq8 b=64": 0.6196}
+# #2's times on the sift1m bf16 rows (B_pad 256 and 16, N 1,048,576, D_pad
+# 128) before half rows moved to the tensor cores (PERF.md, row #2; NVIDIA
+# H100 80GB HBM3, 700 W)
+FIRST_DENSE_MS = {256: 5.0662, 16: 1.0573}
 T_START = time.perf_counter()
 
 
@@ -363,6 +385,43 @@ def hold(label, got, ref) -> float:
     return err
 
 
+def hold_tc(label, q, rows, cc, chunk, out) -> float:
+    """Check #2b's ``(gm, gi)`` against the plain version within
+    ``half_scan_tolerance``; returns the largest |gm - gm_ref|."""
+    from velesdb_tpu_torch.ops import bucket_kernel as bk
+
+    worst, max_tol, max_abs = bk.half_scan_error(q, rows, cc, chunk, *out)
+    check(worst <= 1.0, f"{label}: kernel outside the tolerance ({worst:.4f} of it)")
+    TC_SEEN["checks"] += 1
+    TC_SEEN["worst"] = max(TC_SEEN["worst"], worst)
+    TC_SEEN["max_tol"] = max(TC_SEEN["max_tol"], max_tol)
+    print(f"kernel within tolerance (worst {worst:.4f} of it, max |err| {max_abs:.3e}, largest "
+          f"bound {max_tol:.3e}): {label}", flush=True)
+    return max_abs
+
+
+def bucket_max(s, chunk):
+    """The bucket max of a ``[B, N]`` score tile: the library yardstick's
+    last step."""
+    b, n = s.shape
+    return s.view(b, n // chunk, chunk // 128, 128).amax(dim=2)
+
+
+MM_F32 = {"how": "not run"}  # which form of the half product mm_f32 timed
+
+
+def mm_f32(torch, a, b):
+    """A half product with fp32 output: ``torch.mm(..., out_dtype=float32)``
+    where this torch has it, else the half output upcast."""
+    try:
+        out = torch.mm(a, b, out_dtype=torch.float32)
+        MM_F32["how"] = "torch.mm(out_dtype=float32)"
+    except (TypeError, RuntimeError, NotImplementedError):
+        out = torch.mm(a, b).float()
+        MM_F32["how"] = "torch.mm in the half type, upcast to f32"
+    return out
+
+
 class MainPath:
     """One main path's launch record: every launch counter is zeroed on
     entry, the kernel wrapper named by ``(module, attr)`` is wrapped to keep
@@ -399,15 +458,19 @@ class MainPath:
     def __exit__(self, *exc):
         setattr(self.module, self.attr, self.kernel)
 
-    def hold_all(self, plain, describe) -> float:
+    def hold_all(self, plain, describe, holder=None) -> float:
         """Every recorded launch against the plain version on its own
-        arguments; returns the largest |err|."""
+        arguments (bit for bit, or by ``holder(label, *args, out)``);
+        returns the largest |err|."""
         check(len(self.calls) == self.launches(),
               f"{len(self.calls)} recorded calls for {self.launches()} launches")
         err = 0.0
         for args, kwargs, out in self.calls:
-            err = max(err, hold(f"main-path launch, {describe(*args, **kwargs)}", out,
-                                plain(*args, **kwargs)))
+            label = f"main-path launch, {describe(*args, **kwargs)}"
+            if holder is None:
+                err = max(err, hold(label, out, plain(*args, **kwargs)))
+            else:
+                err = max(err, holder(label, *args, *kwargs.values(), out))
         self.calls.clear()
         return err
 
@@ -466,6 +529,7 @@ def main() -> None:
         binary_quantize,
         sq8_pack_blocked,
         sq8_quantize,
+        sq8_unpack_blocked,
     )
 
     F = torch.nn.functional
@@ -476,9 +540,14 @@ def main() -> None:
     say(f"build {len(KERNELS)} kernels in parallel: {time.perf_counter() - t0:.2f} s wall "
         + ", ".join(f"{n} nvcc {_cuda.BUILD_SECONDS[n]:.2f} s" for n in KERNELS))
     for name in KERNELS:
-        lines = [ln.strip() for ln in _cuda.BUILD_LOG.get(name, "").splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"ptxas {name}: " + " | ".join(lines), flush=True)
+        log = _cuda.BUILD_LOG.get(name, "").splitlines()
+        lines = [ln.strip() for ln in log if ("Used" in ln and "registers" in ln) or "spill" in ln]
+        # ptxas's note, once per wgmma, that it fenced the accumulators
+        # before other instructions touch them
+        notes = sum("C7519" in ln for ln in log)
+        print(f"ptxas {name}: " + " | ".join(lines)
+              + (f" | {notes} wgmma accumulator fences inserted (C7519)" if notes else ""),
+              flush=True)
 
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -574,13 +643,18 @@ def main() -> None:
 
     kernel_ms = time_kernel(torch, lambda: bk.sq8pd_bucket_gm(qi, rows_pd, ptile, CHUNK))
     plain_ms = time_kernel(torch, lambda: bk.sq8pd_bucket_gm_ref(qi, rows_pd, ptile, CHUNK))
+    lib_ms = time_kernel(torch, lambda: bucket_max(
+        torch._int_mm(qi, rows_pd.T) * 64 + ptile, CHUNK))
     b_pad, d_pad = qi.shape
     kernel_row(
         "sq8pd_bucket", "sq8pd_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:695",
         kernel_ms, plain_ms, 2 * b_pad * sift_pad * d_pad / PEAK_INT8 * 1e3,
         qi.numel() + rows_pd.numel() + 4 * ptile.numel() + 4 * b_pad * sift_pad // CHUNK * 128,
         errs["sq8pd_bucket"], ("dp4a", b_pad * sift_pad * d_pad / 4, dp4a_rate),
+        library_ms=lib_ms,
     )
+    say("sq8pd_bucket library yardstick: torch._int_mm(qi, rows.T) * 64 + ptile, then the "
+        "bucket amax")
     del sift_pd, qi, rows_pd, ptile
     torch.cuda.empty_cache()
 
@@ -641,9 +715,13 @@ def main() -> None:
             args = (qp2.to(dt), rp.to(dt).contiguous(), cc, CHUNK)
             out = bk.dense_bucket_gm(*args)
             torch.cuda.synchronize()
-            errs["dense_bucket"] = max(errs["dense_bucket"], hold(
-                f"dense_bucket {ragged}, chunk {CHUNK}, {dname}, {metric}", out,
-                bk.dense_bucket_ref(*args)))
+            if dt == torch.float32:
+                errs["dense_bucket"] = max(errs["dense_bucket"], hold(
+                    f"dense_bucket {ragged}, chunk {CHUNK}, {dname}, {metric}", out,
+                    bk.dense_bucket_ref(*args)))
+            else:
+                errs["dense_bucket_tc"] = max(errs["dense_bucket_tc"], hold_tc(
+                    f"dense_bucket_tc {ragged}, chunk {CHUNK}, {dname}, {metric}", *args, out))
             qf = F.pad(q, (0, 128 - RAGGED_D)).contiguous()
             rf = rp.to(dt).contiguous()
             cn = (rf.float() ** 2).sum(1)
@@ -908,13 +986,18 @@ def main() -> None:
                 f"chunk {CHUNK}", out, bk.sq8i_bucket_ref(*args)))
         ms = time_kernel(torch, lambda: bk.sq8i_bucket_gm(*args))
         plain = time_kernel(torch, lambda: bk.sq8i_bucket_ref(*args), iters=5)
+        lib = time_kernel(torch, lambda: bucket_max(
+            torch._int_mm(qi8, idx._sq8_rows8.T).float() * idx._sq8_scale + sqi[:, None] * am
+            - invqs[:, None] * idx._sq8_pen, CHUNK))
         n = idx.n_pad
         kernel_row(
             "sq8i_bucket", "sq8i_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:996", ms, plain,
             (2 * 256 * n * 128 / PEAK_INT8 + 6 * 256 * n / PEAK_F32) * 1e3,
             256 * 128 + n * 128 + 3 * 4 * n + 2 * 4 * 256 + 8 * 256 * n // CHUNK * 128,
-            errs["sq8i_bucket"], ("dp4a", 256 * n * 128 / 4, dp4a_rate),
+            errs["sq8i_bucket"], ("dp4a", 256 * n * 128 / 4, dp4a_rate), library_ms=lib,
         )
+        say("sq8i_bucket library yardstick: torch._int_mm(qi, rows8.T), the affine epilogue, "
+            "then the bucket amax")
         del out, args
 
         with MainPath(counters, bk, "sq8i_bucket_gm", "sq8i_bucket_gm") as run:
@@ -999,14 +1082,20 @@ def main() -> None:
             n = idx.n_pad
             ms = time_kernel(torch, lambda: bk.sq8_bucket_gm(*args))
             plain = time_kernel(torch, lambda: bk.sq8_bucket_ref(*args), iters=3)
+            codes_f = sq8_unpack_blocked(idx._sq8_words).float()  # set-up, not timed
+            lib = time_kernel(torch, lambda: bucket_max(
+                (q6 @ codes_f.T) * idx._sq8_scale + args[5][:, None] * idx._sq8_minv
+                - idx._sq8_pen, CHUNK))
             ops6 = 2 * 256 * n * 128 + 4 * 256 * n
             kernel_row(
                 "sq8_bucket", "sq8_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:894", ms, plain,
                 ops6 / PEAK_F32 * 1e3,
                 4 * 256 * 128 + n * 128 + 12 * n + 4 * 256 + 8 * 256 * n // CHUNK * 128,
-                errs["sq8_bucket"], other=(TC_DESIGN, ops6, PEAK_TC16),
+                errs["sq8_bucket"], other=(TC_DESIGN, ops6, PEAK_TC16), library_ms=lib,
             )
-            del out, args, q6
+            say("sq8_bucket library yardstick: fp32 q @ codes.T on the codes unpacked to f32 "
+                "beforehand (4x the kernel's row bytes), the affine epilogue, the bucket amax")
+            del out, args, q6, codes_f
             with MainPath(counters, bk, "sq8_bucket_gm", "sq8_bucket_gm") as run:
                 t0 = time.perf_counter()
                 s256 = colq.search_batch(sift_q[:256], k=K)
@@ -1180,13 +1269,14 @@ def main() -> None:
             b_ms, b_by = bound(ops / PEAK_F32 * 1e3, bytes_)
             ivf_ms[label] = (ms, plain, impl_ms, b_ms, b_by, bytes_, ops)
             say(f"ivf_probe {label} (B {b}, nprobe {np128}, L {L}, D_pad {q.shape[1]}): kernel "
-                f"{ms:.4f} ms, plain torch {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-                f"{b_ms / ms:.4f} of it; {uniq} unique partitions of {probe.numel()} probes, "
-                f"{bytes_ / 1e6:.1f} MB, {ops:.3e} operations); read once per (query, probe) "
-                f"as the kernel does: {bytes_pairs / 1e6:.1f} MB, "
-                f"{bound(ops / PEAK_F32 * 1e3, bytes_pairs)[0]:.4f} ms; probe op (route + "
-                f"kernel + select) {op_ms:.4f} ms; plain ivf_search_impl on the same queries "
-                f"{impl_ms:.4f} ms; no single PyTorch call computes this function")
+                f"{ms:.4f} ms (the first, one-block-per-probe design: {FIRST_PROBE_MS[label]} ms), "
+                f"plain torch {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.4f} of "
+                f"it; {uniq} unique partitions of {probe.numel()} probes, {bytes_ / 1e6:.1f} MB, "
+                f"{ops:.3e} operations); read once per (query, probe), as the first design did: "
+                f"{bytes_pairs / 1e6:.1f} MB, {bound(ops / PEAK_F32 * 1e3, bytes_pairs)[0]:.4f} "
+                f"ms; probe op (route + kernel + select) {op_ms:.4f} ms; plain ivf_search_impl "
+                f"on the same queries {impl_ms:.4f} ms; no single PyTorch call computes this "
+                f"function")
 
         for b in (16, 64):
             time_probe(f"f32 b={b}", ivf, sift_q[:b])
@@ -1349,7 +1439,20 @@ def main() -> None:
         # Exact's timed calls feed its own EMA, so each case starts from the
         # EMAs the pinned runs left, where IVF is cheaper.
         colx.index_kind = "auto"
-        ema0 = dict(colx.planner._ema)
+        # The pinned runs leave IVF's latency EMA (host clock, hydrate
+        # included). The host sets it: on H100 machines it read 1.55-2.47 ms
+        # for this code and for the one-block-per-probe #10 alike, measured
+        # side by side (velesdb_tpu_torch/tools/ivf_timing.py), and
+        # 4.58-5.22 ms on slower hosts, where unchanged exact cells ran as
+        # much slower (PERF.md, Findings). Above exact's static cost no call
+        # would reach the gate or the downshift, so each case starts with
+        # IVF's EMA capped at half of that cost.
+        exact_cost = colx.planner.cost_exact(SIFT_N, SIFT_D, 16)
+        ema0 = {key: min(v, 0.5 * exact_cost) if key[0] == "ivf" else v
+                for key, v in colx.planner._ema.items()}
+        print("hard1m-ivf latency EMAs the pinned runs left (ms a batch): " + ", ".join(
+            f"{key} {v / 1e6:.4f}" for key, v in colx.planner._ema.items())
+              + f"; exact's static cost at b=16 {exact_cost / 1e6:.4f} ms", flush=True)
         for quality, ef in (("balanced", None), ("accurate", None), ("balanced", 64),
                             ("fast", None)):
             prof_q = SearchQuality.parse(quality)
@@ -1419,36 +1522,69 @@ def main() -> None:
               f"serve_engine {colh.info()['serve_engine']!r}, expected 'bucket-f32'")
         idx = colh._brute
         n = idx.n_pad
+        pen = idx._bucket_pen
         q2 = 2.0 * torch.from_numpy(sift_q[:256]).to(dev)  # euclidean: the wrapper's 2q
         sift_rows = F.pad(torch.from_numpy(sift).to(dev), (0, 0, 0, n - SIFT_N))
         ops2 = 2 * 256 * n * 128 + 256 * n
+
+        def padded(b, dt):
+            return F.pad(q2[:b], (0, 0, 0, (-b) % 8)).to(dt).contiguous()
+
         for dname, rows in (("bf16", idx._full), ("f16", sift_rows.half())):
             for b in (1, 16, 256):
-                qb = F.pad(q2[:b], (0, 0, 0, (-b) % 8)).to(rows.dtype)
-                out = bk.dense_bucket_gm(qb, rows, idx._bucket_pen, CHUNK)
+                qb = padded(b, rows.dtype)
+                out = bk.dense_bucket_gm(qb, rows, pen, CHUNK)
                 torch.cuda.synchronize()
-                errs["dense_bucket"] = max(errs["dense_bucket"], hold(
-                    f"dense_bucket B {b} (B_pad {qb.shape[0]}), N {n}, D_pad 128, chunk {CHUNK}, "
-                    f"{dname}", out, bk.dense_bucket_ref(qb, rows, idx._bucket_pen, CHUNK)))
-            ms = time_kernel(torch, lambda: bk.dense_bucket_gm(qb, rows, idx._bucket_pen, CHUNK))
-            plain = time_kernel(torch, lambda: bk.dense_bucket_ref(qb, rows, idx._bucket_pen,
-                                                                   CHUNK), iters=3)
-            bytes2 = 2 * 256 * 128 + 2 * n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128
-            if dname == "bf16":
-                kernel_row(
-                    "dense_bucket", "dense_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:152",
-                    ms, plain, ops2 / PEAK_TC16 * 1e3, bytes2, errs["dense_bucket"],
-                    other=(F32_CORES, ops2, PEAK_F32),
-                )
-            else:
-                say(f"dense_bucket on f16 rows at the slice shape: kernel {ms:.4f} ms, plain "
-                    f"torch {plain:.4f} ms, bound {bound(ops2 / PEAK_TC16 * 1e3, bytes2)[0]:.4f} "
-                    f"ms; {F32_CORES} {bound(ops2 / PEAK_F32 * 1e3, bytes2)[0]:.4f} ms")
+                errs["dense_bucket_tc"] = max(errs["dense_bucket_tc"], hold_tc(
+                    f"dense_bucket_tc B {b} (B_pad {qb.shape[0]}), N {n}, D_pad 128, "
+                    f"chunk {CHUNK}, {dname}", qb, rows, pen, CHUNK, out))
+            for b in (256, 16):
+                qb = padded(b, rows.dtype)
+                ms = time_kernel(torch, lambda: bk.dense_bucket_gm(qb, rows, pen, CHUNK))
+                old_ms = FIRST_DENSE_MS[b]
+                lib = time_kernel(torch, lambda: bucket_max(mm_f32(torch, qb, rows.T) - pen, CHUNK))
+                bytes_b = 2 * b * 128 + 2 * n * 128 + 4 * n + 8 * qb.shape[0] * n // CHUNK * 128
+                ops_b = 2 * qb.shape[0] * n * 128 + qb.shape[0] * n
+                b_ms = bound(ops_b / PEAK_TC16 * 1e3, bytes_b)[0]
+                if b == 256 and dname == "bf16":
+                    plain = time_kernel(torch, lambda: bk.dense_bucket_ref(qb, rows, pen, CHUNK),
+                                        iters=3)
+                    kernel_row(
+                        "dense_bucket_tc", "dense_bucket_tc.cu",
+                        "velesdb_tpu/ops/bucket_kernel.py:152", ms, plain, ops2 / PEAK_TC16 * 1e3,
+                        bytes_b, errs["dense_bucket_tc"], library_ms=lib,
+                    )
+                say(f"dense_bucket_tc on {dname} rows, B_pad {qb.shape[0]}, N {n}, D_pad 128: "
+                    f"kernel {ms:.4f} ms ({b_ms / ms:.4f} of its bound {b_ms:.4f} ms); #2's "
+                    f"f32-core design on bf16 rows {old_ms:.4f} ms (recorded, {old_ms / ms:.2f}x); "
+                    f"library yardstick {lib:.4f} ms ({lib / ms:.2f}x: {MM_F32['how']}, - cc, "
+                    f"bucket amax)")
+                check(ms < old_ms and ms < lib,
+                      f"dense_bucket_tc {dname} B_pad {qb.shape[0]}: {ms:.4f} ms, not faster than "
+                      f"#2's f32-core design ({old_ms:.4f}) and the library ({lib:.4f})")
+        # #2 on the f32 SIFT rows at the slice shape, bit for bit
+        for b in (1, 16, 256):
+            qb = padded(b, torch.float32)
+            out = bk.dense_bucket_gm(qb, sift_rows, pen, CHUNK)
+            torch.cuda.synchronize()
+            errs["dense_bucket"] = max(errs["dense_bucket"], hold(
+                f"dense_bucket B {b} (B_pad {qb.shape[0]}), N {n}, D_pad 128, chunk {CHUNK}, f32",
+                out, bk.dense_bucket_ref(qb, sift_rows, pen, CHUNK)))
+        ms = time_kernel(torch, lambda: bk.dense_bucket_gm(qb, sift_rows, pen, CHUNK))
+        plain = time_kernel(torch, lambda: bk.dense_bucket_ref(qb, sift_rows, pen, CHUNK), iters=3)
+        lib = time_kernel(torch, lambda: bucket_max(qb @ sift_rows.T - pen, CHUNK))
+        kernel_row(
+            "dense_bucket", "dense_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:152", ms, plain,
+            ops2 / PEAK_F32 * 1e3, 4 * 256 * 128 + 4 * n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128,
+            errs["dense_bucket"], library_ms=lib,
+        )
+        say("dense_bucket (f32 rows) library yardstick: fp32 q @ rows.T (TF32 off), - cc, the "
+            "bucket amax")
         # #3 at the slice shape on the SIFT rows' (hi, lo) split
         hi, lo = bk.split_f32_rows(sift_rows)
         for b in (1, 16, 256):
             qb = F.pad(q2[:b], (0, 0, 0, (-b) % 8))
-            args = (*bk.split_f32_rows(qb), hi, lo, idx._bucket_pen, CHUNK)
+            args = (*bk.split_f32_rows(qb), hi, lo, pen, CHUNK)
             out = bk.hl_bucket_gm(*args)
             torch.cuda.synchronize()
             errs["hl_bucket"] = max(errs["hl_bucket"], hold(
@@ -1456,16 +1592,22 @@ def main() -> None:
                 bk.hl_bucket_ref(*args)))
         ms = time_kernel(torch, lambda: bk.hl_bucket_gm(*args))
         plain = time_kernel(torch, lambda: bk.hl_bucket_ref(*args), iters=3)
+        qhi, qlo = args[0], args[1]
+        lib = time_kernel(torch, lambda: bucket_max(
+            mm_f32(torch, qhi, hi.T) + (mm_f32(torch, qhi, lo.T) + mm_f32(torch, qlo, hi.T)) - pen,
+            CHUNK))
         ops3 = 6 * 256 * n * 128 + 2 * 256 * n
         kernel_row(
             "hl_bucket", "hl_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:279", ms, plain,
             ops3 / PEAK_TC16 * 1e3,
             4 * 256 * 128 + 4 * n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128,
-            errs["hl_bucket"], other=(F32_CORES, ops3, PEAK_F32),
+            errs["hl_bucket"], other=(F32_CORES, ops3, PEAK_F32), library_ms=lib,
         )
-        del out, args, qb, hi, lo, rows, sift_rows
+        say(f"hl_bucket library yardstick: three bf16 {MM_F32['how']} (hi.hi + (hi.lo + lo.hi)), "
+            "- cc, the bucket amax")
+        del out, args, qb, hi, lo, rows, qhi, qlo
         torch.cuda.empty_cache()
-        with MainPath(counters, bk, "dense_bucket_gm", "dense_bucket_gm") as run:
+        with MainPath(counters, bk, "dense_bucket_gm", "dense_bucket_tc") as run:
             h256 = colh.search_batch(sift_q[:256], k=K)
             run.launched("search_batch b=256")
             h16 = colh.search_batch(sift_q[256:272], k=K)
@@ -1474,11 +1616,15 @@ def main() -> None:
             run.launched("search")
             hf = colh.search_batch(sift_q[:256], k=K, filter=filt)
             run.launched("filtered search_batch")
-        launches["dense_bucket"] = run.launches()
-        errs["dense_bucket"] = max(errs["dense_bucket"], run.hold_all(
-            bk.dense_bucket_ref,
-            lambda q, rows, cc, ch: (f"dense_bucket B_pad {q.shape[0]}, N {rows.shape[0]}, "
-                                     f"D_pad {rows.shape[1]}, chunk {ch}, {rows.dtype}")))
+        launches["dense_bucket_tc"] = run.launches()
+        errs["dense_bucket_tc"] = max(errs["dense_bucket_tc"], run.hold_all(
+            None, lambda q, rows, cc, ch: (f"dense_bucket_tc B_pad {q.shape[0]}, "
+                                           f"N {rows.shape[0]}, D_pad {rows.shape[1]}, "
+                                           f"chunk {ch}, {rows.dtype}"), holder=hold_tc))
+        say(f"dense_bucket_tc: every launch of this run checked ({TC_SEEN['checks']}) against "
+            f"|err| <= 2 D_pad 2^-24 A + 2 ulp(gm_ref) (A: the winner's sum of |q_d c_d|); the "
+            f"largest bound {TC_SEEN['max_tol']:.3e}, the largest error {TC_SEEN['worst']:.4f} "
+            f"of its bound")
         # the function the kernel computes: bf16(2q) . bf16(c) - |c|^2 (f32 rows)
         rows64 = idx._full[:SIFT_N].double()
         pen64 = torch.from_numpy(sift).to(dev).double().pow(2).sum(1)
@@ -1514,7 +1660,32 @@ def main() -> None:
         measure(torch, "sift1m-bf16", lambda b: colh.search_batch(b, k=K),
                 "sift1m-bf16 device path (no hydrate)", device_only(colh, K), sift_q)
         db.delete_collection("sift1m_bf16")
-        del sift_all, sift, payloads
+
+        # #2 on f32 rows: the public op bucket_topk on the SIFT rows (padded
+        # rows knocked out by the penalty), every launch bit for bit
+        qt = torch.from_numpy(sift_q[:301]).to(dev)
+        with MainPath(counters, bk, "dense_bucket_gm", "dense_bucket_gm") as run:
+            _, b256 = bk.bucket_topk(qt[:256], sift_rows, pen, k=K, metric="euclidean",
+                                     chunk=CHUNK)
+            run.launched("bucket_topk b=256 (f32 rows)")
+            _, b16 = bk.bucket_topk(qt[256:272], sift_rows, pen, k=K, metric="euclidean",
+                                    chunk=CHUNK)
+            run.launched("bucket_topk b=16 (f32 rows)")
+            _, b1 = bk.bucket_topk(qt[300:301], sift_rows, pen, k=K, metric="euclidean",
+                                   chunk=CHUNK)
+            run.launched("bucket_topk b=1 (f32 rows)")
+        launches["dense_bucket"] = run.launches()
+        errs["dense_bucket"] = max(errs["dense_bucket"], run.hold_all(
+            bk.dense_bucket_ref,
+            lambda q, rows, cc, ch: (f"dense_bucket B_pad {q.shape[0]}, N {rows.shape[0]}, "
+                                     f"D_pad {rows.shape[1]}, chunk {ch}, {rows.dtype}")))
+        got = torch.cat([b256, b16, b1]).cpu().numpy()
+        want = np.concatenate([sift_oi[:256], sift_oi[256:272], sift_oi[300:301]])
+        r2 = np.mean([len(set(a) & set(b)) / K for a, b in zip(got, want)])
+        print(f"bucket_topk on the f32 SIFT rows (#2): recall@10 {r2:.4f} vs the float64 oracle "
+              f"over 273 queries", flush=True)
+        check(r2 >= 0.99, f"bucket_topk f32 recall@10 = {r2:.4f} < 0.99")
+        del sift_all, sift, payloads, sift_rows, pen, qt
         torch.cuda.empty_cache()
 
         # -- 6. slice 2: glove100-binary -----------------------------------
@@ -1546,13 +1717,17 @@ def main() -> None:
         ms = time_kernel(torch, lambda: bk.hamming_mxu_gm(qi2, idx._ham_bits, idx._ham_aux, CHUNK))
         plain = time_kernel(torch, lambda: bk.hamming_mxu_ref(qi2, idx._ham_bits, idx._ham_aux,
                                                               CHUNK), iters=5)
+        lib = time_kernel(torch, lambda: bucket_max(
+            torch._int_mm(qi2, idx._ham_bits.T) - idx._ham_aux, CHUNK))
         kernel_row(
             "hamming_mxu_bucket", "hamming_mxu_bucket.cu",
             "velesdb_tpu/ops/bucket_kernel.py:494", ms, plain,
             2 * 256 * n * 128 / PEAK_INT8 * 1e3,
             256 * 128 + n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128,
-            errs["hamming_mxu_bucket"], ("dp4a", 256 * n * 128 / 4, dp4a_rate),
+            errs["hamming_mxu_bucket"], ("dp4a", 256 * n * 128 / 4, dp4a_rate), library_ms=lib,
         )
+        say("hamming_mxu_bucket library yardstick: torch._int_mm(2 qbits, bits.T) - aux, then "
+            "the bucket amax")
         # packed scan (#4) at its slice shape on the same packed corpus
         qp = binary_quantize(gq[:256])
         pen0 = torch.where(idx._valid, 0.0, torch.inf)

@@ -309,14 +309,64 @@ def _float_inputs(cuda, rng, b, d, n, metric):
 @pytest.mark.parametrize("b,d,n,chunk", [(13, 100, 131_072, 8192), (1, 128, 16_384, 8192),
                                          (256, 128, 65_536, 8192), (40, 48, 4096, 512)])
 def test_dense_bucket_kernel_equals_plain(cuda, dtype, metric, b, d, n, chunk):
+    """f32 rows launch #2, bit for bit; f16 and bf16 rows launch #2b (the
+    tensor cores), within ``half_scan_tolerance``."""
     q, rows, cc, _ = _float_inputs(cuda, np.random.default_rng(d + b), b, d, n, metric)
     q, rows = q.to(dtype), rows.to(dtype).contiguous()
-    before = bk.LAUNCHES["dense_bucket_gm"]
+    counter = "dense_bucket_gm" if dtype == torch.float32 else "dense_bucket_tc"
+    before = dict(bk.LAUNCHES)
     gm, gi = bk.dense_bucket_gm(q, rows, cc, chunk)
     torch.cuda.synchronize()
-    assert bk.LAUNCHES["dense_bucket_gm"] == before + 1
-    rm, ri = bk.dense_bucket_ref(q, rows, cc, chunk)
-    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+    assert bk.LAUNCHES == {**before, counter: before[counter] + 1}
+    if dtype == torch.float32:
+        rm, ri = bk.dense_bucket_ref(q, rows, cc, chunk)
+        assert torch.equal(gm, rm) and torch.equal(gi, ri)
+    else:
+        assert bk.half_scan_error(q, rows, cc, chunk, gm, gi)[0] <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
+@pytest.mark.parametrize("b", [1, 13, 16, 256])
+@pytest.mark.parametrize("d", [100, 128])
+def test_dense_bucket_tc_within_tolerance(cuda, dtype, metric, b, d):
+    """#2b at N 131,072 (16 chunks of 8,192), 15% knocked-out rows, B_pad 8
+    .. 256 (query tiles of 8, 16 and 128, two of them at 256), D 100 padded
+    to 104 (a zero-filled last K step) and 128."""
+    n, chunk = 131_072, 8192
+    rng = np.random.default_rng(b * 7 + d)
+    x = torch.from_numpy(_clustered(rng, n + b, d)).to(cuda)
+    rows, q = x[:n], x[n:]
+    if metric == "cosine":
+        rows, q = rows / rows.norm(dim=1, keepdim=True), q / q.norm(dim=1, keepdim=True)
+    elif metric == "euclidean":
+        q = 2.0 * q
+    knocked = torch.from_numpy(rng.random(n) < 0.15).to(cuda)
+    base = (rows * rows).sum(1) if metric == "euclidean" else torch.zeros(n, device=cuda)
+    cc = torch.where(knocked, torch.inf, base)
+    d_pad = -(-d // 8) * 8
+    q = torch.nn.functional.pad(q, (0, d_pad - d, 0, (-b) % 8)).to(dtype)
+    rows = torch.nn.functional.pad(rows, (0, d_pad - d)).to(dtype).contiguous()
+    before = bk.LAUNCHES["dense_bucket_tc"]
+    gm, gi = bk.dense_bucket_gm(q, rows, cc, chunk)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["dense_bucket_tc"] == before + 1
+    assert gm.shape == gi.shape == (q.shape[0], n // chunk * 128)
+    worst, _, _ = bk.half_scan_error(q, rows, cc, chunk, gm, gi)
+    assert worst <= 1.0, worst
+    assert not bool(knocked[gi.long()][gm > -torch.inf].any())  # a finite winner is live
+
+
+def test_dense_bucket_tc_wide_rows_take_smaller_query_tiles(cuda):
+    """D_pad 3,072 leaves room for an 8-query tile only: 40 queries run as
+    five tiles, with the same tolerance."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(_clustered(rng, 8192 + 40, 3072)).to(cuda)
+    q, rows = x[8192:].to(torch.bfloat16), x[:8192].to(torch.bfloat16).contiguous()
+    cc = torch.zeros(8192, device=cuda)
+    gm, gi = bk.dense_bucket_gm(q, rows, cc, 1024)
+    torch.cuda.synchronize()
+    assert bk.half_scan_error(q, rows, cc, 1024, gm, gi)[0] <= 1.0
 
 
 @pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
@@ -422,8 +472,8 @@ def test_slice3_kernels_refuse_bad_input(cuda):
 
 
 @pytest.mark.parametrize("mode,metric,engine,counter", [
-    ("bf16", "euclidean", "bucket-f32", "dense_bucket_gm"),
-    ("f16", "cosine", "bucket-f32", "dense_bucket_gm"),
+    ("bf16", "euclidean", "bucket-f32", "dense_bucket_tc"),
+    ("f16", "cosine", "bucket-f32", "dense_bucket_tc"),
     ("full", "euclidean", "split-bf16", "hl_bucket_gm"),
     ("sq8", "cosine", "sq8-bucket", "sq8_bucket_gm"),
 ])
@@ -603,3 +653,103 @@ def test_ivf_index_on_the_card(cuda, storage):
     torch.testing.assert_close(vals.cpu()[same], want_vals[same], rtol=1e-4, atol=1e-4)
     if storage == "sq8":
         assert isinstance(src, SQ8Vectors) and on_card._parts.dtype == torch.int32
+
+
+@pytest.mark.parametrize("storage", ["f32", "sq8"])
+@pytest.mark.parametrize("b", [1, 64])
+def test_ivf_probe_kernel_shared_and_invalid_probes(cuda, storage, b):
+    """Bit for bit where queries share partitions: every query probes
+    partition 5 (a run of ``b`` entries, cut into groups of ``PROBE_GROUP``),
+    half the probes come from 12 partitions, some probe the all-dead
+    partitions past ``c_real``, and two probe ids are not partitions."""
+    rng = np.random.default_rng(b + 31)
+    q, qsum, probe, parts, aux = _probe_inputs(cuda, rng, b, 68, 1032, 128, storage, "euclidean")
+    n_parts = parts.shape[0]
+    probe[:, 0] = 5
+    probe[:, 1:34] = torch.from_numpy(rng.integers(0, 12, (b, 33)).astype(np.int32)).to(cuda)
+    probe[:, 34] = n_parts - 1  # all dead
+    probe[0, 35] = -1
+    probe[-1, 36] = n_parts + 7
+    before = ik.LAUNCHES["ivf_probe"]
+    sched = torch.empty((3, probe.numel()), dtype=torch.int32, device=cuda)
+    out = ik.ivf_probe_scores(q, qsum, probe, parts, aux, sched=sched)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["ivf_probe"] == before + 1
+    assert torch.equal(out, ik.ivf_probe_ref(q, qsum, probe, parts, aux))
+    assert bool(torch.isneginf(out[0, 35]).all()) and bool(torch.isneginf(out[-1, 36]).all())
+    # the schedule the kernel ranked is probe_runs's, entry for entry
+    want = ik.probe_runs(probe, n_parts)
+    assert all(torch.equal(g, w) for g, w in zip(sched, want))
+    assert int(want[2].sum()) == probe.numel() and int(want[2].max()) <= ik.PROBE_GROUP
+    if b == 64:  # partition 5's run of 64 is cut into groups of PROBE_GROUP
+        assert int(want[2].max()) == ik.PROBE_GROUP
+
+
+def _time_ms(fn, iters=10):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _wide_probe_case(cuda, storage, nprobe):
+    """b 64 over 4,096 partitions of L 128, D 32: M = 64 * nprobe probes."""
+    rng = np.random.default_rng(nprobe)
+    return _probe_inputs(cuda, rng, 64, nprobe, 128, 32, storage, "euclidean", n_parts=4096)
+
+
+@pytest.mark.parametrize("storage", ["f32", "sq8"])
+@pytest.mark.parametrize("nprobe", [256, 257, 2048])
+def test_ivf_probe_kernel_large_nprobe(cuda, storage, nprobe):
+    """b 64 at nprobe 256 (M = 16,384 = SCHED_RANK_MAX: ranked on the card),
+    257 and 2,048 (M 131,072: the schedule from probe_runs): bit for bit,
+    one launch, and the schedule probe_runs's, entry for entry."""
+    q, qsum, probe, parts, aux = _wide_probe_case(cuda, storage, nprobe)
+    assert (probe.numel() > ik.SCHED_RANK_MAX) == (nprobe > 256)
+    sched = torch.empty((3, probe.numel()), dtype=torch.int32, device=cuda)
+    before = ik.LAUNCHES["ivf_probe"]
+    out = ik.ivf_probe_scores(q, qsum, probe, parts, aux, sched=sched)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["ivf_probe"] == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(sched, ik.probe_runs(probe, parts.shape[0])))
+    assert torch.equal(out, ik.ivf_probe_ref(q, qsum, probe, parts, aux))
+
+
+@pytest.mark.parametrize("storage", ["f32", "sq8"])
+def test_ivf_probe_schedule_cost_stays_in_bounds(cuda, storage):
+    """At SCHED_RANK_MAX the ranking kernel's call costs at most twice the
+    call one probe later, whose schedule probe_runs builds (~30 small
+    launches); past it the time grows no faster than the probes (8x the
+    probes within 16x the time), so no O(M^2) ranking runs there."""
+    times = {}
+    for nprobe in (256, 257, 2048):
+        q, qsum, probe, parts, aux = _wide_probe_case(cuda, storage, nprobe)
+        times[nprobe] = _time_ms(lambda: ik.ivf_probe_scores(q, qsum, probe, parts, aux))
+        del q, qsum, probe, parts, aux
+    assert times[256] <= 2.0 * times[257], times
+    assert times[2048] <= 2.0 * (2048 * 64) / (257 * 64) * times[257], times
+
+
+def test_probe_and_bucket_kernels_do_not_synchronize(cuda):
+    """The schedule (ranked on the card, and from probe_runs past
+    SCHED_RANK_MAX), both wrappers and their launches run with the host never
+    waiting on the card."""
+    rng = np.random.default_rng(2)
+    args = _probe_inputs(cuda, rng, 16, 68, 1032, 128, "f32", "euclidean")
+    wide = _probe_inputs(cuda, rng, 64, 300, 128, 32, "sq8", "euclidean", n_parts=1024)
+    q, rows, cc, _ = _float_inputs(cuda, rng, 16, 128, 131_072, "euclidean")
+    q, rows = q.to(torch.bfloat16), rows.to(torch.bfloat16).contiguous()
+    for fn in (lambda: ik.ivf_probe_scores(*args), lambda: ik.ivf_probe_scores(*wide),
+               lambda: bk.dense_bucket_gm(q, rows, cc, 8192)):
+        fn()  # first call builds and binds the library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -1,41 +1,40 @@
-// dense_bucket.cu — float bucket scan (f32, f16 or bf16 rows) for Hopper.
+// dense_bucket.cu — f32 bucket scan for Hopper.
 //
 // Replaces velesdb_tpu/ops/bucket_kernel.py::_kernel (the Pallas kernel
 // launched by _bucket_call from bucket_topk_entry): the ``bucket-f32`` serve
-// core of F16/BF16 storage below D 512, and bucket_topk's contract for f32.
-// Same contract, bit for bit against the plain torch version
-// dense_bucket_ref:
+// core of F16/BF16 storage below D 512, and bucket_topk's contract, on f32
+// rows; f16 and bf16 rows go to the tensor cores (dense_bucket_tc.cu). Same
+// contract, bit for bit against the plain torch version dense_bucket_ref:
 //
-//   inputs   q     T     [B_pad, D_pad]  queries in the corpus type T
-//                                        (cosine: normalized; euclidean: 2q)
-//            rows  T     [N, D_pad]      corpus rows (cosine: pre-normalized)
+//   inputs   q     f32   [B_pad, D_pad]  queries (cosine: normalized;
+//                                        euclidean: 2q)
+//            rows  f32   [N, D_pad]      corpus rows (cosine: pre-normalized)
 //            cc    f32   [N]             additive penalty: |c|^2 (euclidean)
 //                                        or 0, +inf on knocked-out rows
 //   output   gm  f32   [B_pad, (N / chunk) * 128]
 //            gi  int32 [B_pad, (N / chunk) * 128]
 //   dot[b, r] = sum over d = 0 .. D_pad-1, in that order, of
-//               float(q[b, d]) * float(rows[r, d]), each product and each
-//               partial sum rounded to fp32 (__fmul_rn / __fadd_rn)
+//               q[b, d] * rows[r, d], each product and each partial sum
+//               rounded to fp32 (__fmul_rn / __fadd_rn)
 //   s[b, r]   = dot - cc[r]
 //   gm[b, c*128 + j] = max over slices i of s[b, c*chunk + i*128 + j], gi its
 //   row; ties go to the smallest slice (the reference's _bucket_select), so a
 //   bucket of -inf scores returns its slice-0 row.
 //
-// The products of two f16 or two bf16 values are exact in fp32, so for half
-// rows every rounding is a sum's; f32 products round once each, in both
-// versions alike. The explicit intrinsics keep nvcc from contracting a*b + c
-// into an FMA, which PyTorch's one-op-per-kernel arithmetic never does.
+// Each product and each sum rounds once, in both versions alike: the
+// explicit intrinsics keep nvcc from contracting a*b + c into an FMA, which
+// PyTorch's one-op-per-kernel arithmetic never does.
 //
 // What bounds it on this card. It sums with fp32 CUDA-core multiplies and
 // adds, 2 * B_pad * N * D_pad operations, bound at 67 TFLOP/s (the FMA rate;
 // separate multiply and add issue at half of it), far above the corpus read
-// (N * D_pad * sizeof(T) bytes). A later design would put the half rows on
-// the tensor cores (wgmma, 989 TFLOP/s dense bf16/f16); this kernel keeps
-// the fixed summation order that makes it equal its plain version.
+// (N * D_pad * 4 bytes). The tensor cores cannot compute this fp32
+// function exactly; this kernel keeps the fixed summation order that makes
+// it equal its plain version.
 //
 // What the design does about that (the geometry of sq8i_bucket.cu):
 // - one block per (query tile of QT <= 16 queries, corpus chunk); the query
-//   tile sits in shared memory as fp32 and every read is a warp-wide
+//   tile sits in shared memory and every read is a warp-wide
 //   broadcast;
 // - 128 threads, one per bucket lane: thread j owns rows c*chunk + i*128 + j,
 //   reads its row in 16-byte vectors, and keeps a running (max, slice) pair
@@ -43,8 +42,6 @@
 // - blocks are numbered query tile first, so all query tiles of one chunk run
 //   together and the chunk comes from HBM once, then from L2.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -53,17 +50,12 @@ namespace {
 
 constexpr int kLanes = 128;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T, int QT>
+template <int QT>
 __global__ void __launch_bounds__(kLanes)
-dense_bucket_kernel(const T* __restrict__ q, const T* __restrict__ rows,
+dense_bucket_kernel(const float* __restrict__ q, const float* __restrict__ rows,
                     const float* __restrict__ cc, float* __restrict__ gm,
                     int32_t* __restrict__ gi, int b_pad, int d_pad, int chunk, int n_tiles,
                     long long n_buckets) {
-  constexpr int V = 16 / sizeof(T);  // row elements per 16-byte load
   extern __shared__ float smem_q[];  // QT * d_pad floats
   const int lane = threadIdx.x;
   const int tile = blockIdx.x % n_tiles;
@@ -73,7 +65,7 @@ dense_bucket_kernel(const T* __restrict__ q, const T* __restrict__ rows,
   for (int t = lane; t < QT * d_pad; t += kLanes) {
     const int qq = t / d_pad;
     smem_q[t] = (q0 + qq < b_pad)
-                    ? to_f32(q[static_cast<long long>(q0 + qq) * d_pad + (t - qq * d_pad)])
+                    ? q[static_cast<long long>(q0 + qq) * d_pad + (t - qq * d_pad)]
                     : 0.0f;
   }
   __syncthreads();
@@ -87,24 +79,21 @@ dense_bucket_kernel(const T* __restrict__ q, const T* __restrict__ rows,
   }
 
   const int slices = chunk / kLanes;
-  const int nv = d_pad / V;
+  const int nv = d_pad / 4;  // 16-byte loads a row
   for (int s = 0; s < slices; ++s) {
     const long long r = c * chunk + static_cast<long long>(s) * kLanes + lane;
     float acc[QT];
 #pragma unroll
     for (int j = 0; j < QT; ++j) acc[j] = 0.0f;
-    const int4* rp = reinterpret_cast<const int4*>(rows + r * d_pad);
+    const float4* rp = reinterpret_cast<const float4*>(rows + r * d_pad);
     for (int w = 0; w < nv; ++w) {
-      const int4 raw = __ldg(rp + w);
-      const T* x = reinterpret_cast<const T*>(&raw);
-      float xf[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) xf[v] = to_f32(x[v]);
+      const float4 raw = __ldg(rp + w);
+      const float xf[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
       for (int j = 0; j < QT; ++j) {
-        const float* qs = smem_q + j * d_pad + w * V;
+        const float* qs = smem_q + j * d_pad + w * 4;
 #pragma unroll
-        for (int v = 0; v < V; ++v) acc[j] = __fadd_rn(acc[j], __fmul_rn(qs[v], xf[v]));
+        for (int v = 0; v < 4; ++v) acc[j] = __fadd_rn(acc[j], __fmul_rn(qs[v], xf[v]));
       }
     }
     const float p = __ldg(cc + r);
@@ -128,8 +117,8 @@ dense_bucket_kernel(const T* __restrict__ q, const T* __restrict__ rows,
   }
 }
 
-template <typename T, int QT>
-cudaError_t launch(const void* q, const void* rows, const float* cc, float* gm, int32_t* gi,
+template <int QT>
+cudaError_t launch(const float* q, const float* rows, const float* cc, float* gm, int32_t* gi,
                    int b_pad, long long n, int d_pad, int chunk, cudaStream_t stream) {
   const int n_tiles = (b_pad + QT - 1) / QT;
   const long long n_chunks = n / chunk;
@@ -138,48 +127,37 @@ cudaError_t launch(const void* q, const void* rows, const float* cc, float* gm, 
   const size_t smem = static_cast<size_t>(QT) * d_pad * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_bucket_kernel<T, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dense_bucket_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  dense_bucket_kernel<T, QT><<<static_cast<unsigned>(blocks), kLanes, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(rows), cc, gm, gi, b_pad, d_pad, chunk,
-      n_tiles, n_chunks * kLanes);
+  dense_bucket_kernel<QT><<<static_cast<unsigned>(blocks), kLanes, smem, stream>>>(
+      q, rows, cc, gm, gi, b_pad, d_pad, chunk, n_tiles, n_chunks * kLanes);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_typed(const void* q, const void* rows, const float* cc, float* gm,
-                         int32_t* gi, int b_pad, long long n, int d_pad, int chunk,
-                         cudaStream_t stream) {
-  if (b_pad % 16 == 0) return launch<T, 16>(q, rows, cc, gm, gi, b_pad, n, d_pad, chunk, stream);
-  return launch<T, 8>(q, rows, cc, gm, gi, b_pad, n, d_pad, chunk, stream);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. ``dtype``: 0 f32, 1 f16, 2 bf16.
+// Plain C entry point, loaded with ctypes: f32 ``q``, ``rows`` and ``cc``.
 // Launches on ``stream`` without synchronizing and returns the launch's CUDA
 // error code.
 extern "C" int dense_bucket_launch(const void* q, const void* rows, const void* cc, void* gm,
                                    void* gi, int b_pad, long long n, int d_pad, int chunk,
-                                   int dtype, void* stream) {
+                                   void* stream) {
   // d_pad <= 3072: 16 queries x d_pad floats of shared memory (192 KB)
   if (b_pad <= 0 || b_pad % 8 != 0 || n <= 0 || d_pad <= 0 || d_pad % 8 != 0 ||
       d_pad > 3072 || chunk <= 0 || chunk % kLanes != 0 || chunk > 8192 || n % chunk != 0 ||
       n > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto* qf = static_cast<const float*>(q);
+  const auto* rf = static_cast<const float*>(rows);
   const auto* p = static_cast<const float*>(cc);
   auto* m = static_cast<float*>(gm);
   auto* g = static_cast<int32_t*>(gi);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case 0: err = launch_typed<float>(q, rows, p, m, g, b_pad, n, d_pad, chunk, s); break;
-    case 1: err = launch_typed<__half>(q, rows, p, m, g, b_pad, n, d_pad, chunk, s); break;
-    case 2: err = launch_typed<__nv_bfloat16>(q, rows, p, m, g, b_pad, n, d_pad, chunk, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err = b_pad % 16 == 0
+                              ? launch<16>(qf, rf, p, m, g, b_pad, n, d_pad, chunk, s)
+                              : launch<8>(qf, rf, p, m, g, b_pad, n, d_pad, chunk, s);
   return static_cast<int>(err);
 }

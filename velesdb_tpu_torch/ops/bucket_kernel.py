@@ -4,20 +4,24 @@ Counterpart of ``velesdb_tpu/ops/bucket_kernel.py``. Every kernel here scores
 a query batch against a padded corpus chunk by chunk and keeps ONE winner per
 128-lane bucket of each chunk (``_bucket_select``), so the ``[B, N]`` score
 matrix never exists in device memory; an exact ``torch.topk`` over the bucket
-winners (``_final_select``) finishes the search. Seven hand-written CUDA
+winners (``_final_select``) finishes the search. Eight hand-written CUDA
 kernels (``csrc/``), each with its plain torch version beside it:
 
-- ``dense_bucket`` (#2, :func:`dense_bucket_gm`): f32, f16 or bf16 rows,
-  ``dot - cc`` (:func:`bucket_topk_entry`); the ``bucket-f32`` core of
+- ``dense_bucket`` (#2, :func:`dense_bucket_gm`): ``dot - cc``
+  (:func:`bucket_topk_entry`) on f32 rows; ``dense_bucket_tc`` (#2b) the
+  same on f16 and bf16 rows, on the tensor cores: the ``bucket-f32`` core of
   F16/BF16 storage below D 512.
 - ``hl_bucket`` (#3, :func:`hl_bucket_gm`): split-bf16 (hi, lo) rows
   (:func:`bucket_topk_hl`); the FULL ``split-bf16`` core.
 - ``sq8_bucket`` (#6, :func:`sq8_bucket_gm`): block-packed SQ8 words
   (:func:`sq8_bucket_topk`); the ``sq8-bucket`` core.
 
-The three float kernels sum each dot over the dims in order, one rounded
-multiply and add per term (:func:`_ordered_dot`), so on the card they equal
-their plain versions bit for bit. The int8 and Hamming kernels:
+The three float kernels on fp32 CUDA cores sum each dot over the dims in
+order, one rounded multiply and add per term (:func:`_ordered_dot`), so on
+the card they equal their plain versions bit for bit. ``dense_bucket_tc``
+adds the exact half products in the tensor cores' own order and is held to
+its plain version within :func:`half_scan_tolerance`. The int8 and Hamming
+kernels:
 
 - ``sq8pd_bucket`` (#1, :func:`sq8pd_bucket_gm`): the per-DIMENSION int8
   "enc-select" scan, the FULL-storage core at D < 512 and at least
@@ -63,6 +67,8 @@ __all__ = [
     "bucket_topk_entry",
     "dense_bucket_gm",
     "dense_bucket_ref",
+    "half_scan_error",
+    "half_scan_tolerance",
     "split_f32_rows",
     "bucket_topk_hl",
     "first_topk",
@@ -107,6 +113,7 @@ HAMMING_CHUNK = 2048
 # nowhere else (the CPU path of a wrapper does not count).
 LAUNCHES = {
     "dense_bucket_gm": 0,
+    "dense_bucket_tc": 0,
     "hl_bucket_gm": 0,
     "sq8_bucket_gm": 0,
     "sq8pd_bucket_gm": 0,
@@ -756,7 +763,7 @@ def hamming_bucket_topk(packed_q, packed_corpus, penalty, *, k, chunk=HAMMING_CH
 # ---------------------------------------------------------------------------
 
 _FLOAT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_DENSE_MAX_DPAD = 3072  # 16 queries x D_pad floats of shared memory
+_DENSE_MAX_DPAD = 3072  # #2: 16 queries x D_pad floats of shared memory; #2b: 8 half queries
 _HL_MAX_DPAD = 1536  # two such tiles (hi and lo)
 
 
@@ -793,19 +800,83 @@ def dense_bucket_ref(q, rows, cc, chunk: int):
     return _bucket_select(_ordered_dot(q, rows) - cc[None, :], chunk)
 
 
+def half_scan_tolerance(q, rows, cc, chunk: int):
+    """The plain pass of #2 and the bound #2b is held to on half rows:
+    ``(gm_ref, gi_ref, s_ref [B_pad, N], tol)``, ``tol`` per bucket winner:
+
+        |gm - gm_ref| <= 2 * D_pad * 2^-24 * A + 2 ulp(gm_ref)
+
+    with ``A = sum_d |q_d * c_d|`` over the plain winner's row. The products
+    of two f16 or two bf16 values are exact in fp32, so only the order of the
+    sums differs: each order's sum lies within ``(D_pad - 1) * 2^-24 * A`` of
+    the exact dot (the first-order bound of any fp32 summation order), hence
+    the factor 2; the two ulps cover the rounding of ``dot - cc``."""
+    s = _ordered_dot(q, rows) - cc[None, :]
+    gm, gi = _bucket_select(s, chunk)
+    a = torch.gather(q.float().abs() @ rows.float().abs().T, 1, gi.long())
+    mag = gm.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, torch.inf)) - mag
+    tol = 2.0 * q.shape[1] * 2.0**-24 * a + 2.0 * ulp
+    return gm, gi, s, tol
+
+
+def half_scan_error(q, rows, cc, chunk: int, gm, gi, ref=None):
+    """``(gm, gi)`` of #2b against the plain pass within
+    :func:`half_scan_tolerance` (``ref``: its result, when already computed).
+    Returns ``(worst, max_tol, max_abs_err)``: ``worst`` is the largest error
+    relative to the tolerance, and the outputs pass when it is at most 1.
+
+    ``gm`` must lie within ``tol`` of ``gm_ref``; a ``-inf`` bucket must be
+    ``-inf``. ``gi`` must equal ``gi_ref`` wherever the plain bucket's best
+    beats its second best by more than ``2 tol``; elsewhere it must name a
+    row of the same bucket whose plain score lies within ``tol`` of
+    ``gm_ref``."""
+    gm_ref, gi_ref, s, tol = half_scan_tolerance(q, rows, cc, chunk) if ref is None else ref
+    b, n = s.shape
+    t = s.reshape(b, n // chunk, chunk // _LANES, _LANES)
+    if t.shape[2] > 1:
+        top2 = torch.topk(t, 2, dim=2).values
+        margin = (top2[:, :, 0] - top2[:, :, 1]).reshape(b, -1)
+    else:
+        margin = torch.full_like(gm_ref, torch.inf)
+    inf_ref = torch.isinf(gm_ref)
+    same = gm == gm_ref
+    diff = torch.where(same, 0.0, (gm - gm_ref).abs())
+    r_gm = torch.where(inf_ref, torch.where(same, 0.0, torch.inf), diff / tol)
+    bucket = torch.arange(gm_ref.shape[1], device=gm.device)
+    home = (gi.long() % _LANES == bucket % _LANES) & (gi.long() // chunk == bucket // _LANES)
+    picked = torch.gather(s, 1, gi.long().clamp(0, n - 1))
+    near = torch.where(picked == gm_ref, 0.0, (picked - gm_ref).abs()) / tol
+    r_gi = torch.where(margin > 2.0 * tol, torch.where(gi == gi_ref, 0.0, torch.inf),
+                       torch.where(home, near, torch.inf))
+    r_gi = torch.where(inf_ref, torch.where(gi == gi_ref, 0.0, torch.inf), r_gi)
+    worst = float(torch.maximum(r_gm, r_gi).max())
+    fin = ~inf_ref
+    max_tol = float(tol[fin].max()) if bool(fin.any()) else 0.0
+    max_abs = float(diff[fin].max()) if bool(fin.any()) else 0.0
+    return worst, max_tol, max_abs
+
+
 def dense_bucket_gm(q, rows, cc, chunk: int):
-    """Bucket winners of the float scan (#2), ``(gm f32, gi int32)
+    """Bucket winners of the float scan, ``(gm f32, gi int32)
     [B_pad, N/chunk*128]``: ``q [B_pad, D_pad]`` and ``rows [N, D_pad]`` in
     one float dtype (f32, f16 or bf16), ``cc [N]`` f32. CUDA tensors launch
-    ``csrc/dense_bucket.cu``; CPU tensors take :func:`dense_bucket_ref`."""
+    ``csrc/dense_bucket.cu`` (#2) on f32 rows, bit for bit, and
+    ``csrc/dense_bucket_tc.cu`` (#2b, tensor cores) on f16 and bf16 rows,
+    within :func:`half_scan_tolerance`; CPU tensors take
+    :func:`dense_bucket_ref`."""
     _check_float_scan(q, rows, chunk, _DENSE_MAX_DPAD, (cc,))
     if _kernel_route(q, rows, cc):
         return dense_bucket_ref(q, rows, cc, chunk)
     (b_pad, d_pad), n = q.shape, rows.shape[0]
     gm, gi = _gm_gi(b_pad, n, chunk, q.device)
-    _launch(LAUNCHES, "dense_bucket_gm", "dense_bucket", "dense_bucket_launch",
-            _P * 5 + _IIJ + (ctypes.c_int,), q, rows, cc, gm, gi, b_pad, n, d_pad, chunk,
-            _FLOAT_CODES[rows.dtype])
+    if rows.dtype == torch.float32:
+        _launch(LAUNCHES, "dense_bucket_gm", "dense_bucket", "dense_bucket_launch", _P * 5 + _IIJ,
+                q, rows, cc, gm, gi, b_pad, n, d_pad, chunk)
+    else:
+        _launch(LAUNCHES, "dense_bucket_tc", "dense_bucket_tc", "dense_bucket_tc_launch",
+                _P * 5 + _IIJ + (ctypes.c_int,), q, rows, cc, gm, gi, b_pad, n, d_pad, chunk,
+                _FLOAT_CODES[rows.dtype])
     return gm, gi
 
 

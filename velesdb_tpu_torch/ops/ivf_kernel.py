@@ -5,9 +5,10 @@ Counterpart of ``velesdb_tpu/ops/ivf_kernel.py``. ``ivf_probe_topk``
 partition with kernel #10 and selects the top-k outside the kernel. The TPU
 kernel ``_probe_kernel`` (``:82``) walks a (query, probe) grid in order with a
 scalar-prefetched probe id choosing each partition's DMA; here the
-hand-written CUDA kernel ``csrc/ivf_probe.cu`` gives every (query, probe,
-128-row tile) its own block (:func:`ivf_probe_scores`), and
-:func:`ivf_probe_ref` is its plain version.
+hand-written CUDA kernel ``csrc/ivf_probe.cu`` sorts the probes by partition
+on the device (the schedule of :func:`probe_runs`) and reads each probed
+partition's 128-row tiles once for the group of queries that probe it
+(:func:`ivf_probe_scores`); :func:`ivf_probe_ref` is its plain version.
 
 Scoring contract, as in the reference: "maximize" orientation, euclidean
 queries doubled with ``pen = |c|^2`` (distances restored outside), cosine
@@ -48,7 +49,10 @@ __all__ = [
     "ivf_probe_scores",
     "ivf_probe_supported",
     "ivf_probe_topk",
+    "PROBE_GROUP",
+    "SCHED_RANK_MAX",
     "probe_operands",
+    "probe_runs",
 ]
 
 # The reference's dispatch rule (``:61-62``): the kernel path serves small
@@ -60,7 +64,19 @@ MAX_KERNEL_BATCH = 64  # probing only wins at small batch anyway
 # Kernel launches, counted where the CUDA kernel is launched and nowhere else.
 LAUNCHES = {"ivf_probe": 0}
 
-_MAX_DPAD = 12288  # the query row in 48 KB of shared memory
+_MAX_DPAD = 12288  # the kernel's bound on D_pad
+# Queries scored against one copy of a partition tile (``kGroup`` in
+# csrc/ivf_probe.cu). At sift1m-ivf's b 64 a partition is probed by 1.7
+# queries on average, so 8 is rarely reached; 8 also keeps three f32 tiles
+# (72 KB each) resident on an SM.
+PROBE_GROUP = 8
+# The most probes (B * nprobe) whose schedule #10 ranks on the card, one warp
+# a probe against all of them: O(M^2) work, under the ~30 small launches of
+# :func:`probe_runs` up to here. Above it the wrapper builds the schedule
+# with :func:`probe_runs` (``torch.sort``, O(M log M)); the kernel then skips
+# its ranking. The two cross between 16,384 and 32,768 probes on an H100
+# (PERF.md, Findings). At most ``kRankMax`` of csrc/ivf_probe.cu.
+SCHED_RANK_MAX = 16384
 
 
 def ivf_probe_supported(b: int, L: int, d: int, itemsize: int = 1) -> bool:
@@ -120,22 +136,66 @@ def ivf_probe_ref(q, qsum, probe, rows, aux):
     return torch.where(ok[:, :, None], s - a[:, :, 2], -torch.inf)
 
 
-def ivf_probe_scores(q, qsum, probe, rows, aux):
+def probe_runs(probe: torch.Tensor, n_parts: int, group: int = PROBE_GROUP):
+    """#10's schedule: the ``M = B * nprobe`` probes sorted by partition, on
+    the probes' device and with no host synchronization.
+
+    Returns int32 ``[M]`` tensors ``(order, spid, gsize)``: entry ``i`` is the
+    (query, probe) slot ``order[i] = b * nprobe + j`` of partition
+    ``spid[i]`` (``-1`` where the probe id is not a partition: those entries
+    are kept, as one run, and score ``-inf``). The sort key ``(pid + 1) * M +
+    slot`` is unique, so the order is deterministic: by partition, then by
+    slot. A run (the entries of one partition) is cut into groups of at most
+    ``group`` entries; ``gsize[i]`` is the size of the group starting at
+    ``i``, and 0 where no group starts."""
+    flat = probe.reshape(-1).long()
+    m = flat.numel()
+    pid = torch.where((flat >= 0) & (flat < n_parts), flat, -1)
+    key = torch.sort((pid + 1) * m + torch.arange(m, device=flat.device)).values
+    order, spid = key % m, key // m - 1
+    i = torch.arange(m, device=flat.device)
+    new = torch.ones(m, dtype=torch.bool, device=flat.device)
+    new[1:] = spid[1:] != spid[:-1]
+    last = torch.ones(m, dtype=torch.bool, device=flat.device)
+    last[:-1] = new[1:]
+    start = torch.cummax(torch.where(new, i, 0), 0).values
+    end = torch.flip(torch.cummin(torch.flip(torch.where(last, i, m - 1), (0,)), 0).values, (0,))
+    pos = i - start
+    gsize = torch.where(pos % group == 0, torch.clamp(end + 1 - i, max=group), 0)
+    return order.to(torch.int32), spid.to(torch.int32), gsize.to(torch.int32)
+
+
+def ivf_probe_scores(q, qsum, probe, rows, aux, sched=None):
     """Probed-partition scores of #10, ``[B, nprobe, L] f32``: ``q [B, D_pad]
     f32``, ``qsum [B] f32``, ``probe [B, nprobe] int32``, ``rows [P, L, W]``
     int32 SQ8 words (D_pad = 4 W) or ``[P, L, D_pad]`` f32, ``aux [P, 3, L]
     f32``. CUDA tensors launch ``csrc/ivf_probe.cu`` on the current stream
-    (or raise); CPU tensors take :func:`ivf_probe_ref`."""
+    (or raise): the schedule of :func:`probe_runs` (ranked on the card up to
+    ``SCHED_RANK_MAX`` probes, else by :func:`probe_runs`), then the scan;
+    CPU tensors take :func:`ivf_probe_ref`. ``sched``, when given, is an
+    int32 ``[3, B * nprobe]`` tensor on the probes' device that receives the
+    schedule ``(order, spid, gsize)``; else it is scratch."""
     _check_probe(q, qsum, probe, rows, aux)
-    if _kernel_route(q, qsum, probe, rows, aux):
-        return ivf_probe_ref(q, qsum, probe, rows, aux)
     (b, nprobe), (n_parts, L, width) = probe.shape, rows.shape
+    m = b * nprobe
+    if sched is not None and (sched.dtype != torch.int32 or sched.shape != (3, m)
+                              or sched.device != probe.device or not sched.is_contiguous()):
+        raise ValueError(f"sched must be a contiguous int32 [3, {m}] tensor on {probe.device}")
+    if _kernel_route(q, qsum, probe, rows, aux):
+        if sched is not None:
+            torch.stack(probe_runs(probe, n_parts), out=sched)
+        return ivf_probe_ref(q, qsum, probe, rows, aux)
+    if sched is None:
+        sched = torch.empty((3, m), dtype=torch.int32, device=q.device)
+    ready = m > SCHED_RANK_MAX  # the schedule from probe_runs, not the ranking kernel
+    if ready:
+        torch.stack(probe_runs(probe, n_parts), out=sched)
     out = torch.empty((b, nprobe, L), dtype=torch.float32, device=q.device)
     _launch(LAUNCHES, "ivf_probe", "ivf_probe", "ivf_probe_launch",
-            _P * 6 + (ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int),
-            q, qsum, probe, rows, aux, out, b, nprobe, n_parts, L, width,
-            int(rows.dtype == torch.int32))
+            _P * 7 + (ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int),
+            q, qsum, probe, rows, aux, sched, out, m, nprobe, n_parts, L, width,
+            int(rows.dtype == torch.int32), int(ready))
     return out
 
 
