@@ -6,7 +6,7 @@
 Phases, in order; any failure exits nonzero:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off, build the eleven hand-written kernels from ``velesdb_tpu_torch/csrc``
+   off, build the twelve hand-written kernels from ``velesdb_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and print their ptxas registers
    and spills.
 2. Kernels vs their plain torch versions, bit for bit (``torch.equal``),
@@ -101,6 +101,32 @@ Phases, in order; any failure exits nonzero:
    for (the honesty gate, the downshift) and must launch #10 exactly when
    it is IVF; an IVF plan returns the pinned run's ids at its ef, an exact
    one reaches the profile's bar.
+9. Slice 6, the four kernel experiments of ``benchmarks/`` as ported in
+   ``velesdb_tpu_torch/experiments/``, run in process at their scripts'
+   widths and sizes: ``exp_sq8i_v2`` (1,000,000 x 128, b 256: #7 and its
+   epilogues v2, v2h, v3, #1 on the script's per-dimension shadow, the
+   reranked engines), ``exp_hamming_mxu`` (1,200,000 x 100, b 256: #4, #5
+   at chunk 2,048 and 8,192, #1 on the bit rows, the reranked engines, the
+   two agreement lines), ``exp_topk`` (1,000,000 x 128, b 256, pchunk
+   2,048: the exact scans, #2, #2b, #8) and ``exp_gather_kernel`` (R 8,192
+   of 1,000,000 x 128, group 16: #11 at depth 1 and 2 beside ``q @
+   corpus[idx].T``), twice. The first run is the main path: every launch
+   is recorded and then held against its plain version on its own
+   arguments, bit for bit, #2b within ``half_scan_tolerance``; its timing
+   protocol is cut, batches x samples 64 x 3 -> 8 x 2 (``exp_sq8i_v2``,
+   ``exp_hamming_mxu``) and 16 x 3 -> 4 x 2 (``exp_topk``), to bound the
+   outputs kept for the holds (recorded outputs also keep the allocator
+   from reusing memory, so its times are not reported). The second run,
+   unrecorded, keeps the scripts' protocol and prints the variants' lines.
+   No width or row count is cut. The counts of each experiment's first run
+   must show every one of the ten Pallas functions'
+   counterparts launched, and each is timed at the script's shape against
+   its bound, its plain version and a library yardstick (``torch._int_mm``
+   with the variant's epilogue and the bucket ``amax``; ``q @ rows.T``;
+   ``q @ corpus[idx].T`` over distinct id sets for #11). The scripts' own
+   recall and agreement lines are checked: v1 = v0, the reranked engines at
+   recall@10 >= 0.95, #5's distances equal #4's, the exact scans and #8 at
+   1.0.
 Each configuration ends with its timing (CUDA events): QPS at b=256 and
 b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
 device path alone, the host share, then the profiler last: the device's
@@ -147,7 +173,12 @@ HARD_BLOBS = 24  # hard1m-ivf: recall@10 at ef 128 near the balanced bar of 0.95
 CHUNK = 8192
 KERNELS = ("sq8pd_bucket", "sq8i_bucket", "hamming_mxu_bucket", "hamming_bucket",
            "hamming_topk", "dense_bucket", "dense_bucket_tc", "hl_bucket", "sq8_bucket",
-           "fused_topk", "ivf_probe")
+           "fused_topk", "ivf_probe", "row_gather")
+# The experiments' timing protocol, cut to keep phase 9 near two minutes with
+# every launch held against its plain version: the scripts' 64 batches x 3
+# samples (exp_sq8i_v2, exp_hamming_mxu) and 16 x 3 (exp_topk) become these.
+EXP_ITERS, EXP_SAMPLES = 8, 2
+EXP_TOPK_ITERS, EXP_TOPK_SAMPLES = 4, 2
 # Published H100 SXM peaks (NVIDIA data sheet, dense rates, 700 W).
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1.979e15
@@ -167,6 +198,9 @@ FIRST_PROBE_MS = {"f32 b=16": 0.3428, "f32 b=64": 1.4801, "sq8 b=16": 0.1701, "s
 # 128) before half rows moved to the tensor cores (PERF.md, row #2; NVIDIA
 # H100 80GB HBM3, 700 W)
 FIRST_DENSE_MS = {256: 5.0662, 16: 1.0573}
+# #7's range before its kernel took an epilogue template parameter
+# (PERF.md, row #7; NVIDIA H100 80GB HBM3, 700 W)
+FIRST_SQ8I_MS = (1.1733, 1.1792)
 T_START = time.perf_counter()
 
 
@@ -492,6 +526,321 @@ def bound(ops_ms: float, bytes_: float) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+class Recorder:
+    """Every launch of several kernel wrappers while inside: the wrappers,
+    named by ``(module, attr)``, are wrapped to keep each call's arguments
+    and outputs; :meth:`take` hands them over and forgets them."""
+
+    def __init__(self, targets):
+        self.targets, self.calls, self.saved = targets, {}, {}
+
+    def __enter__(self):
+        for module, attr in self.targets:
+            kernel = getattr(module, attr)
+            self.saved[module, attr] = kernel
+            self.calls[attr] = []
+
+            def recorded(*args, _kernel=kernel, _calls=self.calls[attr], **kwargs):
+                out = _kernel(*args, **kwargs)
+                _calls.append((args, kwargs, out))
+                return out
+
+            setattr(module, attr, recorded)
+        return self
+
+    def take(self, attr):
+        calls = list(self.calls[attr])
+        self.calls[attr].clear()
+        return calls
+
+    def __exit__(self, *exc):
+        for (module, attr), kernel in self.saved.items():
+            setattr(module, attr, kernel)
+
+
+def time_cycle(torch, fn, args_list):
+    """Milliseconds a call of ``fn(*args)`` over ``args_list`` taken in turn
+    (distinct inputs each call, as the experiments time), CUDA events."""
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for args in args_list:
+        fn(*args)
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / len(args_list)
+
+
+def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) -> None:
+    """Phase 9: the four ported experiments at their scripts' sizes, in
+    process, with every launch recorded and then held against its plain
+    version; the counts of each experiment's run; each kernel of #11-#14
+    timed at the script's shape beside its bound, plain version and library
+    yardstick."""
+    from velesdb_tpu_torch.experiments import exp_gather_kernel, exp_hamming_mxu, exp_sq8i_v2
+    from velesdb_tpu_torch.experiments import exp_topk
+    from velesdb_tpu_torch.experiments import kernels as xk
+    from velesdb_tpu_torch.ops import bucket_kernel as bk
+    from velesdb_tpu_torch.ops import pallas_kernels as pk
+
+    targets = ((bk, "sq8i_bucket_gm"), (bk, "sq8pd_bucket_gm"), (bk, "hamming_mxu_gm"),
+               (bk, "hamming_bucket_gm"), (bk, "dense_bucket_gm"), (pk, "fused_topk_scan"),
+               (xk, "sq8i_v2_bucket_gm"), (xk, "row_gather_scores"))
+    plain = {
+        "sq8i_bucket_gm": bk.sq8i_bucket_ref, "sq8pd_bucket_gm": bk.sq8pd_bucket_gm_ref,
+        "hamming_mxu_gm": bk.hamming_mxu_ref, "hamming_bucket_gm": bk.hamming_bucket_ref,
+        "dense_bucket_gm": bk.dense_bucket_ref, "fused_topk_scan": pk.fused_topk_ref,
+        "sq8i_v2_bucket_gm": xk.sq8i_v2_bucket_ref,
+        "row_gather_scores": lambda q, corpus, idx, **_: xk.row_gather_scores_ref(q, corpus, idx),
+    }
+    held, first = {}, {}
+
+    def describe(attr, args, kwargs):
+        shapes = ", ".join(f"{tuple(a.shape)} {str(a.dtype)[6:]}" for a in args
+                           if isinstance(a, torch.Tensor))
+        extra = [a for a in args if not isinstance(a, torch.Tensor)] + list(kwargs.values())
+        return f"{attr} {shapes} {extra}"
+
+    def hold_run(rec, exp):
+        """Hold every recorded launch of one experiment's run against the
+        plain version on its own arguments; keep the first call of each
+        function for timing."""
+        for _, attr in targets:
+            for args, kwargs, out in rec.take(attr):
+                label = f"{exp} main-path launch, {describe(attr, args, kwargs)}"
+                if attr == "dense_bucket_gm" and args[1].dtype != torch.float32:
+                    err = hold_tc(label, *args, out)
+                    key = "dense_bucket_tc"
+                else:
+                    err = hold(label, out, plain[attr](*args, **kwargs))
+                    key = attr
+                if attr == "sq8i_v2_bucket_gm":
+                    key = f"sq8i_{args[5]}_bucket"
+                elif attr == "row_gather_scores":
+                    key = "row_gather" if kwargs.get("stages", 1) == 1 else "row_gather_db"
+                held[exp, key] = max(held.get((exp, key), 0.0), err)
+                first.setdefault((exp, key), []).append((args, kwargs))
+
+    protocol = (exp_sq8i_v2.ITERS, exp_sq8i_v2.SAMPLES)  # the scripts' own, 64 x 3
+
+    def experiments(held):
+        """The four runs, each ``(name, results)`` as it ends; cut to
+        ``EXP_*`` batches and samples where every launch is held."""
+        iters, samples = (EXP_ITERS, EXP_SAMPLES) if held else protocol
+        exp_sq8i_v2.ITERS, exp_sq8i_v2.SAMPLES = iters, samples
+        exp_hamming_mxu.ITERS, exp_hamming_mxu.SAMPLES = iters, samples
+        topk_argv = ["--variants", ",".join(exp_topk.PORTED)] + (
+            ["--iters", str(EXP_TOPK_ITERS), "--samples", str(EXP_TOPK_SAMPLES)] if held else [])
+        for exp, run in (("exp_sq8i_v2", lambda: exp_sq8i_v2.main([])),
+                         ("exp_hamming_mxu", lambda: exp_hamming_mxu.main([])),
+                         ("exp_topk", lambda: exp_topk.main(topk_argv)),
+                         ("exp_gather_kernel", lambda: exp_gather_kernel.main([]))):
+            yield exp, run()
+
+    # the main path: every launch recorded (its outputs kept until held, so
+    # the allocator cannot reuse them: this run's times are not the answer)
+    runs, counts = {}, {}
+    with Recorder(targets) as rec:
+        for launch_counts in counters:
+            for key in launch_counts:
+                launch_counts[key] = 0
+        before = {key: 0 for c in counters for key in c}
+        t0 = time.perf_counter()
+        for exp, out in experiments(held=True):
+            torch.cuda.synchronize()
+            runs[exp] = out
+            counts[exp] = {key: n - before[key] for c in counters for key, n in c.items()
+                           if n > before[key]}
+            before = {key: n for c in counters for key, n in c.items()}
+            say(f"{exp} (held run): {time.perf_counter() - t0:.2f} s; launches "
+                + ", ".join(f"{k} {n}" for k, n in counts[exp].items()))
+            hold_run(rec, exp)
+            t0 = time.perf_counter()
+    print("experiments: every launch above held against its plain version; the timed run "
+          "follows, unrecorded, at the scripts' own protocol", flush=True)
+    timed = {exp: out for exp, out in experiments(held=False)}
+
+    # what comes out is right: the scripts' own agreement and recall lines
+    r = {k: v["recall"] for k, v in runs["exp_sq8i_v2"]["results"].items()}
+    check(r["v1"] == r["v0"], f"exp_sq8i_v2: v1 recall {r['v1']} != v0's {r['v0']} (one function)")
+    check(abs(r["v2"] - r["v0"]) <= 0.01, f"exp_sq8i_v2: v2 recall {r['v2']} far from v0's")
+    check(min(r["a16"], r["a16v2"], r["a16v5"], r["a32v5"]) >= 0.95,
+          f"exp_sq8i_v2: a reranked engine under 0.95 recall@10: {r}")
+    agree = runs["exp_hamming_mxu"]["agreement"]
+    check(agree["hm"]["max_abs_dist"] == 0.0, f"exp_hamming_mxu: #5 and #4 disagree: {agree}")
+    hr = {k: v["recall"] for k, v in runs["exp_hamming_mxu"]["results"].items()}
+    check(hr["h0r"] == hr["hmr"], f"exp_hamming_mxu: h0r and hmr recall differ: {hr}")
+    tr = {k: v["recall"] for k, v in runs["exp_topk"]["results"].items()}
+    check(tr["scan_exact"] == tr["scan_approx"] == tr["pallas"] == 1.0,
+          f"exp_topk: an exact variant missed: {tr}")
+    check(tr["bucket"] == tr["bucket_approx"] >= 0.95, f"exp_topk: bucket recall {tr}")
+    gr = runs["exp_gather_kernel"]["results"]
+    for name in ("row-gather", "row-gather double-buffered"):
+        check(gr[name]["max_abs_err_vs_baseline"] <= 1e-3,
+              f"exp_gather_kernel: {name} far from q @ corpus[idx].T: {gr[name]}")
+    print("experiments: timed run's results " + json.dumps(timed), flush=True)
+
+    # every one of the ten Pallas functions' counterparts ran in its run
+    rows = {  # row -> (experiment, counter, source, replaced function)
+        "sq8i_bucket_v1": ("exp_sq8i_v2", "sq8i_bucket_gm", "sq8i_bucket.cu",
+                           "benchmarks/exp_sq8i_v2.py:77"),
+        "sq8i_v2_bucket": ("exp_sq8i_v2", "sq8i_v2_bucket", "sq8i_bucket.cu",
+                           "benchmarks/exp_sq8i_v2.py:92"),
+        "sq8i_v2h_bucket": ("exp_sq8i_v2", "sq8i_v2h_bucket", "sq8i_bucket.cu",
+                            "benchmarks/exp_sq8i_v2.py:108"),
+        "sq8i_v3_bucket": ("exp_sq8i_v2", "sq8i_v3_bucket", "sq8i_bucket.cu",
+                           "benchmarks/exp_sq8i_v2.py:126"),
+        "sq8pd_bucket_v5": ("exp_sq8i_v2", "sq8pd_bucket_gm", "sq8pd_bucket.cu",
+                            "benchmarks/exp_sq8i_v2.py:144"),
+        "dense_bucket_exp_topk": ("exp_topk", "dense_bucket_gm", "dense_bucket.cu",
+                                  "benchmarks/exp_topk.py:193"),
+        "dense_bucket_tc_exp_topk": ("exp_topk", "dense_bucket_tc", "dense_bucket_tc.cu",
+                                     "benchmarks/exp_topk.py:193"),
+        "hamming_mxu_bucket_hm": ("exp_hamming_mxu", "hamming_mxu_gm", "hamming_mxu_bucket.cu",
+                                  "benchmarks/exp_hamming_mxu.py:66"),
+        "sq8pd_bucket_hme": ("exp_hamming_mxu", "sq8pd_bucket_gm", "sq8pd_bucket.cu",
+                             "benchmarks/exp_hamming_mxu.py:125"),
+        "row_gather": ("exp_gather_kernel", "row_gather", "row_gather.cu",
+                       "benchmarks/exp_gather_kernel.py:103"),
+        "row_gather_db": ("exp_gather_kernel", "row_gather_db", "row_gather.cu",
+                          "benchmarks/exp_gather_kernel.py:155"),
+    }
+    for name, (exp, counter, _, _) in rows.items():
+        check(counts[exp].get(counter, 0) > 0, f"{exp} did not launch {counter} ({name})")
+        launches[name] = counts[exp][counter]
+    print("experiments: each of the ten Pallas functions' counterparts launched in its run: "
+          + ", ".join(f"{n} {launches[n]}" for n in rows), flush=True)
+
+    def call_of(exp, key, pick=lambda args, kwargs: True):
+        return next((a, k) for a, k in first[exp, key] if pick(a, k))
+
+    # #12 at B_pad 256, N 1,048,576, D_pad 128, chunk 8192
+    (qi, rows8, scale, am, pen, sqi, invqs, chunk), _ = call_of("exp_sq8i_v2", "sq8i_bucket_gm")
+    b_pad, d_pad = qi.shape
+    n = rows8.shape[0]
+    nb = n // chunk * 128
+    base_bytes = b_pad * d_pad + n * d_pad + 8 * b_pad * nb
+    int_ms = 2 * b_pad * n * d_pad / PEAK_INT8 * 1e3
+    args7 = (qi, rows8, scale, am, pen, sqi, invqs, chunk)
+    kernel_row("sq8i_bucket_v1", "sq8i_bucket.cu", rows["sq8i_bucket_v1"][3],
+               time_kernel(torch, lambda: bk.sq8i_bucket_gm(*args7)),
+               time_kernel(torch, lambda: bk.sq8i_bucket_ref(*args7), iters=5),
+               int_ms + 6 * b_pad * n / PEAK_F32 * 1e3, base_bytes + 12 * n + 8 * b_pad,
+               0.0, ("dp4a", b_pad * n * d_pad / 4, dp4a_rate),
+               library_ms=time_kernel(torch, lambda: bucket_max(
+                   torch._int_mm(qi, rows8.T).float() * scale + sqi[:, None] * am
+                   - invqs[:, None] * pen, chunk)))
+    for variant in ("v2", "v2h", "v3"):
+        name = f"sq8i_{variant}_bucket"
+        (qi, rows8, aux, qaux, chunk, _), _ = call_of("exp_sq8i_v2", name)
+        vargs = (qi, rows8, aux, qaux, chunk, variant)
+        if variant == "v3":
+            ops_ms, extra = int_ms, 0
+
+            def lib(qi=qi, rows8=rows8, chunk=chunk):
+                return bucket_max(torch._int_mm(qi, rows8.T), chunk)
+        else:
+            item = aux.element_size()
+            ops_ms, extra = int_ms + 5 * b_pad * n / PEAK_F32 * 1e3, 3 * item * n + 2 * item * b_pad
+            if variant == "v2":
+                def lib(qi=qi, rows8=rows8, aux=aux, qaux=qaux, chunk=chunk):
+                    corr = qaux[:, 1:2] * aux[1] + qaux[:, 2:3] * aux[2]
+                    dot = torch._int_mm(qi, rows8.T).float()
+                    return bucket_max(dot * aux[0] + corr, chunk)
+            else:
+                def lib(qi=qi, rows8=rows8, aux=aux, qaux=qaux, chunk=chunk):
+                    corr = qaux[:, 1:2] * aux[1] + qaux[:, 2:3] * aux[2]
+                    dot = torch._int_mm(qi, rows8.T).to(torch.bfloat16)
+                    return bucket_max(dot * aux[0] + corr, chunk)
+        kernel_row(name, "sq8i_bucket.cu", rows[name][3],
+                   time_kernel(torch, lambda: xk.sq8i_v2_bucket_gm(*vargs)),
+                   time_kernel(torch, lambda: xk.sq8i_v2_bucket_ref(*vargs), iters=5),
+                   ops_ms, base_bytes + extra, held["exp_sq8i_v2", name],
+                   ("dp4a", b_pad * n * d_pad / 4, dp4a_rate), library_ms=time_kernel(torch, lib))
+    say("#12 library yardsticks: torch._int_mm(qi, rows8.T), the variant's epilogue (v2h in "
+        "bf16 tensors), then the bucket amax; the v2/v2h bounds count 5 epilogue flops per "
+        "(query, row) at the fp32 rate (v2h rounds each fp32 result to bf16), v3 none")
+
+    def pd_row(name, exp, pick):
+        (qi, rows_pd, ptile, chunk), _ = call_of(exp, "sq8pd_bucket_gm", pick)
+        b_pad, d_pad = qi.shape
+        n = rows_pd.shape[0]
+        kernel_row(name, "sq8pd_bucket.cu", rows[name][3],
+                   time_kernel(torch, lambda: bk.sq8pd_bucket_gm(qi, rows_pd, ptile, chunk)),
+                   time_kernel(torch, lambda: bk.sq8pd_bucket_gm_ref(qi, rows_pd, ptile, chunk),
+                               iters=5),
+                   2 * b_pad * n * d_pad / PEAK_INT8 * 1e3,
+                   qi.numel() + rows_pd.numel() + 4 * n + 4 * b_pad * n // chunk * 128,
+                   held[exp, "sq8pd_bucket_gm"], ("dp4a", b_pad * n * d_pad / 4, dp4a_rate),
+                   library_ms=time_kernel(torch, lambda: bucket_max(
+                       torch._int_mm(qi, rows_pd.T) * 64 + ptile, chunk)))
+        return n, chunk
+
+    pd_row("sq8pd_bucket_v5", "exp_sq8i_v2", lambda a, k: a[0].shape[0] >= 256)
+    n_h, c_h = pd_row("sq8pd_bucket_hme", "exp_hamming_mxu",
+                      lambda a, k: a[3] == 2048 and a[0].shape[0] >= 256)
+    say(f"#1 at the experiments' shapes: _k_v5 on the per-dimension shadow (N 1,048,576, chunk "
+        f"8192), _k_hme on the bit rows (N {n_h}, chunk {c_h}); library yardstick "
+        "torch._int_mm * 64 + ptile, then the bucket amax")
+
+    (qi, bits, aux, chunk), _ = call_of("exp_hamming_mxu", "hamming_mxu_gm",
+                                        lambda a, k: a[3] == 2048 and a[0].shape[0] >= 256)
+    b_pad, d_pad = qi.shape
+    n = bits.shape[0]
+    kernel_row("hamming_mxu_bucket_hm", "hamming_mxu_bucket.cu", rows["hamming_mxu_bucket_hm"][3],
+               time_kernel(torch, lambda: bk.hamming_mxu_gm(qi, bits, aux, chunk)),
+               time_kernel(torch, lambda: bk.hamming_mxu_ref(qi, bits, aux, chunk), iters=5),
+               2 * b_pad * n * d_pad / PEAK_INT8 * 1e3,
+               qi.numel() + bits.numel() + 4 * n + 8 * b_pad * n // chunk * 128,
+               held["exp_hamming_mxu", "hamming_mxu_gm"],
+               ("dp4a", b_pad * n * d_pad / 4, dp4a_rate),
+               library_ms=time_kernel(torch, lambda: bucket_max(
+                   torch._int_mm(qi, bits.T) - aux, chunk)))
+
+    for name, key in (("dense_bucket_exp_topk", "dense_bucket_gm"),
+                      ("dense_bucket_tc_exp_topk", "dense_bucket_tc")):
+        (q2, corp, cc, chunk), _ = call_of("exp_topk", key, lambda a, k: a[0].shape[0] >= 256)
+        b_pad, d = q2.shape
+        n = corp.shape[0]
+        ops = 2 * b_pad * n * d + b_pad * n
+        half = corp.dtype != torch.float32
+        plain_fn = (lambda: bk.half_scan_tolerance(q2, corp, cc, chunk)) if half else (
+            lambda: bk.dense_bucket_ref(q2, corp, cc, chunk))
+        lib = (lambda: bucket_max(mm_f32(torch, q2, corp.T) - cc, chunk)) if half else (
+            lambda: bucket_max(q2 @ corp.T - cc, chunk))
+        kernel_row(name, rows[name][2], rows[name][3],
+                   time_kernel(torch, lambda: bk.dense_bucket_gm(q2, corp, cc, chunk)),
+                   time_kernel(torch, plain_fn, iters=2),
+                   ops / (PEAK_TC16 if half else PEAK_F32) * 1e3,
+                   q2.numel() * q2.element_size() + corp.numel() * corp.element_size() + 4 * n
+                   + 8 * b_pad * n // chunk * 128,
+                   held["exp_topk", key], library_ms=time_kernel(torch, lib))
+    say("#13 at exp_topk's shape (B 256, N 1,048,576, D 128, pchunk 2048): #2 on the f32 rows, "
+        "#2b on the bf16 rows, both on the doubled queries; library yardstick q @ rows.T (bf16: "
+        f"{MM_F32['how']}) - |c|^2, then the bucket amax")
+
+    calls = first["exp_gather_kernel", "row_gather"]
+    (q, corpus, _), kw = calls[0]
+    idx_sets = [(a[2],) for a, _ in calls[1:]] or [(calls[0][0][2],)]
+    r, d = idx_sets[0][0].shape[0], q.shape[1]
+    for name, stages in (("row_gather", 1), ("row_gather_db", 2)):
+        kernel_row(name, "row_gather.cu", rows[name][3],
+                   time_cycle(torch, lambda ix, s=stages: xk.row_gather_scores(
+                       q, corpus, ix, group=kw.get("group", 16), stages=s), idx_sets),
+                   time_cycle(torch, lambda ix: xk.row_gather_scores_ref(q, corpus, ix),
+                              idx_sets[:8]),
+                   2 * 8 * r * d / PEAK_F32 * 1e3, r * d * 4 + r * 4 + 8 * r * 4 + 8 * d * 4,
+                   held["exp_gather_kernel", name],
+                   library_ms=time_cycle(torch, lambda ix: q @ corpus[ix.long()].T, idx_sets))
+    say(f"#11 at R {r}, D {d}, N {corpus.shape[0]}, group {kw.get('group', 16)}, timed over "
+        f"{len(idx_sets)} distinct id sets (cold rows, as the experiment times): a launch of a "
+        "few us is most of it; library yardstick q @ corpus[idx.long()].T")
+    for name in rows:
+        errs[name] = held.get((rows[name][0], rows[name][1]), errs.get(name, 0.0))
+
+
 def main() -> None:
     global CARD
     here = os.path.dirname(os.path.abspath(__file__))
@@ -527,6 +876,7 @@ def main() -> None:
     from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
     from velesdb_tpu_torch.ops.quantization import (
         binary_quantize,
+        binary_unpack,
         sq8_pack_blocked,
         sq8_quantize,
         sq8_unpack_blocked,
@@ -534,7 +884,9 @@ def main() -> None:
 
     F = torch.nn.functional
 
-    counters = (bk.LAUNCHES, pk.LAUNCHES, ik.LAUNCHES)
+    from velesdb_tpu_torch.experiments import kernels as xk
+
+    counters = (bk.LAUNCHES, pk.LAUNCHES, ik.LAUNCHES, xk.LAUNCHES)
     t0 = time.perf_counter()
     _cuda.build_all(KERNELS)
     say(f"build {len(KERNELS)} kernels in parallel: {time.perf_counter() - t0:.2f} s wall "
@@ -998,6 +1350,10 @@ def main() -> None:
         )
         say("sq8i_bucket library yardstick: torch._int_mm(qi, rows8.T), the affine epilogue, "
             "then the bucket amax")
+        lo, hi = FIRST_SQ8I_MS
+        say(f"sq8i_bucket (#7, its entry beside the epilogue variants): {ms:.4f} ms against "
+            f"{lo}-{hi} ms before the epilogue template (PERF.md, row #7): "
+            + ("within 3%" if lo / 1.03 <= ms <= hi * 1.03 else "OUTSIDE 3% of that range"))
         del out, args
 
         with MainPath(counters, bk, "sq8i_bucket_gm", "sq8i_bucket_gm") as run:
@@ -1744,12 +2100,22 @@ def main() -> None:
         plain = time_kernel(torch, lambda: bk.hamming_bucket_ref(qpb, idx._packed, pen0,
                                                                  bk.HAMMING_CHUNK), iters=3)
         w = idx._packed.shape[1]
+        # the same distances from the unpacked 0/1 bytes (set-up, not timed):
+        # popc(q ^ c) = |q| + |c| - 2 q.c
+        qsum = (qi2 // 2).to(torch.int32).sum(1)
+        csum = idx._ham_bits.to(torch.int32).sum(1)
+        lib = time_kernel(torch, lambda: bucket_max(
+            -(qsum[:, None] + csum - torch._int_mm(qi2, idx._ham_bits.T)).float() - pen0,
+            bk.HAMMING_CHUNK))
         kernel_row(
             "hamming_bucket", "hamming_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:362",
             ms, plain, 256 * n * w / popc_rate * 1e3,
             4 * 256 * w + 4 * n * w + 4 * n + 8 * 256 * n // bk.HAMMING_CHUNK * 128,
-            errs["hamming_bucket"], ("popc", 256 * n * w, popc_rate),
+            errs["hamming_bucket"], ("popc", 256 * n * w, popc_rate), library_ms=lib,
         )
+        say("hamming_bucket library yardstick: |q| + |c| - torch._int_mm(2 qbits, bits.T) on the "
+            "unpacked 0/1 bytes, the penalty, then the bucket amax")
+        del csum
         del out, qi2, qpb
 
         def hamming_profile(label, queries, device_ids, device_vals):
@@ -1853,12 +2219,22 @@ def main() -> None:
         plain = time_kernel(torch, lambda: pk.hamming_topk_ref(sq_pk, idx._packed, idx._valid, K),
                             iters=5)
         n, w = idx.n_pad, idx._packed.shape[1]
+        # the same distances from the unpacked 0/1 bytes (set-up, not timed)
+        bits9 = binary_unpack(idx._packed, 32 * w).to(torch.int8)
+        qb9 = binary_unpack(sq_pk, 32 * w).to(torch.int8)
+        c9, q9 = bits9.to(torch.int32).sum(1), qb9.to(torch.int32).sum(1)
+        far = torch.where(idx._valid, 0, 1 << 20).to(torch.int32)
+        lib = time_kernel(torch, lambda: torch.topk(
+            q9[:, None] + (c9 + far) - 2 * torch._int_mm(qb9, bits9.T), K, dim=1, largest=False))
         kernel_row(
             "hamming_topk", "hamming_topk.cu", "velesdb_tpu/ops/pallas_kernels.py:317",
             ms, plain, 256 * int(idx._valid.sum()) * w / popc_rate * 1e3,
             4 * 256 * w + 4 * n * w + n + 12 * 256 * K,
-            errs["hamming_topk"], ("popc", 256 * B100K_N * w, popc_rate),
+            errs["hamming_topk"], ("popc", 256 * B100K_N * w, popc_rate), library_ms=lib,
         )
+        say("hamming_topk library yardstick: |q| + |c| - 2 torch._int_mm(qbits, bits.T) on the "
+            "unpacked 0/1 bytes, invalid rows pushed past every distance, then torch.topk")
+        del bits9, qb9
         with MainPath(counters, brute_mod, "hamming_topk", "hamming_topk") as run:
             s256 = cols.search_batch(small_q[:256], k=K)
             run.launched("search_batch b=256")
@@ -1974,13 +2350,18 @@ def main() -> None:
         db.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- 9. slice 6: the four kernel experiments (#11-#14) ---------------------
+    phase("9. experiments")
+    experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate)
 
     say(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for name in KERNELS:
-        record[name]["launches"] = launches[name]
-        record[name]["max_abs_err"] = errs[name]
+    for name, row in record.items():
+        row["launches"] = launches[name]
+        row["max_abs_err"] = errs[name]
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s", flush=True)
-    print(json.dumps({"kernels": [record[name] for name in KERNELS]}), flush=True)
+    print(json.dumps({"kernels": list(record.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

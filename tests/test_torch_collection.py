@@ -126,12 +126,18 @@ def test_port_never_imports_jax(tmp_path):
         import velesdb_tpu_torch.ops.pallas_kernels, velesdb_tpu_torch.index.params
         import velesdb_tpu_torch.index.ivf, velesdb_tpu_torch.ops.ivf_kernel
         import velesdb_tpu_torch.velesql.planner
+        import velesdb_tpu_torch.experiments, velesdb_tpu_torch.experiments.kernels
+        import velesdb_tpu_torch.experiments._common
+        import velesdb_tpu_torch.experiments.exp_sq8i_v2, velesdb_tpu_torch.experiments.exp_topk
+        import velesdb_tpu_torch.experiments.exp_hamming_mxu
+        import velesdb_tpu_torch.experiments.exp_gather_kernel
         x = np.random.default_rng(1).standard_normal((3000, 16)).astype(np.float32)
         v = db.create_collection("v", 16, metric="euclidean")
         v.upsert_bulk(range(3000), x)
         v.index_kind = "ivf"
         assert v.search(x[9], k=3)[0].id == 9 and not v.ivf.dirty
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        assert not [m for m in sys.modules if m.split(".")[0] == "velesdb_tpu"]
         print("no-jax-ok")
         """
     )

@@ -181,8 +181,8 @@ def _hamming_rerank_topk(queries, packed_q, packed_corpus, penalty, corpus, *, k
     """The reference's ``hamming_rerank_topk`` (cosine) composed from the
     port's parts: the packed scan (#4) keeps ``m`` coarse winners per query,
     which are gathered from the f32 ``corpus`` and rescored in fp32 over
-    their norms. The port serves binary collections with a host rerank
-    instead, so this composition lives here and not in the package."""
+    their norms, as the reference does for rows of any norm (the package's
+    ``hamming_rerank_topk`` expects pre-normalized cosine rows)."""
     _, ci = tbk.hamming_bucket_topk(packed_q, packed_corpus, penalty, k=m, chunk=chunk)
     cand = corpus[ci.clamp_min(0)].float()  # [B, m, D]
     qn = queries / torch.linalg.norm(queries, dim=1, keepdim=True)

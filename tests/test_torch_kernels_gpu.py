@@ -753,3 +753,98 @@ def test_probe_and_bucket_kernels_do_not_synchronize(cuda):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# -- slice 6: the experiments' kernels, #12's epilogues and the row gather #11
+
+import velesdb_tpu_torch.experiments.kernels as xk  # noqa: E402
+
+
+def _v2_inputs(cuda, rng, b, n, dead_chunk):
+    """#7's euclidean state with 15% of rows at pen = +inf (and, with
+    ``dead_chunk``, the first 8,192 rows, so some buckets are all -inf), as
+    the experiment packs it: ``aux [8, N]`` and ``qaux [B_pad, 8]``."""
+    qi, rows8, scale, am, pen, sqi, invqs = _sq8i_inputs(cuda, rng, b, 128, n, "euclidean")
+    if dead_chunk:
+        pen = pen.clone()
+        pen[:8192] = torch.inf
+    aux = torch.zeros((8, n), device=cuda)
+    aux[0], aux[1], aux[2] = scale, am, pen
+    qaux = torch.zeros((qi.shape[0], 8), device=cuda)
+    qaux[:, 1], qaux[:, 2] = sqi, -invqs
+    return qi, rows8, aux, qaux
+
+
+@pytest.mark.parametrize("variant", ["v2", "v2h", "v3"])
+@pytest.mark.parametrize("b,n", [(1, 65_536), (13, 131_072), (256, 65_536)])
+def test_sq8i_v2_epilogues_equal_plain(cuda, variant, b, n):
+    qi, rows8, aux, qaux = _v2_inputs(cuda, np.random.default_rng(b), b, n, dead_chunk=b != 1)
+    if variant == "v2h":
+        aux, qaux = aux.to(torch.bfloat16), qaux.to(torch.bfloat16)
+    elif variant == "v3":
+        aux = qaux = None
+    before = xk.LAUNCHES[f"sq8i_{variant}_bucket"]
+    gm, gi = xk.sq8i_v2_bucket_gm(qi, rows8, aux, qaux, 8192, variant)
+    torch.cuda.synchronize()
+    assert xk.LAUNCHES[f"sq8i_{variant}_bucket"] == before + 1
+    rm, ri = xk.sq8i_v2_bucket_ref(qi, rows8, aux, qaux, 8192, variant)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+    if variant != "v3" and b != 1:
+        assert bool(torch.isneginf(gm[:, :128]).all())  # the dead chunk's buckets
+
+
+def test_sq8i_own_entry_unchanged_beside_the_epilogues(cuda):
+    """#7's entry, instantiated from the same templated kernel as the
+    epilogues, still equals its plain version at the serve shape."""
+    args = _sq8i_inputs(cuda, np.random.default_rng(3), 256, 128, 131_072, "euclidean")
+    gm, gi = bk.sq8i_bucket_gm(*args, 8192)
+    rm, ri = bk.sq8i_bucket_ref(*args, 8192)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+def test_sq8i_v2_refuses_bad_input(cuda):
+    qi = torch.zeros((8, 128), dtype=torch.int8, device=cuda)
+    rows = torch.zeros((1024, 128), dtype=torch.int8, device=cuda)
+    aux = torch.zeros((8, 1024), device=cuda)
+    qaux = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        xk.sq8i_v2_bucket_gm(qi, rows, aux, qaux, 512, "v4")
+    with pytest.raises(TypeError):
+        xk.sq8i_v2_bucket_gm(qi, rows, aux, qaux, 512, "v2h")
+    with pytest.raises(ValueError):
+        xk.sq8i_v2_bucket_gm(qi, rows, aux[:2], qaux, 512, "v2")
+    with pytest.raises(ValueError):
+        xk.sq8i_v2_bucket_gm(qi, rows.cpu(), None, None, 512, "v3")
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("r,group", [(8192, 16), (1000, 64), (77, 7), (1, 16)])
+def test_row_gather_equals_plain(cuda, stages, r, group):
+    """R not a multiple of the kernel's 64-row tile, repeated ids and the
+    last row, bit for bit against the fixed-order plain version."""
+    rng = np.random.default_rng(r)
+    n, d = 100_000, 128
+    corpus = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((8, d)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, r, dtype=np.int32)).to(cuda)
+    idx[: min(r, 3)] = n - 1
+    idx[-min(r, 2):] = idx[:min(r, 2)].clone()
+    counter = "row_gather" if stages == 1 else "row_gather_db"
+    before = xk.LAUNCHES[counter]
+    out = xk.row_gather_scores(q, corpus, idx, group=group, stages=stages)
+    torch.cuda.synchronize()
+    assert xk.LAUNCHES[counter] == before + 1
+    assert torch.equal(out, xk.row_gather_scores_ref(q, corpus, idx))
+
+
+def test_row_gather_out_of_range_ids_score_nan(cuda):
+    corpus = torch.ones((1000, 32), device=cuda)
+    q = torch.ones((8, 32), device=cuda)
+    idx = torch.tensor([0, 1000, -1, 999], dtype=torch.int32, device=cuda)
+    out = xk.row_gather_scores(q, corpus, idx, group=2, stages=2)
+    assert torch.equal(torch.isnan(out[0]).cpu(), torch.tensor([False, True, True, False]))
+    assert float(out[0, 0]) == 32.0
+    with pytest.raises(ValueError):
+        xk.row_gather_scores(q, corpus, idx, group=65)
+    with pytest.raises(ValueError):
+        xk.row_gather_scores(q[:4], corpus, idx)

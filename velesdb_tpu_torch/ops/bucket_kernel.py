@@ -86,9 +86,11 @@ __all__ = [
     "hamming_mxu_gm",
     "hamming_mxu_ref",
     "hamming_mxu_topk",
+    "hamming_mxu_rerank_topk",
     "hamming_bucket_gm",
     "hamming_bucket_ref",
     "hamming_bucket_topk",
+    "hamming_rerank_topk",
     "sq8pd_build",
     "sq8pd_ptile",
     "sq8pd_bucket_gm",
@@ -684,6 +686,15 @@ def hamming_mxu_topk(qbits, rows_bits, aux, *, k, chunk):
     return dist, torch.where(empty, -1, idx)
 
 
+def hamming_mxu_rerank_topk(queries, qbits, rows_bits, aux, corpus, *, k, m, metric, chunk):
+    """Bit-plane Hamming coarse scan (#5) for ``m`` candidates, then the exact
+    f32 rerank from the resident ``corpus`` (reference ``:576``); cosine
+    expects pre-normalized rows. Returns metric-native ``(vals [B, k], ids
+    [B, k] int64)``."""
+    _, ci = hamming_mxu_topk(qbits, rows_bits, aux, k=m, chunk=chunk)
+    return _exact_rerank_tail(queries, corpus, ci, k=k, metric=DistanceMetric.parse(metric))
+
+
 # ---------------------------------------------------------------------------
 # #4: packed XOR + popcount bucket scan (reference ``_hamming_kernel`` :362,
 # ``hamming_bucket_topk`` :377). The reference pads W to 128 words (a TPU lane
@@ -756,6 +767,17 @@ def hamming_bucket_topk(packed_q, packed_corpus, penalty, *, k, chunk=HAMMING_CH
     gm, gi = hamming_bucket_gm(q, packed_corpus, penalty, chunk)
     vals, idx = _final_select(gm, gi, k, b)
     return torch.where(idx < 0, torch.inf, -vals), idx
+
+
+def hamming_rerank_topk(queries, packed_q, packed_corpus, penalty, corpus, *, k, m, metric,
+                        chunk=HAMMING_CHUNK):
+    """Packed-Hamming coarse scan (#4) for ``m`` candidates, then the exact
+    f32 rerank from the resident ``corpus`` (reference ``:429``). Cosine
+    expects pre-normalized rows: the reference divides each candidate's dot
+    by its norm, which is the same there. Returns metric-native ``(vals [B,
+    k], ids [B, k] int64)``."""
+    _, ci = hamming_bucket_topk(packed_q, packed_corpus, penalty, k=m, chunk=chunk)
+    return _exact_rerank_tail(queries, corpus, ci, k=k, metric=DistanceMetric.parse(metric))
 
 
 # ---------------------------------------------------------------------------
