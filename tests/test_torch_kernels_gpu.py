@@ -371,8 +371,13 @@ def test_dense_bucket_tc_wide_rows_take_smaller_query_tiles(cuda):
 
 @pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
 @pytest.mark.parametrize("b,d,n,chunk", [(13, 100, 131_072, 8192), (256, 128, 65_536, 8192),
-                                         (8, 48, 4096, 512)])
+                                         (8, 48, 4096, 512), (200, 128, 65_536, 8192),
+                                         (40, 1536, 8192, 1024)])
 def test_hl_bucket_kernel_equals_plain(cuda, metric, b, d, n, chunk):
+    """#3 (the split mode of the tensor-core bucket scan) within
+    ``split_scan_tolerance`` of its plain version: B 13 -> 16, 40 and 200
+    (query tiles of 128 with a part-filled last one), D 48 and 100 padded,
+    D_pad 1,536 (the cap: 16-query tiles), 15% knocked-out rows."""
     q, rows, cc, _ = _float_inputs(cuda, np.random.default_rng(d + b + 1), b, d, n, metric)
     qhi, qlo = bk.split_f32_rows(q)
     hi, lo = bk.split_f32_rows(rows)
@@ -380,8 +385,19 @@ def test_hl_bucket_kernel_equals_plain(cuda, metric, b, d, n, chunk):
     gm, gi = bk.hl_bucket_gm(qhi, qlo, hi, lo, cc, chunk)
     torch.cuda.synchronize()
     assert bk.LAUNCHES["hl_bucket_gm"] == before + 1
-    rm, ri = bk.hl_bucket_ref(qhi, qlo, hi, lo, cc, chunk)
-    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+    assert gm.shape == gi.shape == (q.shape[0], n // chunk * 128)
+    worst, _, _ = bk.split_scan_error(qhi, qlo, hi, lo, cc, chunk, gm, gi)
+    assert worst <= 1.0, worst
+
+
+def test_hl_bucket_kernel_all_rows_knocked_out(cuda):
+    """Every bucket ``-inf`` on its slice-0 row, as the plain version."""
+    q, rows, _, _ = _float_inputs(cuda, np.random.default_rng(3), 16, 128, 16_384, "dot_product")
+    cc = torch.full((16_384,), torch.inf, device=cuda)
+    args = (*bk.split_f32_rows(q), *bk.split_f32_rows(rows), cc, 8192)
+    gm, gi = bk.hl_bucket_gm(*args)
+    rm, ri = bk.hl_bucket_ref(*args)
+    assert bool(torch.isneginf(gm).all()) and torch.equal(gi, ri)
 
 
 @pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
@@ -413,8 +429,13 @@ def test_sq8_bucket_kernel_equals_plain(cuda, metric, b, d, n, chunk):
 @pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
 @pytest.mark.parametrize("b,d,n,k", [(13, 100, 131_072, 10), (1, 768, 5000, 1),
                                      (16, 128, 20_000, 100), (9, 64, 3000, 1024),
-                                     (3, 32, 100, 50)])
+                                     (3, 32, 100, 50), (70, 128, 5000, 1),
+                                     (20, 128, 3000, 1024), (130, 768, 9000, 10)])
 def test_fused_topk_kernel_equals_plain(cuda, dtype, metric, b, d, n, k):
+    """#8 within ``fused_topk_tolerance`` of its plain version on f32, f16
+    and bf16 rows: B 70 and 130 (not multiples of the 64-query tile), k 1
+    to 1,024 (query tiles of 64 down to 8), N not a multiple of the
+    1,024-row range, 15% invalid rows."""
     rng = np.random.default_rng(n + k)
     x = torch.from_numpy(_clustered(rng, n + b, d)).to(cuda)
     q = x[n:]
@@ -432,13 +453,25 @@ def test_fused_topk_kernel_equals_plain(cuda, dtype, metric, b, d, n, k):
     vals, idx = pk.fused_topk_scan(q, rows, valid, aux, qq, k, metric)
     torch.cuda.synchronize()
     assert pk.LAUNCHES["fused_topk"] == before + 1
-    rv, ri = pk.fused_topk_ref(q, rows, valid, aux, qq, k, metric)
-    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+    worst, _, _ = pk.fused_topk_error(q, rows, valid, aux, qq, k, metric, vals, idx)
+    assert worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES)
+def test_fused_topk_kernel_all_rows_invalid(cuda, dtype):
+    """No valid row: every slot empty (-inf, id -1), as the plain version."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(_clustered(rng, 3000 + 5, 128)).to(cuda)
+    q, rows = x[3000:].contiguous(), x[:3000].to(dtype).contiguous()
+    valid = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    aux, qq = (rows.float() ** 2).sum(1), (q * q).sum(1)
+    vals, idx = pk.fused_topk_scan(q, rows, valid, aux, qq, 10, "euclidean")
+    assert bool((idx == -1).all()) and bool(torch.isneginf(vals).all())
 
 
 def test_fused_topk_kernel_slices_the_batch_to_its_scratch(cuda, monkeypatch):
     """Past ``FUSED_SCRATCH_BYTES`` the batch launches in slices of 8 queries,
-    with the same result as one launch."""
+    each within the tolerance of the plain version."""
     monkeypatch.setattr(pk, "FUSED_SCRATCH_BYTES", 1)
     rng = np.random.default_rng(5)
     x = torch.from_numpy(_clustered(rng, 3029, 64)).to(cuda)
@@ -449,8 +482,8 @@ def test_fused_topk_kernel_slices_the_batch_to_its_scratch(cuda, monkeypatch):
     vals, idx = pk.fused_topk_scan(q, rows, valid, aux, qq, 50, "euclidean")
     torch.cuda.synchronize()
     assert pk.LAUNCHES["fused_topk"] == before + 4  # 29 queries, 8 a launch
-    rv, ri = pk.fused_topk_ref(q, rows, valid, aux, qq, 50, "euclidean")
-    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+    worst, _, _ = pk.fused_topk_error(q, rows, valid, aux, qq, 50, "euclidean", vals, idx)
+    assert worst <= 1.0, worst
 
 
 def test_slice3_kernels_refuse_bad_input(cuda):
@@ -481,9 +514,10 @@ def test_float_serve_paths_launch_their_kernels(cuda, monkeypatch, mode, metric,
                                                 counter):
     """Each slice-3 serve core on the card launches its kernel once per
     search and serves what the same index serves on the CPU through the
-    plain version. split-bf16 and sq8-bucket are reached by lowering
-    ``_SQ8I_MAX_DIM`` (and, for split-bf16, an offset corpus that
-    ``sq8pd_build`` refuses)."""
+    plain version (split-bf16: its launch within the kernel's tolerance, and
+    as close to a float64 oracle as the plain version). split-bf16 and
+    sq8-bucket are reached by lowering ``_SQ8I_MAX_DIM`` (and, for
+    split-bf16, an offset corpus that ``sq8pd_build`` refuses)."""
     import velesdb_tpu_torch.index.brute as brute
 
     monkeypatch.setattr(brute, "_SQ8I_MAX_DIM", [128])
@@ -506,6 +540,11 @@ def test_float_serve_paths_launch_their_kernels(cuda, monkeypatch, mode, metric,
             state[key] = value.cpu()
     on_cpu.load_state(state)
     assert on_cpu.serve_engine() == engine
+    launches = []
+    if engine == "split-bf16":  # keep the launch, to hold it to its tolerance
+        kernel = bk.hl_bucket_gm
+        monkeypatch.setattr(bk, "hl_bucket_gm",
+                            lambda *a: launches.append((a, kernel(*a))) or launches[-1][1])
     before = bk.LAUNCHES[counter]
     vals, ids = on_card.search(x[131_072:], 10)
     assert bk.LAUNCHES[counter] == before + 1
@@ -514,9 +553,32 @@ def test_float_serve_paths_launch_their_kernels(cuda, monkeypatch, mode, metric,
     # in another order on the two devices; at the offset corpus's |q|^2 near
     # 1.3e6 an fp32 ulp is 0.125, ~1e-3 of a restored distance
     same = ids.cpu() == want_ids
-    assert same.float().mean() >= 0.99
-    tol = 5e-3 if engine == "split-bf16" else 1e-4
-    torch.testing.assert_close(vals.cpu()[same], want_vals[same], rtol=tol, atol=tol)
+    if engine != "split-bf16":
+        assert same.float().mean() >= 0.99
+        torch.testing.assert_close(vals.cpu()[same], want_vals[same], rtol=1e-4, atol=1e-4)
+        return
+    # #3 on the tensor cores sums in its own order, within split_scan_tolerance
+    # of the plain pass. On the offset corpus 2 q.c - |c|^2 cancels: the
+    # plain version's own distances stray from the exact ones by ~0.1, so
+    # the two orders swap near neighbours. Both are held to a float64
+    # oracle instead: the card's recall@10 within 0.01 of the plain
+    # version's, its mean distance error at most 1.5x the plain version's.
+    (args, out), = [call for call in launches if call[0][0].is_cuda]  # the card's search
+    assert bk.split_scan_error(*args, *out)[0] <= 1.0
+    q64 = torch.from_numpy(x[131_072:]).to(cuda, torch.float64)
+    c64 = torch.from_numpy(x[:131_072]).to(cuda, torch.float64)
+    d2 = ((q64 * q64).sum(1)[:, None] + (c64 * c64).sum(1)[None, :] - 2.0 * q64 @ c64.T).cpu()
+    exact = torch.topk(-d2, 10, dim=1).indices
+
+    def recall(got):
+        hits = sum(len(set(g.tolist()) & set(e.tolist())) for g, e in zip(got, exact))
+        return hits / exact.numel()
+
+    def dist_err(v, i):
+        return float((v.double() - d2.gather(1, i).clamp_min(0.0).sqrt()).abs().mean())
+
+    assert abs(recall(ids.cpu()) - recall(want_ids)) <= 0.01
+    assert dist_err(vals.cpu(), ids.cpu()) <= 1.5 * dist_err(want_vals, want_ids)
 
 
 def test_half_streamed_scan_on_the_card(cuda):

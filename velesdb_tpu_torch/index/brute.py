@@ -16,7 +16,8 @@ does:
      ``_SQ8I_MAX_DIM``): the per-row int8 scan (``csrc/sq8i_bucket.cu``) over
      an SQ8 shadow, then the exact rerank;
   3. ``split-bf16`` (FULL, where ``sq8pd_build`` refuses and D >=
-     ``_SQ8I_MAX_DIM``): the (hi, lo) bf16 scan (``csrc/hl_bucket.cu``);
+     ``_SQ8I_MAX_DIM``): the (hi, lo) bf16 scan on the tensor cores (the
+     split mode of ``csrc/dense_bucket_tc.cu``);
   4. ``bucket-f32`` (F16/BF16, and FULL where the assist guard fails): the
      float bucket scan (``csrc/dense_bucket.cu``);
   5. ``streamed-scan`` — everything else: chunked fp32 matmul + exact top-k

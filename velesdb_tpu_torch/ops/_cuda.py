@@ -3,8 +3,9 @@
 Each kernel source ``csrc/<name>.cu`` exposes a plain C entry point. At first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``velesdb_tpu_torch/_build/`` and loaded with ``ctypes``. The
-library's file name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded. Nothing is compiled at import
+library's file name carries a hash of the source and of the ``csrc/``
+headers it includes, so an edited source or header is rebuilt and a stale
+library is never loaded. Nothing is compiled at import
 time, and nothing is ever built from outside the package's ``csrc/``.
 :func:`build_all` starts one ``nvcc`` per source at once, so a caller that
 needs several kernels pays for the slowest build, not the sum.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,11 +48,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: str, seen: list[str]) -> list[str]:
+    """``path`` and every header it includes with quotes, depth first, each
+    once, resolved beside the including file."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return seen
+
+
 def _paths(name: str) -> tuple[str, str]:
+    """The source and its library's path. The name hashes the source and
+    every ``csrc/`` header it includes, so an edited header rebuilds every
+    library built from it."""
     src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(_BUILD, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in _sources(src, []):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(_BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

@@ -12,16 +12,19 @@ kernels (``csrc/``), each with its plain torch version beside it:
   same on f16 and bf16 rows, on the tensor cores: the ``bucket-f32`` core of
   F16/BF16 storage below D 512.
 - ``hl_bucket`` (#3, :func:`hl_bucket_gm`): split-bf16 (hi, lo) rows
-  (:func:`bucket_topk_hl`); the FULL ``split-bf16`` core.
+  (:func:`bucket_topk_hl`); the FULL ``split-bf16`` core, on the tensor
+  cores: the split mode of ``csrc/dense_bucket_tc.cu``.
 - ``sq8_bucket`` (#6, :func:`sq8_bucket_gm`): block-packed SQ8 words
   (:func:`sq8_bucket_topk`); the ``sq8-bucket`` core.
 
-The three float kernels on fp32 CUDA cores sum each dot over the dims in
-order, one rounded multiply and add per term (:func:`_ordered_dot`), so on
-the card they equal their plain versions bit for bit. ``dense_bucket_tc``
-adds the exact half products in the tensor cores' own order and is held to
-its plain version within :func:`half_scan_tolerance`. The int8 and Hamming
-kernels:
+The two float kernels on fp32 CUDA cores (#2 on f32 rows, #6) sum each dot
+over the dims in order, one rounded multiply and add per term
+(:func:`_ordered_dot`), so on the card they equal their plain versions bit
+for bit. The tensor-core kernels add exact half products in their own
+order: ``dense_bucket_tc`` is held to its plain version within
+:func:`half_scan_tolerance`, ``hl_bucket`` within
+:func:`split_scan_tolerance`, both through the one checker
+:func:`ranked_error`. The int8 and Hamming kernels:
 
 - ``sq8pd_bucket`` (#1, :func:`sq8pd_bucket_gm`): the per-DIMENSION int8
   "enc-select" scan, the FULL-storage core at D < 512 and at least
@@ -50,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -69,7 +73,10 @@ __all__ = [
     "dense_bucket_ref",
     "half_scan_error",
     "half_scan_tolerance",
+    "ranked_error",
     "split_f32_rows",
+    "split_scan_error",
+    "split_scan_tolerance",
     "bucket_topk_hl",
     "first_topk",
     "hl_bucket_gm",
@@ -786,7 +793,7 @@ def hamming_rerank_topk(queries, packed_q, packed_corpus, penalty, corpus, *, k,
 
 _FLOAT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _DENSE_MAX_DPAD = 3072  # #2: 16 queries x D_pad floats of shared memory; #2b: 8 half queries
-_HL_MAX_DPAD = 1536  # two such tiles (hi and lo)
+_HL_MAX_DPAD = 1536  # #3, the reference's cap: two 8-query halves and two stages
 
 
 def _ordered_dot(q: torch.Tensor, rows: torch.Tensor, acc=None) -> torch.Tensor:
@@ -842,41 +849,68 @@ def half_scan_tolerance(q, rows, cc, chunk: int):
     return gm, gi, s, tol
 
 
+def ranked_error(ref_v, ref_i, tol, gap, got_v, got_i, picked, legal):
+    """The one checker of the tensor-core kernels (#2b, #3, #8): outputs
+    ranked by score, against the plain version's, all ``[..., r]``:
+    ``ref_v``/``ref_i`` the plain values and ids by rank, ``tol`` each rank's
+    tolerance, ``gap`` the plain gap at that rank (the distance to the
+    nearest plain score ranked beside it), ``got_v``/``got_i`` the kernel's,
+    ``picked`` the plain score of the row the kernel returned, ``legal``
+    whether that row may stand at that rank at all.
+
+    A value must lie within ``tol`` of the plain value; where the plain value
+    is ``-inf`` (nothing to rank) value and id must equal the plain ones. An
+    id must equal the plain id wherever the gap exceeds ``2 tol``; elsewhere
+    it must be legal and name a row whose plain score lies within ``tol`` of
+    the plain value. Returns ``(worst, max_tol, max_abs_err)``: ``worst`` is
+    the largest error relative to the tolerance, and the outputs pass when it
+    is at most 1."""
+    inf_ref = torch.isinf(ref_v)
+    same = got_v == ref_v
+    diff = torch.where(same, 0.0, (got_v - ref_v).abs())
+    r_v = torch.where(inf_ref, torch.where(same, 0.0, torch.inf), diff / tol)
+    near = torch.where(picked == ref_v, 0.0, (picked - ref_v).abs()) / tol
+    r_i = torch.where(gap > 2.0 * tol, torch.where(got_i == ref_i, 0.0, torch.inf),
+                      torch.where(legal, near, torch.inf))
+    r_i = torch.where(inf_ref, torch.where(got_i == ref_i, 0.0, torch.inf), r_i)
+    worst = float(torch.maximum(r_v, r_i).max()) if r_v.numel() else 0.0
+    fin = ~inf_ref
+    max_tol = float(tol[fin].max()) if bool(fin.any()) else 0.0
+    max_abs = float(diff[fin].max()) if bool(fin.any()) else 0.0
+    return worst, max_tol, max_abs
+
+
+def _bucket_error(ref, chunk: int, gm, gi):
+    """``(gm, gi)`` of a tensor-core bucket scan against its plain pass
+    ``ref = (gm_ref, gi_ref, s_ref [B_pad, N], tol)`` by :func:`ranked_error`,
+    each bucket a ranking of one: the gap is the plain bucket's best minus its
+    second best, and a returned row is legal in its own bucket only."""
+    gm_ref, gi_ref, s, tol = ref
+    b, n = s.shape
+    t = s.reshape(b, n // chunk, chunk // _LANES, _LANES)
+    if t.shape[2] > 1:
+        top2 = torch.topk(t, 2, dim=2).values
+        gap = (top2[:, :, 0] - top2[:, :, 1]).reshape(b, -1)
+    else:
+        gap = torch.full_like(gm_ref, torch.inf)
+    bucket = torch.arange(gm_ref.shape[1], device=gm.device)
+    home = (gi.long() % _LANES == bucket % _LANES) & (gi.long() // chunk == bucket // _LANES)
+    picked = torch.gather(s, 1, gi.long().clamp(0, n - 1))
+    return ranked_error(gm_ref, gi_ref, tol, gap, gm, gi, picked, home)
+
+
 def half_scan_error(q, rows, cc, chunk: int, gm, gi, ref=None):
     """``(gm, gi)`` of #2b against the plain pass within
-    :func:`half_scan_tolerance` (``ref``: its result, when already computed).
-    Returns ``(worst, max_tol, max_abs_err)``: ``worst`` is the largest error
-    relative to the tolerance, and the outputs pass when it is at most 1.
+    :func:`half_scan_tolerance` (``ref``: its result, when already computed),
+    by :func:`ranked_error`. Returns ``(worst, max_tol, max_abs_err)``.
 
     ``gm`` must lie within ``tol`` of ``gm_ref``; a ``-inf`` bucket must be
     ``-inf``. ``gi`` must equal ``gi_ref`` wherever the plain bucket's best
     beats its second best by more than ``2 tol``; elsewhere it must name a
     row of the same bucket whose plain score lies within ``tol`` of
     ``gm_ref``."""
-    gm_ref, gi_ref, s, tol = half_scan_tolerance(q, rows, cc, chunk) if ref is None else ref
-    b, n = s.shape
-    t = s.reshape(b, n // chunk, chunk // _LANES, _LANES)
-    if t.shape[2] > 1:
-        top2 = torch.topk(t, 2, dim=2).values
-        margin = (top2[:, :, 0] - top2[:, :, 1]).reshape(b, -1)
-    else:
-        margin = torch.full_like(gm_ref, torch.inf)
-    inf_ref = torch.isinf(gm_ref)
-    same = gm == gm_ref
-    diff = torch.where(same, 0.0, (gm - gm_ref).abs())
-    r_gm = torch.where(inf_ref, torch.where(same, 0.0, torch.inf), diff / tol)
-    bucket = torch.arange(gm_ref.shape[1], device=gm.device)
-    home = (gi.long() % _LANES == bucket % _LANES) & (gi.long() // chunk == bucket // _LANES)
-    picked = torch.gather(s, 1, gi.long().clamp(0, n - 1))
-    near = torch.where(picked == gm_ref, 0.0, (picked - gm_ref).abs()) / tol
-    r_gi = torch.where(margin > 2.0 * tol, torch.where(gi == gi_ref, 0.0, torch.inf),
-                       torch.where(home, near, torch.inf))
-    r_gi = torch.where(inf_ref, torch.where(gi == gi_ref, 0.0, torch.inf), r_gi)
-    worst = float(torch.maximum(r_gm, r_gi).max())
-    fin = ~inf_ref
-    max_tol = float(tol[fin].max()) if bool(fin.any()) else 0.0
-    max_abs = float(diff[fin].max()) if bool(fin.any()) else 0.0
-    return worst, max_tol, max_abs
+    return _bucket_error(half_scan_tolerance(q, rows, cc, chunk) if ref is None else ref,
+                         chunk, gm, gi)
 
 
 def dense_bucket_gm(q, rows, cc, chunk: int):
@@ -985,20 +1019,84 @@ def split_f32_rows(corpus: torch.Tensor):
     return hi, (x - hi.float()).to(torch.bfloat16)
 
 
-def hl_bucket_ref(qhi, qlo, hi, lo, cc, chunk: int):
-    """Plain torch version of #3: ``a = qhi.hi``, then ``e = qhi.lo``
+def _hl_scores(qhi, qlo, hi, lo, cc):
+    """#3's plain scores ``[B_pad, N]``: ``a = qhi.hi``, then ``e = qhi.lo``
     continued with ``qlo.hi`` (the reference's ``[qhi|qlo].[lo|hi]`` in its
-    concatenated order), each a fixed-order fp32 sum; ``s = (a + e) - cc``;
-    the bucket select."""
+    concatenated order), each a fixed-order fp32 sum; ``(a + e) - cc``."""
     a = _ordered_dot(qhi, hi)
     e = _ordered_dot(qlo, hi, acc=_ordered_dot(qhi, lo))
-    return _bucket_select((a + e) - cc[None, :], chunk)
+    return (a + e) - cc[None, :]
+
+
+def hl_bucket_ref(qhi, qlo, hi, lo, cc, chunk: int):
+    """Plain torch version of #3: the bucket select of :func:`_hl_scores`."""
+    return _bucket_select(_hl_scores(qhi, qlo, hi, lo, cc), chunk)
+
+
+def order_bound(n_kernel: int, n_plain: int) -> float:
+    """The share of ``A = sum |terms|`` by which two fp32 sums of the same
+    exact terms, the tensor-core kernel's over ``n_kernel`` terms and the
+    plain version's with ``n_plain`` roundings, may differ:
+    ``8 (2 sqrt(n_kernel) + sqrt(n_plain)) 2^-24``.
+
+    Worst cases (``(n_kernel + n_plain) 2^-24``) grow with the width: at
+    D_pad 1,536 they would admit a split kernel that drops both ``lo``
+    products. So the bound is probabilistic (Higham and Mary, "A new
+    approach to probabilistic rounding error analysis", SIAM J. Sci. Comput.
+    41(5), 2019): with rounding errors independent of the sums, a sum with
+    ``n`` roundings lies within ``lambda sqrt(n) u A`` of the exact sum with
+    probability about ``1 - 2 n exp(-lambda^2 / 2)`` or more, ``1 - 6e-11``
+    at ``lambda = 8`` and n = 2,304. ``u = 2^-24`` for the plain version,
+    doubled for the kernel, whose accumulator may truncate.
+    ``tests/test_torch_split_tolerance.py`` shows the bounds built on it
+    reject a kernel without the ``lo`` products; ``chip_smoke.py`` prints
+    the H100's worst error as a share of them."""
+    return 8.0 * (2.0 * math.sqrt(n_kernel) + math.sqrt(n_plain)) * 2.0**-24
+
+
+def split_scan_tolerance(qhi, qlo, hi, lo, cc, chunk: int):
+    """The plain pass of #3 and the bound its tensor-core kernel is held to:
+    ``(gm_ref, gi_ref, s_ref [B_pad, N], tol)``, ``tol`` per bucket winner:
+
+        |gm - gm_ref| <= order_bound(3 D_pad, 3 D_pad) * A + 2 ulp(gm_ref)
+
+    with ``A = sum_d |qhi_d hi_d| + |qhi_d lo_d| + |qlo_d hi_d|`` over the
+    plain winner's row. Both sides sum the same ``3 D_pad`` products, each
+    exact in fp32 (two bf16 values): the plain version in its fixed order
+    (``a`` over ``D_pad`` terms, ``e`` over ``2 D_pad``, then ``a + e``:
+    ``3 D_pad`` roundings, each of a partial sum bounded by ``A``), the
+    kernel in the tensor cores' (``3 D_pad - 1`` additions):
+    :func:`order_bound` bounds the difference; the two ulps cover the
+    rounding of ``dot - cc``."""
+    s = _hl_scores(qhi, qlo, hi, lo, cc)
+    gm, gi = _bucket_select(s, chunk)
+    qh, ql, h = qhi.float().abs(), qlo.float().abs(), hi.float().abs()
+    mag = qh @ (h + lo.float().abs()).T
+    mag += ql @ h.T
+    a_w = torch.gather(mag, 1, gi.long())
+    g = gm.abs()
+    ulp = torch.nextafter(g, torch.full_like(g, torch.inf)) - g
+    n = 3 * qhi.shape[1]
+    tol = order_bound(n, n) * a_w + 2.0 * ulp
+    return gm, gi, s, tol
+
+
+def split_scan_error(qhi, qlo, hi, lo, cc, chunk: int, gm, gi, ref=None):
+    """``(gm, gi)`` of #3 against the plain pass within
+    :func:`split_scan_tolerance` (``ref``: its result, when already
+    computed), by the rules of :func:`half_scan_error`. Returns ``(worst,
+    max_tol, max_abs_err)``; the outputs pass when ``worst <= 1``."""
+    if ref is None:
+        ref = split_scan_tolerance(qhi, qlo, hi, lo, cc, chunk)
+    return _bucket_error(ref, chunk, gm, gi)
 
 
 def hl_bucket_gm(qhi, qlo, hi, lo, cc, chunk: int):
     """Bucket winners of the split-bf16 scan (#3), ``(gm f32, gi int32)``.
-    CUDA tensors launch ``csrc/hl_bucket.cu``; CPU tensors take
-    :func:`hl_bucket_ref`."""
+    CUDA tensors launch the split mode of ``csrc/dense_bucket_tc.cu`` (three
+    bf16 products per K step on the tensor cores), held to
+    :func:`hl_bucket_ref` within :func:`split_scan_tolerance`; CPU tensors
+    take :func:`hl_bucket_ref`."""
     _check_float_scan(qhi, hi, chunk, _HL_MAX_DPAD, (cc,))
     if any(t.dtype != torch.bfloat16 for t in (qhi, qlo, hi, lo)):
         raise TypeError("qhi, qlo, hi and lo must be bfloat16")
@@ -1008,7 +1106,7 @@ def hl_bucket_gm(qhi, qlo, hi, lo, cc, chunk: int):
         return hl_bucket_ref(qhi, qlo, hi, lo, cc, chunk)
     (b_pad, d_pad), n = qhi.shape, hi.shape[0]
     gm, gi = _gm_gi(b_pad, n, chunk, qhi.device)
-    _launch(LAUNCHES, "hl_bucket_gm", "hl_bucket", "hl_bucket_launch", _P * 7 + _IIJ,
+    _launch(LAUNCHES, "hl_bucket_gm", "dense_bucket_tc", "hl_bucket_launch", _P * 7 + _IIJ,
             qhi, qlo, hi, lo, cc, gm, gi, b_pad, n, d_pad, chunk)
     return gm, gi
 

@@ -4,14 +4,17 @@ Hamming top-k (#9).
 Counterpart of ``velesdb_tpu/ops/pallas_kernels.py``.
 
 ``fused_topk`` (``:265``, ``_fused_kernel`` ``:119``) is the public op that
-scores f32 queries against an f32, f16 or bf16 corpus and keeps the exact
-top-k (the JAX package's serve path no longer calls it). The TPU kernel
-carries a running top-k across its grid; the CUDA kernel
-``csrc/fused_topk.cu`` scores row ranges in parallel, keeps each range's
-best k, and merges them per query in a second pass. Both select on one int64
-key per score (its order-preserving bits above the reversed row), so ties go
-to the smallest row as in the reference's ``_merge_topk``. ``k`` is capped
-at :data:`MAX_K` (1,024). :func:`fused_topk_ref` is its plain version.
+scores f32 queries against an f32, f16 or bf16 corpus and keeps the top-k
+(the JAX package's serve path no longer calls it). The TPU kernel carries a
+running top-k across its grid; the CUDA kernel ``csrc/fused_topk.cu`` scores
+row ranges in parallel on the tensor cores (split-bf16: three bf16 products
+of the split query and row), keeps each range's best k behind a running
+threshold, and merges them per query in a second pass. Both select on one
+int64 key per score (its order-preserving bits above the reversed row), so
+ties go to the smallest row as in the reference's ``_merge_topk``. ``k`` is
+capped at :data:`MAX_K` (1,024). :func:`fused_topk_ref` is its plain
+version (the fixed-order fp32 dot); the kernel is held to it within
+:func:`fused_topk_tolerance`.
 
 ``hamming_topk`` (``:410``, ``_hamming_topk_entry`` ``:366``): the BINARY serve core at small
 N or large k, where one winner per bucket would lose results. The TPU kernel
@@ -42,6 +45,9 @@ from velesdb_tpu_torch.ops.bucket_kernel import (
     _round_up,
     _score_keys,
     hamming_distances,
+    order_bound,
+    ranked_error,
+    split_f32_rows,
 )
 from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
 
@@ -52,8 +58,10 @@ __all__ = [
     "MAX_K",
     "fit_chunk",
     "fused_topk",
+    "fused_topk_error",
     "fused_topk_ref",
     "fused_topk_scan",
+    "fused_topk_tolerance",
     "hamming_topk",
     "hamming_topk_ref",
 ]
@@ -68,7 +76,7 @@ _FUSED_ROWS = 1024
 # bytes: 2 GiB at B 256, N 1M, k 1,024), is capped per launch: larger batches
 # launch in query slices (multiples of 8) that fit it.
 FUSED_SCRATCH_BYTES = 256 << 20
-_FUSED_MAX_DPAD = 4096  # 64 KB of keys + 8 queries x D_pad floats
+_FUSED_MAX_DPAD = 4096  # the entry's cap: rows and queries stream by 64-dim K block
 _METRIC_CODES = {DistanceMetric.DOT_PRODUCT: 0, DistanceMetric.COSINE: 1,
                  DistanceMetric.EUCLIDEAN: 2}
 
@@ -113,30 +121,115 @@ def _check_fused(q, rows, valid, aux, qq, k):
         raise ValueError(f"k={k} must be in [1, {MAX_K}]")
 
 
-def fused_topk_ref(q, rows, valid, aux, qq, k: int, metric):
-    """Plain torch version of #8: the fixed-order fp32 dot, the metric fixup
-    (dot; ``dot * aux``; ``-max((qq + aux) - 2 dot, 0)``), invalid rows at
-    -inf, and the exact top-k of the score keys. Returns maximize-oriented
-    ``(vals [B, k] f32, ids [B, k] int64)``, -inf / -1 for empties."""
-    metric = DistanceMetric.parse(metric)
+def _fused_scores(q, rows, valid, aux, qq, metric: DistanceMetric):
+    """The plain scores ``[B, N]``: the fixed-order fp32 dot, the metric
+    fixup (dot; ``dot * aux``; ``-max((qq + aux) - 2 dot, 0)``), invalid rows
+    at -inf."""
     s = _ordered_dot(q, rows)
     if metric is DistanceMetric.COSINE:
         s = s * aux[None, :]
     elif metric is DistanceMetric.EUCLIDEAN:
         s = -((qq[:, None] + aux[None, :]) - 2.0 * s).clamp_min(0.0)
-    s = torch.where(valid[None, :], s, -torch.inf)
+    return torch.where(valid[None, :], s, -torch.inf)
+
+
+def _top_keys(s, k: int):
+    """The best ``k`` of ``s [B, N]`` by score key, ``(vals, ids)`` padded
+    with -inf / -1 to ``k`` columns."""
     vals, idx = _decode_keys(torch.topk(_score_keys(s), min(k, s.shape[1]), dim=1).values)
     pad = k - vals.shape[1]
     return F.pad(vals, (0, pad), value=-torch.inf), F.pad(idx, (0, pad), value=-1)
 
 
+def fused_topk_ref(q, rows, valid, aux, qq, k: int, metric):
+    """Plain torch version of #8: the plain scores (:func:`_fused_scores`)
+    and the exact top-k of their keys. Returns maximize-oriented ``(vals
+    [B, k] f32, ids [B, k] int64)``, -inf / -1 for empties."""
+    metric = DistanceMetric.parse(metric)
+    return _top_keys(_fused_scores(q, rows, valid, aux, qq, metric), k)
+
+
+def fused_topk_tolerance(q, rows, valid, aux, qq, k: int, metric):
+    """The plain top-k of #8 and the bound its tensor-core kernel is held to:
+    ``(vals_ref, ids_ref, s_ref [B, N], tol [B, k], gap [B, k])``, ``tol`` per
+    rank, over the plain row ``r`` at that rank, with
+    ``A = sum_d |q_d x_d|`` (``x`` the row upcast to f32):
+
+        dot:    3.1 * 2^-16 * A + order_bound(3 D_pad, 2 D_pad) * A
+        score:  f * dot's bound + 2 ulp(vals_ref),  f = 1 (dot),
+                aux[r] (cosine), 2 (euclidean)
+
+    The split: the kernel splits ``q`` and ``x`` into bf16 pairs (``hi =
+    bf16(v)``, ``lo = bf16(v - hi)``: ``|v - hi| <= 2^-8 |v|``, ``|lo| <=
+    2^-8 |v|``, ``|v - hi - lo| <= 2^-16 |v|``) and drops the terms of ``q x``
+    beyond ``qhi hi + qhi lo + qlo hi``: ``qlo lo``, ``qhi (x - hi - lo)`` and
+    ``(q - qhi - qlo) hi`` are each at most ``2^-16 (1 + 2^-8) |q_d x_d|``,
+    the rest below ``2^-23``: in all at most ``3.1 * 2^-16 * A``, a bound
+    that always holds.
+
+    The order: the kernel sums its ``3 D_pad`` exact products in fp32 in the
+    tensor cores' order, the plain version rounds ``D_pad`` products and
+    ``D_pad - 1`` partial sums: :func:`~velesdb_tpu_torch.ops.bucket_kernel.
+    order_bound` ``(3 D_pad, 2 D_pad)`` bounds the difference. Its worst
+    case, ``5 D_pad 2^-24 A``, is ``2.3e-4 A`` at D 768, which also admits a
+    kernel that drops both ``lo`` products (its dots stray by about ``1e-4
+    A``).
+
+    The cosine factor scales a dot's error by ``aux``, the euclidean ``- 2
+    dot`` by 2 (the clamp at 0 shrinks it); the two ulps cover the rounding
+    of the fixup. ``gap`` is the plain gap at each rank: the distance from
+    the rank's plain score to the nearer of its neighbours (the ``k +
+    1``-th plain score below the last)."""
+    metric = DistanceMetric.parse(metric)
+    s = _fused_scores(q, rows, valid, aux, qq, metric)
+    vals, ids = _top_keys(s, k + 1)
+    nxt = vals[:, 1:]
+    vals, ids = vals[:, :k], ids[:, :k]
+    prev = F.pad(vals[:, :-1], (1, 0), value=torch.inf)
+    gap = torch.minimum(prev - vals, vals - nxt)
+    r = ids.clamp_min(0)
+    x = rows.float()[r]  # [B, k, D_pad]
+    a = torch.bmm(x.abs(), q.float().abs()[:, :, None])[:, :, 0]
+    d_pad = q.shape[1]
+    dot_tol = (3.1 * 2.0**-16 + order_bound(3 * d_pad, 2 * d_pad)) * a
+    if metric is DistanceMetric.COSINE:
+        dot_tol = dot_tol * aux[r]
+    elif metric is DistanceMetric.EUCLIDEAN:
+        dot_tol = 2.0 * dot_tol
+    mag = vals.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, torch.inf)) - mag
+    return vals, ids, s, dot_tol + 2.0 * ulp, gap
+
+
+def fused_topk_error(q, rows, valid, aux, qq, k: int, metric, vals, idx, ref=None):
+    """``(vals, idx)`` of #8 against the plain top-k within
+    :func:`fused_topk_tolerance` (``ref``: its result, when already
+    computed), by :func:`~velesdb_tpu_torch.ops.bucket_kernel.ranked_error`:
+    each rank's value within its tolerance of the plain value; its id the
+    plain id where the plain gap at that rank exceeds twice the tolerance,
+    elsewhere a valid row, returned once, whose plain score lies within the
+    tolerance; empties where the plain version has them. Returns ``(worst,
+    max_tol, max_abs_err)``; the outputs pass when ``worst <= 1``."""
+    if ref is None:
+        ref = fused_topk_tolerance(q, rows, valid, aux, qq, k, metric)
+    vals_ref, ids_ref, s, tol, gap = ref
+    n = s.shape[1]
+    inside = (idx >= 0) & (idx < n)
+    picked = torch.gather(s, 1, idx.clamp(0, n - 1))
+    # a row returned twice: equal to another returned row at an earlier rank
+    repeat = ((idx[:, :, None] == idx[:, None, :]).tril(-1) & inside[:, :, None]).any(2)
+    return ranked_error(vals_ref, ids_ref, tol, gap, vals, idx, picked, inside & ~repeat)
+
 def fused_topk_scan(q, rows, valid, aux, qq, k: int, metric):
-    """The exact top-k of the fused scan (#8): ``q [B, D_pad] f32``, ``rows
+    """The top-k of the fused scan (#8): ``q [B, D_pad] f32``, ``rows
     [N, D_pad]`` f32/f16/bf16, ``valid [N] bool``, ``aux [N]`` (cosine
     ``1/|c|``, euclidean ``|c|^2``), ``qq [B] = |q|^2``, ``1 <= k <= MAX_K``.
-    CUDA tensors launch ``csrc/fused_topk.cu``, one launch per slice of
-    queries whose candidate scratch fits :data:`FUSED_SCRATCH_BYTES` (at
-    least 8 queries a launch); CPU tensors take :func:`fused_topk_ref`."""
+    CUDA tensors launch ``csrc/fused_topk.cu`` on the queries split once
+    (:func:`~velesdb_tpu_torch.ops.bucket_kernel.split_f32_rows`), one launch
+    per slice of queries whose candidate scratch fits
+    :data:`FUSED_SCRATCH_BYTES` (at least 8 queries a launch), held to
+    :func:`fused_topk_ref` within :func:`fused_topk_tolerance`; CPU tensors
+    take :func:`fused_topk_ref`."""
     metric = DistanceMetric.parse(metric)
     _check_fused(q, rows, valid, aux, qq, k)
     if _kernel_route(q, rows, valid, aux, qq):
@@ -148,12 +241,13 @@ def fused_topk_scan(q, rows, valid, aux, qq, k: int, metric):
     ranges = -(-n // _FUSED_ROWS)
     step = max(8, FUSED_SCRATCH_BYTES // (8 * ranges * k) // 8 * 8)
     cand = torch.empty((min(b, step), ranges, k), dtype=torch.int64, device=dev)
+    qhi, qlo = split_f32_rows(q)
     for i in range(0, b, step):
         j = min(b, i + step)
         _launch(LAUNCHES, "fused_topk", "fused_topk", "fused_topk_launch",
-                _P * 8 + _IIJ + (ctypes.c_int,), q[i:j], rows, valid, aux, qq[i:j],
-                vals[i:j], idx[i:j], cand, j - i, n, d_pad, k, _FLOAT_CODES[rows.dtype],
-                _METRIC_CODES[metric])
+                _P * 9 + _IIJ + (ctypes.c_int,) * 2, qhi[i:j], qlo[i:j], rows, valid, aux,
+                qq[i:j], vals[i:j], idx[i:j], cand, j - i, n, d_pad, k,
+                _FLOAT_CODES[rows.dtype], _METRIC_CODES[metric])
     return vals, idx
 
 
