@@ -6,12 +6,12 @@
 Phases, in order; any failure exits nonzero:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off, build the eleven kernel libraries from ``velesdb_tpu_torch/csrc``
-   (the twelve hand-written kernels: #3 is a mode of #2b's source; one
-   ``nvcc`` per source, all at once) and print their ptxas registers and
-   spills.
+   off, build the nine kernel libraries from ``velesdb_tpu_torch/csrc``
+   (the twelve hand-written kernels: #2 on f32 rows, #3 and #6 are modes of
+   #2b's source; one ``nvcc`` per source, all at once) and print their
+   ptxas registers and spills.
 2. Kernels vs their plain torch versions, bit for bit (``torch.equal``),
-   except the three on the tensor cores, held on every launch, here and on
+   except the five on the tensor cores, held on every launch, here and on
    their main paths, to a stated tolerance through one checker
    (``bucket_kernel.ranked_error``), the worst error printed as a share of
    it: ``dense_bucket_tc`` (#2b, half rows) to ``half_scan_tolerance``
@@ -20,7 +20,12 @@ Phases, in order; any failure exits nonzero:
    differs), ``hl_bucket`` (#3, split-bf16) to ``split_scan_tolerance``
    (``order_bound(3 D_pad, 3 D_pad) A + 2 ulp`` over its three products,
    ``order_bound(n, m) = 8 (2 sqrt(n) + sqrt(m)) 2^-24``, a probabilistic
-   bound), ``fused_topk`` (#8, f32 rows split as they are scored) to
+   bound), ``dense_bucket`` (#2, f32 rows split in the kernel) to
+   ``f32_scan_tolerance`` (``(3.1 2^-16 + order_bound(3 D_pad, 2 D_pad)) A
+   + 2 ulp``), ``sq8_bucket`` (#6, the words unpacked in the kernel, the
+   queries split exactly into three bf16 parts) to ``sq8_scan_tolerance``
+   (``|scale| order_bound(3 D_pad, 2 D_pad) A`` + 2 ulp of each epilogue
+   rounding), ``fused_topk`` (#8, f32 rows split as they are scored) to
    ``fused_topk_tolerance`` (the split's ``3.1 2^-16 A`` and the order's
    ``order_bound(3 D_pad, 2 D_pad) A``, scaled by the metric, + 2 ulp), each
    id equal to the plain one where the plain gap at its rank exceeds twice
@@ -43,6 +48,10 @@ Phases, in order; any failure exits nonzero:
    main path and must show its kernel ran on every search; every launch of
    that run is then held against the plain version on its own arguments, bit
    for bit. Recall@10 >= 0.99 against a float64 oracle on the unpadded corpus.
+   Then the same collection at k = 300, past the assist cores' guard:
+   ``bucket-f32`` on the f32 rows (#2), b 256 and b 16, every launch within
+   ``f32_scan_tolerance``, recall@300 against the float64 oracle within
+   0.005 of the same searches with #2's plain version patched in.
 4. Slice 1, 100K x 768D cosine (streamed scan): recall@10 >= 0.999. Then
    slice 3 on the same data: the public op ``fused_topk`` (#8) at B 256,
    f32 cosine, k 10 and k 100, against the float64 oracle (recall@10 and
@@ -57,7 +66,10 @@ Phases, in order; any failure exits nonzero:
    rerank, the raw coarse pass's recall printed, no filtered-out id, same
    ids after close + reopen. Slice 3: ``sift1m-sq8-staged``, the collection
    reopened with ``_SQ8I_MAX_DIM[0] = 128``: block-packed words,
-   ``sq8-bucket`` (#6) behind the same gate, the same checks; and
+   ``sq8-bucket`` (#6) behind the same gate, the same checks, #6 held
+   within its tolerance at B 1, 16 and 256 and timed against its first
+   (fp32-core) design (``FIRST_SQ8_MS``) and the library yardstick, which it
+   must beat; and
    ``sift1m-bf16``, the SIFT data as BF16: ``bucket-f32`` (#2b) on every
    search, recall@10 >= 0.99 against the float64 oracle of the function the
    kernel computes (``bf16(2q) . bf16(c) - |c|^2``), recall against the f32
@@ -65,7 +77,9 @@ Phases, in order; any failure exits nonzero:
    256 and b 16 and must beat #2's f32-core design on the same bf16 rows
    (``FIRST_DENSE_MS``, PERF.md) and the library yardstick. Then the
    public op ``bucket_topk`` on the f32 SIFT rows, b 256 / 16 / 1: #2 on f32
-   rows, every launch bit for bit, recall@10 >= 0.99.
+   rows, every launch within its tolerance, recall@10 >= 0.99; #2 is timed
+   at B_pad 256 against its first design (``FIRST_F32_DENSE_MS``) and the
+   library yardstick, which it must beat.
 6. Slice 2, ``glove100-binary``: 1,183,514 x 100 cosine BINARY
    (ann-benchmarks glove-100-angular scale), padded to 1,310,720 rows, served
    by ``hamming-mxu`` (#5); reopened with ``VELESDB_HAMMING_MXU_MAX_BYTES=0``
@@ -129,7 +143,8 @@ Phases, in order; any failure exits nonzero:
    of 1,000,000 x 128, group 16: #11 at depth 1 and 2 beside ``q @
    corpus[idx].T``), twice. The first run is the main path: every launch
    is recorded and then held against its plain version on its own
-   arguments, bit for bit, #2b and #8 within their tolerances; its timing
+   arguments, bit for bit, #2 (f32 and bf16 rows) and #8 within their
+   tolerances; its timing
    protocol is cut, batches x samples 64 x 3 -> 8 x 2 (``exp_sq8i_v2``,
    ``exp_hamming_mxu``) and 16 x 3 -> 4 x 2 (``exp_topk``), to bound the
    outputs kept for the holds (recorded outputs also keep the allocator
@@ -149,11 +164,10 @@ b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
 device path alone, the host share, then the profiler last: the device's
 busy time per call and its top kernels. Each kernel is timed at its slice
 shape against its plain version and its bound: the larger of its bytes over
-3.35 TB/s and its operations over their peak (int8 at 1,979 TOPS, fp32 at
-67 TFLOP/s, popcount at 16 per SM per clock), for this run's inputs; the
-f32-core kernels also print the bf16/f16 tensor-core bound (989 TFLOP/s)
-that a ``wgmma`` design would face, and the tensor-core kernels (#2b, #3,
-#8) the fp32 rate of their first designs. Where a product and a bucket max
+3.35 TB/s and its operations over their peak (int8 at 1,979 TOPS, bf16 and
+f16 at 989 TFLOP/s, fp32 at 67 TFLOP/s, popcount at 16 per SM per clock),
+for this run's inputs; the tensor-core kernels (#2, #3, #6, #8) also print
+the fp32 rate of their first designs. Where a product and a bucket max
 compute the function (#1, #2, #2b, #3, #5, #6, #7), the kernel is timed
 against that library yardstick (``torch.mm``, ``torch._int_mm``, then the
 epilogue and ``amax`` over the ``[B, N/chunk, chunk/128, 128]`` view), its
@@ -194,9 +208,9 @@ CHUNK = 8192
 KERNELS = ("sq8pd_bucket", "sq8i_bucket", "hamming_mxu_bucket", "hamming_bucket",
            "hamming_topk", "dense_bucket", "dense_bucket_tc", "hl_bucket", "sq8_bucket",
            "fused_topk", "ivf_probe", "row_gather")
-# The kernel libraries, one per csrc/ source: #3 (hl_bucket) is the split
-# mode of dense_bucket_tc.cu.
-LIBS = tuple(name for name in KERNELS if name != "hl_bucket")
+# The kernel libraries, one per csrc/ source: #2 on f32 rows (dense_bucket),
+# #3 (hl_bucket) and #6 (sq8_bucket) are modes of dense_bucket_tc.cu.
+LIBS = tuple(name for name in KERNELS if name not in ("dense_bucket", "hl_bucket", "sq8_bucket"))
 # The experiments' timing protocol, cut to keep phase 9 near two minutes with
 # every launch held against its plain version: the scripts' 64 batches x 3
 # samples (exp_sq8i_v2, exp_hamming_mxu) and 16 x 3 (exp_topk) become these.
@@ -207,16 +221,17 @@ PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1.979e15
 PEAK_F32 = 67e12
 PEAK_TC16 = 989e12  # bf16 / f16 tensor cores, dense
-# bound_ms takes the peak of the products the kernel does: bf16/f16 (#2b, #3,
-# and #8's three split products) at the tensor-core rate, f32 x f32 and f32 x
-# code (#2 on f32 rows, #6) at the fp32 rate. The other rate is printed beside.
-TC_DESIGN = "a bf16/f16 tensor-core (wgmma) design would face"
+# bound_ms takes the peak of the products the kernel does: bf16/f16 at the
+# tensor-core rate (#2b; three split products a term for #2 on f32 rows, #3,
+# #6 and #8). The fp32 rate of the first designs is printed beside.
 F32_CORES = "at the fp32 CUDA-core rate of the first design"
 CARD = ""  # "name, power limit" from nvidia-smi, appended to every number
 # The tensor-core kernels against their tolerances: #2b (half_scan_tolerance),
-# #3 (split_scan_tolerance), #8 (fused_topk_tolerance).
+# #2 on f32 rows (f32_scan_tolerance), #3 (split_scan_tolerance), #6
+# (sq8_scan_tolerance), #8 (fused_topk_tolerance).
 TOL_SEEN = {name: {"checks": 0, "worst": 0.0, "max_tol": 0.0}
-            for name in ("dense_bucket_tc", "hl_bucket", "fused_topk")}
+            for name in ("dense_bucket_tc", "dense_bucket", "hl_bucket", "sq8_bucket",
+                         "fused_topk")}
 # #10's times in its first design, one block per (query, probe, 128-row tile)
 # (PERF.md, row #10; NVIDIA H100 80GB HBM3, 700 W)
 FIRST_PROBE_MS = {"f32 b=16": 0.3428, "f32 b=64": 1.4801, "sq8 b=16": 0.1701, "sq8 b=64": 0.6196}
@@ -229,6 +244,11 @@ FIRST_DENSE_MS = {256: 5.0662, 16: 1.0573}
 # to the tensor cores (PERF.md, rows #3 and #8; NVIDIA H100 80GB HBM3, 700 W)
 FIRST_HL_MS = 10.7803
 FIRST_FUSED_MS = {10: 5.9295, 100: 5.9832}
+# #2 on the f32 SIFT rows and #6 on the sift1m-sq8 words at B_pad 256,
+# N 1,048,576, D_pad 128 in their first (fp32-core) designs, before both moved
+# to the tensor cores (PERF.md, rows #2 and #6; NVIDIA H100 80GB HBM3, 700 W)
+FIRST_F32_DENSE_MS = 5.6524
+FIRST_SQ8_MS = 12.4232
 # #7's range before its kernel took an epilogue template parameter
 # (PERF.md, row #7; NVIDIA H100 80GB HBM3, 700 W)
 FIRST_SQ8I_MS = (1.1733, 1.1792)
@@ -473,6 +493,21 @@ def hold_tc(label, q, rows, cc, chunk, out) -> float:
     return hold_within("dense_bucket_tc", label, bk.half_scan_error(q, rows, cc, chunk, *out))
 
 
+def hold_f32(label, q, rows, cc, chunk, out) -> float:
+    """#2's ``(gm, gi)`` on f32 rows within ``f32_scan_tolerance``."""
+    from velesdb_tpu_torch.ops import bucket_kernel as bk
+
+    return hold_within("dense_bucket", label, bk.f32_scan_error(q, rows, cc, chunk, *out))
+
+
+def hold_sq8(label, q, words, scale, minv, pen, qsum, chunk, out) -> float:
+    """#6's ``(gm, gi)`` within ``sq8_scan_tolerance``."""
+    from velesdb_tpu_torch.ops import bucket_kernel as bk
+
+    return hold_within("sq8_bucket", label,
+                       bk.sq8_scan_error(q, words, scale, minv, pen, qsum, chunk, *out))
+
+
 def hold_hl(label, qhi, qlo, hi, lo, cc, chunk, out) -> float:
     """#3's ``(gm, gi)`` within ``split_scan_tolerance``."""
     from velesdb_tpu_torch.ops import bucket_kernel as bk
@@ -587,6 +622,26 @@ def bound(ops_ms: float, bytes_: float) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def check_faster(name, ms, n, first_ms, lib_ms, ms16, bytes_of) -> None:
+    """A mode of the tensor-core scan moved from the fp32 CUDA cores (#2 on
+    f32 rows, #6) at B_pad 256 (and 16), N ``n``, D_pad 128: print its bound,
+    three bf16 products at 989 TFLOP/s against ``bytes_of(B_pad)``, its share
+    of it, and fail unless it beats its first design's recorded time and the
+    library yardstick."""
+    for b, t in ((256, ms), (16, ms16)):
+        ops_ms = 6 * b * n * 128 / PEAK_TC16 * 1e3
+        bytes_ms = bytes_of(b) / PEAK_BYTES * 1e3
+        least = max(ops_ms, bytes_ms)
+        say(f"{name} B_pad {b}, N {n}, D_pad 128: kernel {t:.4f} ms; bound {least:.4f} ms "
+            f"(three bf16 products {ops_ms:.4f} ms at 989 TFLOP/s, bytes {bytes_ms:.4f} ms): "
+            f"{least / t:.4f} of it")
+    say(f"{name} B_pad 256: the first (fp32-core) design {first_ms:.4f} ms (recorded, "
+        f"{first_ms / ms:.2f}x), library yardstick {lib_ms:.4f} ms ({lib_ms / ms:.2f}x)")
+    check(ms < first_ms and ms < lib_ms,
+          f"{name} B_pad 256: {ms:.4f} ms, not faster than its first design ({first_ms:.4f}) "
+          f"and the library ({lib_ms:.4f})")
+
+
 class Recorder:
     """Every launch of several kernel wrappers while inside: the wrappers,
     named by ``(module, attr)``, are wrapped to keep each call's arguments
@@ -637,7 +692,8 @@ def time_cycle(torch, fn, args_list):
 def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) -> None:
     """Phase 9: the four ported experiments at their scripts' sizes, in
     process, with every launch recorded and then held against its plain
-    version (#2b and #8 within their tolerances); the counts of each experiment's run; each kernel of #11-#14
+    version (#2 on f32 and bf16 rows and #8 within their tolerances); the
+    counts of each experiment's run; each kernel of #11-#14
     timed at the script's shape beside its bound, plain version and library
     yardstick."""
     from velesdb_tpu_torch.experiments import exp_gather_kernel, exp_hamming_mxu, exp_sq8i_v2
@@ -671,9 +727,10 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
         for _, attr in targets:
             for args, kwargs, out in rec.take(attr):
                 label = f"{exp} main-path launch, {describe(attr, args, kwargs)}"
-                if attr == "dense_bucket_gm" and args[1].dtype != torch.float32:
-                    err = hold_tc(label, *args, out)
-                    key = "dense_bucket_tc"
+                if attr == "dense_bucket_gm":
+                    f32 = args[1].dtype == torch.float32
+                    err = (hold_f32 if f32 else hold_tc)(label, *args, out)
+                    key = attr if f32 else "dense_bucket_tc"
                 elif attr == "fused_topk_scan":
                     err = hold_fused(label, *args, *kwargs.values(), out)
                     key = attr
@@ -758,7 +815,7 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                            "benchmarks/exp_sq8i_v2.py:126"),
         "sq8pd_bucket_v5": ("exp_sq8i_v2", "sq8pd_bucket_gm", "sq8pd_bucket.cu",
                             "benchmarks/exp_sq8i_v2.py:144"),
-        "dense_bucket_exp_topk": ("exp_topk", "dense_bucket_gm", "dense_bucket.cu",
+        "dense_bucket_exp_topk": ("exp_topk", "dense_bucket_gm", "dense_bucket_tc.cu",
                                   "benchmarks/exp_topk.py:193"),
         "dense_bucket_tc_exp_topk": ("exp_topk", "dense_bucket_tc", "dense_bucket_tc.cu",
                                      "benchmarks/exp_topk.py:193"),
@@ -868,22 +925,25 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
         (q2, corp, cc, chunk), _ = call_of("exp_topk", key, lambda a, k: a[0].shape[0] >= 256)
         b_pad, d = q2.shape
         n = corp.shape[0]
-        ops = 2 * b_pad * n * d + b_pad * n
         half = corp.dtype != torch.float32
+        # the products on the tensor cores: one a term on half rows, three
+        # (hi.qhi, lo.qhi, hi.qlo) on f32 rows; and the - cc
+        ops = (2 if half else 6) * b_pad * n * d + b_pad * n
         plain_fn = (lambda: bk.half_scan_tolerance(q2, corp, cc, chunk)) if half else (
             lambda: bk.dense_bucket_ref(q2, corp, cc, chunk))
         lib = (lambda: bucket_max(mm_f32(torch, q2, corp.T) - cc, chunk)) if half else (
             lambda: bucket_max(q2 @ corp.T - cc, chunk))
         kernel_row(name, rows[name][2], rows[name][3],
                    time_kernel(torch, lambda: bk.dense_bucket_gm(q2, corp, cc, chunk)),
-                   time_kernel(torch, plain_fn, iters=2),
-                   ops / (PEAK_TC16 if half else PEAK_F32) * 1e3,
+                   time_kernel(torch, plain_fn, iters=2), ops / PEAK_TC16 * 1e3,
                    q2.numel() * q2.element_size() + corp.numel() * corp.element_size() + 4 * n
                    + 8 * b_pad * n // chunk * 128,
-                   held["exp_topk", key], library_ms=time_kernel(torch, lib))
-    say("#13 at exp_topk's shape (B 256, N 1,048,576, D 128, pchunk 2048): #2 on the f32 rows, "
-        "#2b on the bf16 rows, both on the doubled queries; library yardstick q @ rows.T (bf16: "
-        f"{MM_F32['how']}) - |c|^2, then the bucket amax")
+                   held["exp_topk", key], library_ms=time_kernel(torch, lib),
+                   other=None if half else (F32_CORES, 2 * b_pad * n * d + b_pad * n, PEAK_F32))
+    say("#13 at exp_topk's shape (B 256, N 1,048,576, D 128, pchunk 2048): #2 on the f32 rows "
+        "(three bf16 products a term on the tensor cores), #2b on the bf16 rows, both on the "
+        f"doubled queries; library yardstick q @ rows.T (bf16: {MM_F32['how']}) - |c|^2, then "
+        "the bucket amax")
 
     calls = first["exp_gather_kernel", "row_gather"]
     (q, corpus, _), kw = calls[0]
@@ -1133,9 +1193,8 @@ def main() -> None:
             out = bk.dense_bucket_gm(*args)
             torch.cuda.synchronize()
             if dt == torch.float32:
-                errs["dense_bucket"] = max(errs["dense_bucket"], hold(
-                    f"dense_bucket {ragged}, chunk {CHUNK}, {dname}, {metric}", out,
-                    bk.dense_bucket_ref(*args)))
+                errs["dense_bucket"] = max(errs["dense_bucket"], hold_f32(
+                    f"dense_bucket {ragged}, chunk {CHUNK}, {dname}, {metric}", *args, out))
             else:
                 errs["dense_bucket_tc"] = max(errs["dense_bucket_tc"], hold_tc(
                     f"dense_bucket_tc {ragged}, chunk {CHUNK}, {dname}, {metric}", *args, out))
@@ -1157,12 +1216,11 @@ def main() -> None:
         sq = sq8_quantize(rx[:RAGGED_N])
         scale, minv, pen, _ = _affine_fold(sq, r_keep, m)
         q6 = F.pad(q2, (0, 0, 0, 3))
-        qsum = bk._ordered_dot(q6, torch.ones((1, RAGGED_D), device=dev))[:, 0]
-        args = (q6, sq8_pack_blocked(sq.codes), scale, minv, pen, qsum, CHUNK)
+        args = (q6, sq8_pack_blocked(sq.codes), scale, minv, pen, q6.sum(1), CHUNK)
         out = bk.sq8_bucket_gm(*args)
         torch.cuda.synchronize()
-        errs["sq8_bucket"] = max(errs["sq8_bucket"], hold(
-            f"sq8_bucket {ragged}, chunk {CHUNK}, {metric}", out, bk.sq8_bucket_ref(*args)))
+        errs["sq8_bucket"] = max(errs["sq8_bucket"], hold_sq8(
+            f"sq8_bucket {ragged} (W 25), chunk {CHUNK}, {metric}", *args, out))
         # #10: the ragged rows cut into partitions of 136 slots, the last 40
         # all dead (as past c_real), each probe drawn over every partition
         n_parts = RAGGED_N // RAGGED_L
@@ -1267,6 +1325,43 @@ def main() -> None:
         )
         check(res_re[0][0].payload == {"cat": res_re[0][0].id % 8}, "payload lost on reopen")
         print("sift1m close + reopen: same ids for all 256 queries", flush=True)
+
+        # -- 3b. sift1m at k = 300, past the assist cores' guard ----------
+        # (m = 256 < k) and inside the collision guard (k <= 0.02 * 16,384
+        # buckets + 1): bucket-f32 on the f32 rows, #2's f32 mode
+        phase("3b. sift1m FULL at k = 300 (bucket-f32)")
+        k300 = 300
+        check(col._brute.serve_engine(k300) == "bucket-f32",
+              f"sift1m serve_engine(300) {col._brute.serve_engine(k300)!r}, expected 'bucket-f32'")
+        with MainPath(counters, bk, "dense_bucket_gm", "dense_bucket_gm") as run:
+            k256 = col.search_batch(sift_q[:256], k=k300)
+            run.launched("search_batch b=256 k=300")
+            k16 = col.search_batch(sift_q[256:272], k=k300)
+            run.launched("search_batch b=16 k=300")
+        launches["dense_bucket"] = launches.get("dense_bucket", 0) + run.launches()
+        errs["dense_bucket"] = max(errs["dense_bucket"], run.hold_all(
+            None,
+            lambda q, rows, cc, ch: (f"dense_bucket k=300 search B_pad {q.shape[0]}, "
+                                     f"N {rows.shape[0]}, D_pad {rows.shape[1]}, chunk {ch}"),
+            holder=hold_f32))
+        # the same searches through #2's plain version on the card
+        kernel_gm = bk.dense_bucket_gm
+        bk.dense_bucket_gm = bk.dense_bucket_ref
+        try:
+            p256 = col.search_batch(sift_q[:256], k=k300)
+            p16 = col.search_batch(sift_q[256:272], k=k300)
+        finally:
+            bk.dense_bucket_gm = kernel_gm
+        _, o300_i = oracle_topk(torch, corpus64, sift_q[:272], "euclidean", k300)
+        rk = {"b=256": (ids_recall(k256, o300_i[:256]), ids_recall(p256, o300_i[:256])),
+              "b=16": (ids_recall(k16, o300_i[256:]), ids_recall(p16, o300_i[256:]))}
+        print("sift1m k=300 (bucket-f32, #2 on f32 rows) recall@300 vs the float64 oracle, "
+              "kernel (plain version): " + ", ".join(
+                  f"{name} {a:.4f} ({b:.4f})" for name, (a, b) in rk.items()), flush=True)
+        for name, (a, b) in rk.items():
+            check(abs(a - b) <= 0.005, f"sift1m k=300 {name}: recall@300 {a:.4f} through the "
+                  f"kernel, {b:.4f} through the plain version")
+        del k256, k16, p256, p16, o300_i
 
         # -- 4. slice 1: 100K x 768D cosine (streamed scan) -----------------
         phase("4. 100k-768d FULL")
@@ -1507,29 +1602,32 @@ def main() -> None:
                   "the staged SQ8 build kept int8 rows")
             check(colq.info()["serve_engine"] == "sq8-bucket",
                   f"serve_engine {colq.info()['serve_engine']!r}, expected 'sq8-bucket'")
-            ones = torch.ones((1, idx._sq8_words.shape[1] * 4), device=dev)
+            n = idx.n_pad
             for b in (1, 16, 256):
                 q6 = F.pad(2.0 * torch.from_numpy(sift_q[:b]).to(dev), (0, 0, 0, (-b) % 8))
                 args = (q6, idx._sq8_words, idx._sq8_scale, idx._sq8_minv, idx._sq8_pen,
-                        bk._ordered_dot(q6, ones)[:, 0], CHUNK)
+                        q6.sum(1), CHUNK)
                 out = bk.sq8_bucket_gm(*args)
                 torch.cuda.synchronize()
-                errs["sq8_bucket"] = max(errs["sq8_bucket"], hold(
-                    f"sq8_bucket B {b} (B_pad {q6.shape[0]}), N {idx.n_pad}, D_pad 128, "
-                    f"chunk {CHUNK}", out, bk.sq8_bucket_ref(*args)))
-            n = idx.n_pad
+                errs["sq8_bucket"] = max(errs["sq8_bucket"], hold_sq8(
+                    f"sq8_bucket B {b} (B_pad {q6.shape[0]}), N {n}, D_pad 128, "
+                    f"chunk {CHUNK}", *args, out))
+                if b == 16:
+                    ms16 = time_kernel(torch, lambda: bk.sq8_bucket_gm(*args))
             ms = time_kernel(torch, lambda: bk.sq8_bucket_gm(*args))
             plain = time_kernel(torch, lambda: bk.sq8_bucket_ref(*args), iters=3)
             codes_f = sq8_unpack_blocked(idx._sq8_words).float()  # set-up, not timed
             lib = time_kernel(torch, lambda: bucket_max(
                 (q6 @ codes_f.T) * idx._sq8_scale + args[5][:, None] * idx._sq8_minv
                 - idx._sq8_pen, CHUNK))
-            ops6 = 2 * 256 * n * 128 + 4 * 256 * n
+            check_faster("sq8_bucket", ms, n, FIRST_SQ8_MS, lib, ms16, lambda b: (
+                4 * b * 128 + n * 128 + 12 * n + 4 * b + 8 * b * n // CHUNK * 128))
             kernel_row(
-                "sq8_bucket", "sq8_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:894", ms, plain,
-                ops6 / PEAK_F32 * 1e3,
+                "sq8_bucket", "dense_bucket_tc.cu", "velesdb_tpu/ops/bucket_kernel.py:894", ms,
+                plain, 6 * 256 * n * 128 / PEAK_TC16 * 1e3,
                 4 * 256 * 128 + n * 128 + 12 * n + 4 * 256 + 8 * 256 * n // CHUNK * 128,
-                errs["sq8_bucket"], other=(TC_DESIGN, ops6, PEAK_TC16), library_ms=lib,
+                errs["sq8_bucket"], other=(F32_CORES, 2 * 256 * n * 128 + 4 * 256 * n, PEAK_F32),
+                library_ms=lib,
             )
             say("sq8_bucket library yardstick: fp32 q @ codes.T on the codes unpacked to f32 "
                 "beforehand (4x the kernel's row bytes), the affine epilogue, the bucket amax")
@@ -1551,9 +1649,13 @@ def main() -> None:
                 run.launched("raw search_batch")
             launches["sq8_bucket"] = run.launches()
             errs["sq8_bucket"] = max(errs["sq8_bucket"], run.hold_all(
-                bk.sq8_bucket_ref,
+                None,
                 lambda q, words, *rest: (f"sq8_bucket B_pad {q.shape[0]}, N {words.shape[0]}, "
-                                         f"W {words.shape[1]}, chunk {rest[-1]}")))
+                                         f"W {words.shape[1]}, chunk {rest[-1]}"),
+                holder=hold_sq8))
+            tolerance_summary("sq8_bucket", "sq8_scan_tolerance (|err| <= |scale| 8 (2 sqrt(3 "
+                              "D_pad) + sqrt(2 D_pad)) 2^-24 A + 2 ulp of each epilogue rounding, "
+                              "A the row's sum of |q_d| code_d)")
             r256 = score_results(s256, sift_ov[:256], sift_oi[:256], 1e-4)
             r16 = score_results(s16, sift_ov[256:272], sift_oi[256:272], 1e-4)
             r1 = score_results([s1], sift_ov[300:301], sift_oi[300:301], 1e-4)
@@ -2017,21 +2119,26 @@ def main() -> None:
                 check(ms < old_ms and ms < lib,
                       f"dense_bucket_tc {dname} B_pad {qb.shape[0]}: {ms:.4f} ms, not faster than "
                       f"#2's f32-core design ({old_ms:.4f}) and the library ({lib:.4f})")
-        # #2 on the f32 SIFT rows at the slice shape, bit for bit
+        # #2 on the f32 SIFT rows at the slice shape, within f32_scan_tolerance
         for b in (1, 16, 256):
             qb = padded(b, torch.float32)
             out = bk.dense_bucket_gm(qb, sift_rows, pen, CHUNK)
             torch.cuda.synchronize()
-            errs["dense_bucket"] = max(errs["dense_bucket"], hold(
+            errs["dense_bucket"] = max(errs["dense_bucket"], hold_f32(
                 f"dense_bucket B {b} (B_pad {qb.shape[0]}), N {n}, D_pad 128, chunk {CHUNK}, f32",
-                out, bk.dense_bucket_ref(qb, sift_rows, pen, CHUNK)))
+                qb, sift_rows, pen, CHUNK, out))
+            if b == 16:
+                ms16 = time_kernel(torch, lambda: bk.dense_bucket_gm(qb, sift_rows, pen, CHUNK))
         ms = time_kernel(torch, lambda: bk.dense_bucket_gm(qb, sift_rows, pen, CHUNK))
         plain = time_kernel(torch, lambda: bk.dense_bucket_ref(qb, sift_rows, pen, CHUNK), iters=3)
         lib = time_kernel(torch, lambda: bucket_max(qb @ sift_rows.T - pen, CHUNK))
+        check_faster("dense_bucket (f32 rows)", ms, n, FIRST_F32_DENSE_MS, lib, ms16, lambda b: (
+            4 * b * 128 + 4 * n * 128 + 4 * n + 8 * b * n // CHUNK * 128))
         kernel_row(
-            "dense_bucket", "dense_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:152", ms, plain,
-            ops2 / PEAK_F32 * 1e3, 4 * 256 * 128 + 4 * n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128,
-            errs["dense_bucket"], library_ms=lib,
+            "dense_bucket", "dense_bucket_tc.cu", "velesdb_tpu/ops/bucket_kernel.py:152", ms, plain,
+            (6 * 256 * n * 128 + 256 * n) / PEAK_TC16 * 1e3,
+            4 * 256 * 128 + 4 * n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128,
+            errs["dense_bucket"], other=(F32_CORES, ops2, PEAK_F32), library_ms=lib,
         )
         say("dense_bucket (f32 rows) library yardstick: fp32 q @ rows.T (TF32 off), - cc, the "
             "bucket amax")
@@ -2123,7 +2230,7 @@ def main() -> None:
         db.delete_collection("sift1m_bf16")
 
         # #2 on f32 rows: the public op bucket_topk on the SIFT rows (padded
-        # rows knocked out by the penalty), every launch bit for bit
+        # rows knocked out by the penalty), every launch within its tolerance
         qt = torch.from_numpy(sift_q[:301]).to(dev)
         with MainPath(counters, bk, "dense_bucket_gm", "dense_bucket_gm") as run:
             _, b256 = bk.bucket_topk(qt[:256], sift_rows, pen, k=K, metric="euclidean",
@@ -2135,11 +2242,15 @@ def main() -> None:
             _, b1 = bk.bucket_topk(qt[300:301], sift_rows, pen, k=K, metric="euclidean",
                                    chunk=CHUNK)
             run.launched("bucket_topk b=1 (f32 rows)")
-        launches["dense_bucket"] = run.launches()
+        launches["dense_bucket"] = launches.get("dense_bucket", 0) + run.launches()
         errs["dense_bucket"] = max(errs["dense_bucket"], run.hold_all(
-            bk.dense_bucket_ref,
+            None,
             lambda q, rows, cc, ch: (f"dense_bucket B_pad {q.shape[0]}, N {rows.shape[0]}, "
-                                     f"D_pad {rows.shape[1]}, chunk {ch}, {rows.dtype}")))
+                                     f"D_pad {rows.shape[1]}, chunk {ch}, {rows.dtype}"),
+            holder=hold_f32))
+        tolerance_summary("dense_bucket", "f32_scan_tolerance (|err| <= (3.1 2^-16 + 8 (2 "
+                          "sqrt(3 D_pad) + sqrt(2 D_pad)) 2^-24) A + 2 ulp, A the winner's sum "
+                          "of |q_d c_d|)")
         got = torch.cat([b256, b16, b1]).cpu().numpy()
         want = np.concatenate([sift_oi[:256], sift_oi[256:272], sift_oi[300:301]])
         r2 = np.mean([len(set(a) & set(b)) / K for a, b in zip(got, want)])

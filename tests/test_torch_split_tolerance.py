@@ -1,5 +1,6 @@
 """The tolerances of the split-bf16 tensor-core kernels, on the CPU: #3
-(``split_scan_tolerance``) and #8 (``fused_topk_tolerance``), and the one
+(``split_scan_tolerance``), #8 (``fused_topk_tolerance``), #2 on f32 rows
+(``f32_scan_tolerance``) and #6 (``sq8_scan_tolerance``), and the one
 checker they share with #2b (``ranked_error``).
 
 - A plain emulation of each kernel's arithmetic lies within its tolerance:
@@ -16,6 +17,17 @@ checker they share with #2b (``ranked_error``).
   twice, and a kernel that drops both ``lo`` products (``qhi hi`` alone), at
   the widths where a worst-case order bound would admit it (#3 at D_pad
   1,536, #8 at D 768).
+- #2 on f32 rows and #6 (the f32 and SQ8 modes of ``csrc/dense_bucket_tc.cu``):
+  a plain emulation of each mode's arithmetic (#2: #8's split products; #6:
+  the queries' exact three-part split times the codes, in the kernel's K
+  order, summed in blocks, then the fixed-order affine) lies within its
+  tolerance at D 100 (a zero-filled last K step), 128 and 768, three
+  metrics; the three parts sum to the queries exactly; the JAX package's
+  ``_sq8_kernel`` (interpret mode) with the f32 unpack lies within
+  ``sq8_scan_tolerance``. Lower-precision controls are rejected by more
+  than 2x: #6 with the queries rounded to bf16 once (the reference's
+  ``unpack_bf16=True`` function, and its Pallas kernel) and #2 with ``qhi
+  hi`` alone.
 - The kernel libraries' names hash every ``csrc/`` header their source
   includes, so an edited header rebuilds them.
 """
@@ -34,7 +46,10 @@ from jax.experimental import pallas as pl
 import velesdb_tpu.ops.bucket_kernel as jbk
 import velesdb_tpu_torch.ops.bucket_kernel as tbk
 import velesdb_tpu_torch.ops.pallas_kernels as tpk
+from velesdb_tpu_torch.index.brute import _affine_fold
 from velesdb_tpu_torch.ops import _cuda
+from velesdb_tpu_torch.ops.distance import DistanceMetric
+from velesdb_tpu_torch.ops.quantization import sq8_pack_blocked, sq8_quantize, sq8_unpack_blocked
 
 METRICS = ["euclidean", "cosine", "dot_product"]
 
@@ -316,6 +331,186 @@ def test_fused_topk_tolerance_with_empty_ranks():
     assert tpk.fused_topk_error(*args, 10, "cosine", vals, filled)[0] == float("inf")
 
 
+# -- #2 on f32 rows and #6: the f32 and SQ8 modes of the tensor-core scan -------
+
+WIDTHS = [100, 128, 768]
+
+
+def _f32_case(metric, d, seed, b=16, n=4096, chunk=1024):
+    """``dense_bucket_gm``'s f32 operands as ``bucket_topk_entry`` prepares
+    them: D padded to a multiple of 8, 15% of rows knocked out, one chunk
+    wholly knocked out."""
+    rng = np.random.default_rng(seed)
+    x = _clustered(rng, n + b, d)
+    rows, q = x[:n], x[n:]
+    if metric == "cosine":
+        rows, q = rows / rows.norm(dim=1, keepdim=True), q / q.norm(dim=1, keepdim=True)
+    elif metric == "euclidean":
+        q = 2.0 * q
+    cc = (rows * rows).sum(1) if metric == "euclidean" else torch.zeros(n)
+    cc = torch.where(torch.from_numpy(rng.random(n) < 0.15), torch.inf, cc)
+    cc[:chunk] = torch.inf
+    d_pad = -(-d // 8) * 8
+    q = torch.nn.functional.pad(q, (0, d_pad - d, 0, (-b) % 8))
+    return q, torch.nn.functional.pad(rows, (0, d_pad - d)), cc, chunk
+
+
+def _f32_emulation(q, rows, cc, chunk):
+    """The f32 mode's arithmetic: query and row split into bf16 pairs, the
+    three split products summed in another order, then ``- cc``."""
+    dot = _split_dot(*tbk.split_f32_rows(q), *tbk.split_f32_rows(rows))
+    return tbk._bucket_select(dot - cc[None, :], chunk)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_f32_scan_tolerance_accepts_the_split_arithmetic(metric, d):
+    args = _f32_case(metric, d, seed=d + 1)
+    ref = tbk.f32_scan_tolerance(*args)
+    want = tbk.dense_bucket_ref(*args)
+    assert torch.equal(ref[0], want[0]) and torch.equal(ref[1], want[1])
+    got = _f32_emulation(*args)
+    worst, max_tol, _ = tbk.f32_scan_error(*args, *got, ref=ref)
+    assert worst <= 1.0 and max_tol > 0.0, worst
+    assert not torch.equal(got[0], ref[0])  # another order: the sums do differ
+    assert tbk.f32_scan_error(*args, *ref[:2], ref=ref)[0] == 0.0
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_f32_scan_tolerance_rejects_a_kernel_without_the_lo_products(metric, d):
+    """``qhi hi`` alone (query and row each rounded to bf16 once)."""
+    q, rows, cc, chunk = args = _f32_case(metric, d, seed=d + 2)
+    ref = tbk.f32_scan_tolerance(*args)
+    bf16_only = q.to(torch.bfloat16).float() @ rows.to(torch.bfloat16).float().T
+    got = tbk._bucket_select(bf16_only - cc[None, :], chunk)
+    assert tbk.f32_scan_error(*args, *got, ref=ref)[0] > 2.0
+
+
+def _sq8_case(metric, d, seed, b=16, n=4096, chunk=1024):
+    """``sq8_bucket_gm``'s operands as ``sq8_bucket_topk`` prepares them
+    from an SQ8 index's words and affine: queries normalized (cosine) or
+    doubled (euclidean), padded to 4 W; 15% of rows invalid and one chunk
+    wholly invalid."""
+    rng = np.random.default_rng(seed)
+    x = _clustered(rng, n + b, d)
+    rows, q = x[:n], x[n:]
+    if metric == "cosine":
+        rows, q = rows / rows.norm(dim=1, keepdim=True), q / q.norm(dim=1, keepdim=True)
+    elif metric == "euclidean":
+        q = 2.0 * q
+    sq = sq8_quantize(rows)
+    valid = torch.from_numpy(rng.random(n) > 0.15)
+    valid[:chunk] = False
+    scale, minv, pen, _ = _affine_fold(sq, valid, DistanceMetric.parse(metric))
+    words = sq8_pack_blocked(sq.codes)
+    q = torch.nn.functional.pad(q, (0, 4 * words.shape[1] - d, 0, (-b) % 8))
+    return q, words, scale, minv, pen, q.sum(1), chunk
+
+
+def _sq8_scores(dot, scale, minv, pen, qsum):
+    return (dot * scale[None, :] + qsum[:, None] * minv[None, :]) - pen[None, :]
+
+
+def _sq8_emulation(q, words, scale, minv, pen, qsum, chunk):
+    """The SQ8 mode's arithmetic: the queries' three exact bf16 parts times
+    the codes in the kernel's K order (K position ``4 w + j`` is dim ``j W +
+    w``), summed in blocks of 16 positions and a tree over the blocks, then
+    the affine in the plain version's order."""
+    w = words.shape[1]
+    perm = torch.arange(4 * w).reshape(4, w).T.reshape(-1)
+    parts = [p.float()[:, perm] for p in tbk.split3_f32(q)]
+    codes = sq8_unpack_blocked(words)[:, perm]
+    dot = _blocked_tree_sum([[p[:, k, None] * codes[None, :, k] for p in parts]
+                             for k in range(4 * w)])
+    return tbk._bucket_select(_sq8_scores(dot, scale, minv, pen, qsum), chunk)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_sq8_scan_tolerance_accepts_the_exact_split(metric, d):
+    args = _sq8_case(metric, d, seed=d)
+    q = args[0]
+    hi, mid, lo = tbk.split3_f32(q)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), q.double())
+    ref = tbk.sq8_scan_tolerance(*args)
+    want = tbk.sq8_bucket_ref(*args)
+    assert torch.equal(ref[0], want[0]) and torch.equal(ref[1], want[1])
+    got = _sq8_emulation(*args)
+    worst, max_tol, _ = tbk.sq8_scan_error(*args, *got, ref=ref)
+    assert worst <= 1.0 and max_tol > 0.0, worst
+    assert not torch.equal(got[0], ref[0])  # another order: the sums do differ
+    assert tbk.sq8_scan_error(*args, *ref[:2], ref=ref)[0] == 0.0
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_sq8_scan_tolerance_rejects_queries_rounded_to_bf16(metric, d):
+    """The reference's ``unpack_bf16=True`` function: the queries rounded to
+    bf16 once, their products with the codes summed exactly."""
+    q, words, scale, minv, pen, qsum, chunk = args = _sq8_case(metric, d, seed=d + 5)
+    ref = tbk.sq8_scan_tolerance(*args)
+    dot = (q.to(torch.bfloat16).double() @ sq8_unpack_blocked(words).double().T).float()
+    got = tbk._bucket_select(_sq8_scores(dot, scale, minv, pen, qsum), chunk)
+    assert tbk.sq8_scan_error(*args, *got, ref=ref)[0] > 2.0
+
+
+def _reference_sq8_kernel(q, words, scale, minv, pen, chunk, unpack_bf16):
+    """The JAX package's ``_sq8_kernel`` in interpret mode on the port's
+    operands: ``(gm, gi)`` as torch tensors."""
+    b, d_pad = q.shape
+    n, w = words.shape
+    nb = n // chunk * 128
+
+    def rows8(v):
+        return jnp.broadcast_to(jnp.asarray(v.numpy())[None, :], (8, n))
+
+    gm, gi = pl.pallas_call(
+        functools.partial(jbk._sq8_kernel, chunk=chunk, d_pad=d_pad, unpack_bf16=unpack_bf16),
+        grid=(n // chunk,),
+        in_specs=[pl.BlockSpec((b, d_pad), lambda c: (0, 0)),
+                  pl.BlockSpec((chunk, w), lambda c: (c, 0)),
+                  pl.BlockSpec((8, chunk), lambda c: (0, c)),
+                  pl.BlockSpec((8, chunk), lambda c: (0, c)),
+                  pl.BlockSpec((8, chunk), lambda c: (0, c))],
+        out_specs=(pl.BlockSpec((b, 128), lambda c: (0, c)),
+                   pl.BlockSpec((b, 128), lambda c: (0, c))),
+        out_shape=(jax.ShapeDtypeStruct((b, nb), jnp.float32),
+                   jax.ShapeDtypeStruct((b, nb), jnp.int32)),
+        interpret=True,
+    )(jnp.asarray(q.numpy()), jnp.asarray(words.numpy()), rows8(scale), rows8(minv), rows8(pen))
+    return torch.from_numpy(np.asarray(gm)), torch.from_numpy(np.asarray(gi))
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_reference_sq8_kernel_within_the_tolerance(metric):
+    """The JAX package's #6 (interpret mode) on the same words: the f32
+    unpack (the function the port's mode computes) within
+    ``sq8_scan_tolerance``, the bf16 unpack outside it by more than 2x. The
+    reference sums ``qsum`` inside its kernel, so the plain pass takes its
+    sum."""
+    q, words, scale, minv, pen, _, chunk = _sq8_case(metric, 128, seed=21)
+    qsum = torch.from_numpy(np.asarray(jnp.sum(jnp.asarray(q.numpy()), axis=1)))
+    args = (q, words, scale, minv, pen, qsum, chunk)
+    ref = tbk.sq8_scan_tolerance(*args)
+    f32 = _reference_sq8_kernel(q, words, scale, minv, pen, chunk, unpack_bf16=False)
+    assert tbk.sq8_scan_error(*args, *f32, ref=ref)[0] <= 1.0
+    bf16 = _reference_sq8_kernel(q, words, scale, minv, pen, chunk, unpack_bf16=True)
+    assert tbk.sq8_scan_error(*args, *bf16, ref=ref)[0] > 2.0
+
+
+def test_sq8_query_parts_follow_the_words():
+    """The kernel's query parts: column ``4 v + j`` is dim ``j W + v``, zero
+    past 4 W up to a multiple of 8, and the parts sum to the query."""
+    q = torch.from_numpy(np.random.default_rng(3).standard_normal((8, 100)).astype(np.float32))
+    parts = tbk._sq8_query_parts(q, 25)
+    assert all(p.shape == (8, 104) and p.dtype == torch.bfloat16 for p in parts)
+    total = sum(p.double() for p in parts)
+    perm = torch.arange(100).reshape(4, 25).T.reshape(-1)
+    assert torch.equal(total[:, :100], q.double()[:, perm])
+    assert not total[:, 100:].any()
+
+
 # -- the build hash ---------------------------------------------------------------
 
 
@@ -326,10 +521,10 @@ def test_library_names_hash_the_headers_their_sources_include(tmp_path, monkeypa
     srcs = _cuda._sources(str(csrc / "fused_topk.cu"), [])
     assert [os.path.basename(p) for p in srcs] == ["fused_topk.cu", "wgmma.cuh"]
     before = {name: _cuda._paths(name)[1]
-              for name in ("fused_topk", "dense_bucket_tc", "dense_bucket")}
+              for name in ("fused_topk", "dense_bucket_tc", "sq8i_bucket")}
     with open(csrc / "wgmma.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {name: _cuda._paths(name)[1] for name in before}
     assert after["fused_topk"] != before["fused_topk"]
     assert after["dense_bucket_tc"] != before["dense_bucket_tc"]
-    assert after["dense_bucket"] == before["dense_bucket"]  # includes no header
+    assert after["sq8i_bucket"] == before["sq8i_bucket"]  # includes no header

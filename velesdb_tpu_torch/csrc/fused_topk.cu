@@ -53,7 +53,8 @@
 //   3 KB, so no tile of them stays resident): the query halves, split once
 //   by the wrapper, by cp.async into two buffers in the 128-byte-swizzled
 //   layout wgmma reads; the rows by 16-byte loads into registers two K
-//   blocks ahead;
+//   blocks ahead (wgmma.cuh's register staging, shared with the f32 and SQ8
+//   modes of dense_bucket_tc.cu);
 // - each thread splits its rows of the next K block into (hi, lo) bf16 in
 //   the other of two swizzled operand buffers while the tensor cores run
 //   this one's three products, hi.qhi, lo.qhi and hi.qlo, into one set of
@@ -278,20 +279,16 @@ fused_pass1(const __nv_bfloat16* __restrict__ qhi, const __nv_bfloat16* __restri
   // halves are copied with cp.async into query buffer t % 2, swizzled as
   // wgmma's B (zero past B and D_pad).
   uint4 pre[kLoads];
+  const long long row_stride = static_cast<long long>(d_pad) * sizeof(T);
   auto load_rows = [&](int t) {
     const int tt = t / kb_count;
     const int kb = t - tt * kb_count;
     const long long row0 = range0 + static_cast<long long>(tt) * kTile;
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int x = tid + j * kThreads;
-      const int r = x / kGroups;
-      const int col = kb * kKBlock + (x % kGroups) * kVals;
-      pre[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < n && col < d_pad) {
-        pre[j] = __ldg(reinterpret_cast<const uint4*>(rows + (row0 + r) * d_pad + col));
-      }
-    }
+    const long long left = n - row0;
+    stage_load<kGroups, kLoads, kThreads>(
+        pre, reinterpret_cast<const unsigned char*>(rows) + row0 * row_stride, row_stride,
+        static_cast<int>(left < kTile ? left : kTile), kb * kKBlock * static_cast<int>(sizeof(T)),
+        static_cast<int>(row_stride), true, tid);
   };
   auto split_rows = [&](int buf) {
     unsigned char* hi = ops + buf * 2 * kOpBytes;
@@ -300,34 +297,15 @@ fused_pass1(const __nv_bfloat16* __restrict__ qhi, const __nv_bfloat16* __restri
       const int x = tid + j * kThreads;
       const int r = x / kGroups;
       const int g = x % kGroups;
-      float f[kVals];
-      if constexpr (sizeof(T) == 4) {
-        f[0] = __uint_as_float(pre[j].x);
-        f[1] = __uint_as_float(pre[j].y);
-        f[2] = __uint_as_float(pre[j].z);
-        f[3] = __uint_as_float(pre[j].w);
+      if constexpr (sizeof(T) == 4) {  // f32: half a 16-byte chunk of bf16
+        store_split_f32(hi, hi + kOpBytes, r, g, pre[j]);
       } else {
         const T* h = reinterpret_cast<const T*>(&pre[j]);
+        float f[kVals];
 #pragma unroll
         for (int v = 0; v < kVals; ++v) f[v] = to_f32(h[v]);
-      }
-      uint32_t hw[kVals / 2], lw[kVals / 2];
-#pragma unroll
-      for (int v = 0; v < kVals / 2; ++v) {
-        const __nv_bfloat16 h0 = __float2bfloat16_rn(f[2 * v]);
-        const __nv_bfloat16 h1 = __float2bfloat16_rn(f[2 * v + 1]);
-        const __nv_bfloat16 l0 = __float2bfloat16_rn(f[2 * v] - __bfloat162float(h0));
-        const __nv_bfloat16 l1 = __float2bfloat16_rn(f[2 * v + 1] - __bfloat162float(h1));
-        hw[v] = static_cast<uint32_t>(__bfloat16_as_ushort(h0)) |
-                (static_cast<uint32_t>(__bfloat16_as_ushort(h1)) << 16);
-        lw[v] = static_cast<uint32_t>(__bfloat16_as_ushort(l0)) |
-                (static_cast<uint32_t>(__bfloat16_as_ushort(l1)) << 16);
-      }
-      if constexpr (kVals == 4) {  // f32: half a 16-byte chunk of bf16
-        const uint32_t o = swz(r, g / 2) + (g % 2) * 8;
-        *reinterpret_cast<uint2*>(hi + o) = make_uint2(hw[0], hw[1]);
-        *reinterpret_cast<uint2*>(hi + kOpBytes + o) = make_uint2(lw[0], lw[1]);
-      } else {
+        uint32_t hw[kVals / 2], lw[kVals / 2];
+        split_bf16<kVals>(f, hw, lw);
         const uint32_t o = swz(r, g);
         *reinterpret_cast<uint4*>(hi + o) = make_uint4(hw[0], hw[1], hw[2], hw[3]);
         if constexpr (!kBf16Rows) {

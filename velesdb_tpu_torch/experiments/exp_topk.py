@@ -11,7 +11,8 @@ and its ground truth:
     scan_exact   fp32 ``torch.mm`` over row chunks of ``--chunk``, ``torch.topk``
                  per chunk, merged (the ground truth's method)
     scan_approx  the same (the port selects exactly everywhere)
-    bucket       #2 (csrc/dense_bucket.cu) on the doubled queries: one winner
+    bucket       #2 (csrc/dense_bucket_tc.cu, the f32 rows split into bf16
+                 pairs on the tensor cores) on the doubled queries: one winner
                  of ``2 q.c - |c|^2`` per 128-lane bucket of each ``--pchunk``
                  rows, then the top k of the winners
     bucket_approx  the same (exact selection)

@@ -19,12 +19,14 @@ does:
      ``_SQ8I_MAX_DIM``): the (hi, lo) bf16 scan on the tensor cores (the
      split mode of ``csrc/dense_bucket_tc.cu``);
   4. ``bucket-f32`` (F16/BF16, and FULL where the assist guard fails): the
-     float bucket scan (``csrc/dense_bucket.cu``);
+     float bucket scan on the tensor cores (``csrc/dense_bucket_tc.cu``: half
+     rows as they are, f32 rows split into bf16 pairs in the kernel);
   5. ``streamed-scan`` — everything else: chunked fp32 matmul + exact top-k
      (half corpora upcast one chunk at a time).
 - SQ8 (uint8 codes + per-row affine): ``sq8-int8`` (``csrc/sq8i_bucket.cu``)
   where the bucket collision guard holds and D < ``_SQ8I_MAX_DIM``,
-  ``sq8-bucket`` (``csrc/sq8_bucket.cu``, block-packed words) where it holds
+  ``sq8-bucket`` (the SQ8 mode of ``csrc/dense_bucket_tc.cu``, block-packed
+  words unpacked on the tensor cores) where it holds
   and D >= ``_SQ8I_MAX_DIM``, else ``sq8-streamed`` (plain torch).
 - BINARY (packed sign bits): ``hamming-mxu`` (``csrc/hamming_mxu_bucket.cu``)
   while the 1 byte/bit shadow fits ``VELESDB_HAMMING_MXU_MAX_BYTES``, else
@@ -264,7 +266,7 @@ class BruteForceIndex:
 
     def _set_full(self, rows: torch.Tensor) -> None:
         """Store the float rows ``[N_pad, D]`` once, zero-padded in width to a
-        multiple of 8 (what ``csrc/dense_bucket.cu`` reads): ``bucket-f32``
+        multiple of 8 (what ``csrc/dense_bucket_tc.cu`` reads): ``bucket-f32``
         hands ``_full_w`` to the kernel without a copy, the other cores read
         its ``[:, :D]`` view ``_full``."""
         pad = (-self.dim) % 8

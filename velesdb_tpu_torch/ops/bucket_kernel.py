@@ -5,26 +5,28 @@ a query batch against a padded corpus chunk by chunk and keeps ONE winner per
 128-lane bucket of each chunk (``_bucket_select``), so the ``[B, N]`` score
 matrix never exists in device memory; an exact ``torch.topk`` over the bucket
 winners (``_final_select``) finishes the search. Eight hand-written CUDA
-kernels (``csrc/``), each with its plain torch version beside it:
+kernels in five sources (``csrc/``), each with its plain torch version
+beside it. The float scans are four modes of one tensor-core kernel,
+``csrc/dense_bucket_tc.cu``:
 
-- ``dense_bucket`` (#2, :func:`dense_bucket_gm`): ``dot - cc``
-  (:func:`bucket_topk_entry`) on f32 rows; ``dense_bucket_tc`` (#2b) the
-  same on f16 and bf16 rows, on the tensor cores: the ``bucket-f32`` core of
-  F16/BF16 storage below D 512.
-- ``hl_bucket`` (#3, :func:`hl_bucket_gm`): split-bf16 (hi, lo) rows
-  (:func:`bucket_topk_hl`); the FULL ``split-bf16`` core, on the tensor
-  cores: the split mode of ``csrc/dense_bucket_tc.cu``.
-- ``sq8_bucket`` (#6, :func:`sq8_bucket_gm`): block-packed SQ8 words
+- #2 (:func:`dense_bucket_gm`): ``dot - cc`` (:func:`bucket_topk_entry`),
+  on f16 and bf16 rows (#2b, counter ``dense_bucket_tc``: the ``bucket-f32``
+  core of F16/BF16 storage below D 512) and on f32 rows split into bf16
+  (hi, lo) pairs in the kernel (counter ``dense_bucket_gm``: FULL storage
+  past the assist cores' guard, and the op :func:`bucket_topk`).
+- #3 (:func:`hl_bucket_gm`): split-bf16 (hi, lo) rows
+  (:func:`bucket_topk_hl`); the FULL ``split-bf16`` core.
+- #6 (:func:`sq8_bucket_gm`): block-packed SQ8 words unpacked in the kernel
   (:func:`sq8_bucket_topk`); the ``sq8-bucket`` core.
 
-The two float kernels on fp32 CUDA cores (#2 on f32 rows, #6) sum each dot
-over the dims in order, one rounded multiply and add per term
-(:func:`_ordered_dot`), so on the card they equal their plain versions bit
-for bit. The tensor-core kernels add exact half products in their own
-order: ``dense_bucket_tc`` is held to its plain version within
-:func:`half_scan_tolerance`, ``hl_bucket`` within
-:func:`split_scan_tolerance`, both through the one checker
-:func:`ranked_error`. The int8 and Hamming kernels:
+The plain versions sum each dot over the dims in order, one rounded
+multiply and add per term (:func:`_ordered_dot`). The tensor cores add
+exact bf16/f16 products in their own order, so each mode is held to its
+plain version within a stated tolerance, through the one checker
+:func:`ranked_error`: half rows within :func:`half_scan_tolerance`, f32
+rows within :func:`f32_scan_tolerance`, #3 within
+:func:`split_scan_tolerance`, #6 within :func:`sq8_scan_tolerance`. The int8
+and Hamming kernels:
 
 - ``sq8pd_bucket`` (#1, :func:`sq8pd_bucket_gm`): the per-DIMENSION int8
   "enc-select" scan, the FULL-storage core at D < 512 and at least
@@ -71,9 +73,12 @@ __all__ = [
     "bucket_topk_entry",
     "dense_bucket_gm",
     "dense_bucket_ref",
+    "f32_scan_error",
+    "f32_scan_tolerance",
     "half_scan_error",
     "half_scan_tolerance",
     "ranked_error",
+    "split3_f32",
     "split_f32_rows",
     "split_scan_error",
     "split_scan_tolerance",
@@ -84,6 +89,8 @@ __all__ = [
     "sq8_bucket_gm",
     "sq8_bucket_ref",
     "sq8_bucket_topk",
+    "sq8_scan_error",
+    "sq8_scan_tolerance",
     "sq8_int8_rows",
     "sq8i_bucket_gm",
     "sq8i_bucket_ref",
@@ -792,7 +799,7 @@ def hamming_rerank_topk(queries, packed_q, packed_corpus, penalty, corpus, *, k,
 # ---------------------------------------------------------------------------
 
 _FLOAT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_DENSE_MAX_DPAD = 3072  # #2: 16 queries x D_pad floats of shared memory; #2b: 8 half queries
+_DENSE_MAX_DPAD = 3072  # #2, #2b and #6: the parts of an 8-query tile and two stages
 _HL_MAX_DPAD = 1536  # #3, the reference's cap: two 8-query halves and two stages
 
 
@@ -829,6 +836,12 @@ def dense_bucket_ref(q, rows, cc, chunk: int):
     return _bucket_select(_ordered_dot(q, rows) - cc[None, :], chunk)
 
 
+def _ulp(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 spacing above ``|x|``."""
+    mag = x.abs()
+    return torch.nextafter(mag, torch.full_like(mag, torch.inf)) - mag
+
+
 def half_scan_tolerance(q, rows, cc, chunk: int):
     """The plain pass of #2 and the bound #2b is held to on half rows:
     ``(gm_ref, gi_ref, s_ref [B_pad, N], tol)``, ``tol`` per bucket winner:
@@ -843,9 +856,7 @@ def half_scan_tolerance(q, rows, cc, chunk: int):
     s = _ordered_dot(q, rows) - cc[None, :]
     gm, gi = _bucket_select(s, chunk)
     a = torch.gather(q.float().abs() @ rows.float().abs().T, 1, gi.long())
-    mag = gm.abs()
-    ulp = torch.nextafter(mag, torch.full_like(mag, torch.inf)) - mag
-    tol = 2.0 * q.shape[1] * 2.0**-24 * a + 2.0 * ulp
+    tol = 2.0 * q.shape[1] * 2.0**-24 * a + 2.0 * _ulp(gm)
     return gm, gi, s, tol
 
 
@@ -913,22 +924,59 @@ def half_scan_error(q, rows, cc, chunk: int, gm, gi, ref=None):
                          chunk, gm, gi)
 
 
+def f32_scan_tolerance(q, rows, cc, chunk: int):
+    """The plain pass of #2 on f32 rows and the bound its tensor-core mode
+    (rows split in the kernel) is held to: ``(gm_ref, gi_ref, s_ref [B_pad,
+    N], tol)``, ``tol`` per bucket winner, with ``A = sum_d |q_d x_d|`` over
+    the plain winner's row:
+
+        |gm - gm_ref| <= (3.1 * 2^-16 + order_bound(3 D_pad, 2 D_pad)) * A
+                         + 2 ulp(gm_ref)
+
+    The kernel computes #8's dot (:func:`~velesdb_tpu_torch.ops.
+    pallas_kernels.fused_topk_tolerance` derives both terms): the split's
+    dropped terms ``qlo lo``, ``qhi (x - hi - lo)`` and ``(q - qhi - qlo)
+    hi`` are at most ``3.1 * 2^-16 * A`` in all; its ``3 D_pad`` exact
+    products summed in the tensor cores' order lie within
+    :func:`order_bound` ``(3 D_pad, 2 D_pad) A`` of the plain version's
+    ``D_pad`` rounded products and ``D_pad - 1`` sums. The two ulps cover
+    the rounding of ``dot - cc``."""
+    s = _ordered_dot(q, rows) - cc[None, :]
+    gm, gi = _bucket_select(s, chunk)
+    a = torch.gather(q.float().abs() @ rows.float().abs().T, 1, gi.long())
+    d_pad = q.shape[1]
+    tol = (3.1 * 2.0**-16 + order_bound(3 * d_pad, 2 * d_pad)) * a + 2.0 * _ulp(gm)
+    return gm, gi, s, tol
+
+
+def f32_scan_error(q, rows, cc, chunk: int, gm, gi, ref=None):
+    """``(gm, gi)`` of #2 on f32 rows against the plain pass within
+    :func:`f32_scan_tolerance` (``ref``: its result, when already computed),
+    by the rules of :func:`half_scan_error`. Returns ``(worst, max_tol,
+    max_abs_err)``; the outputs pass when ``worst <= 1``."""
+    return _bucket_error(f32_scan_tolerance(q, rows, cc, chunk) if ref is None else ref,
+                         chunk, gm, gi)
+
+
 def dense_bucket_gm(q, rows, cc, chunk: int):
     """Bucket winners of the float scan, ``(gm f32, gi int32)
     [B_pad, N/chunk*128]``: ``q [B_pad, D_pad]`` and ``rows [N, D_pad]`` in
     one float dtype (f32, f16 or bf16), ``cc [N]`` f32. CUDA tensors launch
-    ``csrc/dense_bucket.cu`` (#2) on f32 rows, bit for bit, and
-    ``csrc/dense_bucket_tc.cu`` (#2b, tensor cores) on f16 and bf16 rows,
-    within :func:`half_scan_tolerance`; CPU tensors take
-    :func:`dense_bucket_ref`."""
+    ``csrc/dense_bucket_tc.cu`` on the tensor cores: f16 and bf16 rows as
+    they are (#2b, counter ``dense_bucket_tc``), within
+    :func:`half_scan_tolerance`; f32 rows split into bf16 (hi, lo) pairs in
+    the kernel against the queries split here once (#2, counter
+    ``dense_bucket_gm``), within :func:`f32_scan_tolerance`. CPU tensors
+    take :func:`dense_bucket_ref`."""
     _check_float_scan(q, rows, chunk, _DENSE_MAX_DPAD, (cc,))
     if _kernel_route(q, rows, cc):
         return dense_bucket_ref(q, rows, cc, chunk)
     (b_pad, d_pad), n = q.shape, rows.shape[0]
     gm, gi = _gm_gi(b_pad, n, chunk, q.device)
     if rows.dtype == torch.float32:
-        _launch(LAUNCHES, "dense_bucket_gm", "dense_bucket", "dense_bucket_launch", _P * 5 + _IIJ,
-                q, rows, cc, gm, gi, b_pad, n, d_pad, chunk)
+        qhi, qlo = split_f32_rows(q)
+        _launch(LAUNCHES, "dense_bucket_gm", "dense_bucket_tc", "dense_bucket_f32_launch",
+                _P * 6 + _IIJ, qhi, qlo, rows, cc, gm, gi, b_pad, n, d_pad, chunk)
     else:
         _launch(LAUNCHES, "dense_bucket_tc", "dense_bucket_tc", "dense_bucket_tc_launch",
                 _P * 5 + _IIJ + (ctypes.c_int,), q, rows, cc, gm, gi, b_pad, n, d_pad, chunk,
@@ -1019,6 +1067,19 @@ def split_f32_rows(corpus: torch.Tensor):
     return hi, (x - hi.float()).to(torch.bfloat16)
 
 
+def split3_f32(x: torch.Tensor):
+    """``[B, D] f32`` -> ``(hi, mid, lo)`` bf16 with ``hi + mid + lo == x``
+    exactly: ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi -
+    mid)``. Each remainder is exact in fp32, and three 8-bit significands
+    cover f32's 24 (bf16 has f32's exponent range; values below 2^-110 may
+    lose bits to bf16's subnormals)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
 def _hl_scores(qhi, qlo, hi, lo, cc):
     """#3's plain scores ``[B_pad, N]``: ``a = qhi.hi``, then ``e = qhi.lo``
     continued with ``qlo.hi`` (the reference's ``[qhi|qlo].[lo|hi]`` in its
@@ -1074,10 +1135,8 @@ def split_scan_tolerance(qhi, qlo, hi, lo, cc, chunk: int):
     mag = qh @ (h + lo.float().abs()).T
     mag += ql @ h.T
     a_w = torch.gather(mag, 1, gi.long())
-    g = gm.abs()
-    ulp = torch.nextafter(g, torch.full_like(g, torch.inf)) - g
     n = 3 * qhi.shape[1]
-    tol = order_bound(n, n) * a_w + 2.0 * ulp
+    tol = order_bound(n, n) * a_w + 2.0 * _ulp(gm)
     return gm, gi, s, tol
 
 
@@ -1159,17 +1218,77 @@ def sq8_bucket_ref(q, words, scale, minv, pen, qsum, chunk: int):
     return _bucket_select(s - pen[None, :], chunk)
 
 
+def sq8_scan_tolerance(q, words, scale, minv, pen, qsum, chunk: int):
+    """The plain pass of #6 and the bound its tensor-core mode is held to:
+    ``(gm_ref, gi_ref, s_ref [B_pad, N], tol)``, ``tol`` per bucket winner
+    ``r``, with ``A = sum_d (|qhi_d| + |qmid_d| + |qlo_d|) code_d`` over its
+    row (:func:`split3_f32` of ``q``; ``A`` is ``sum_d |q_d| code_d`` to a
+    few parts in 2^9):
+
+        dot:    order_bound(3 D_pad, 2 D_pad) * A
+        score:  |scale_r| * dot's bound + 2 ulp(P) + 2 ulp(T) + 2 ulp(gm_ref)
+
+    The dot: the queries split exactly into three bf16 parts and the codes
+    0..255 are exact in bf16, so the kernel's ``3 D_pad`` products are the
+    exact terms of ``q . codes`` and there is no split term; they are summed
+    in the tensor cores' order, the plain version rounds ``D_pad`` products
+    and ``D_pad - 1`` sums: :func:`order_bound` bounds the difference. The
+    score: both sides round ``P = dot * scale``, ``T = P + qsum * minv`` and
+    ``T - pen`` in that order; a dot that differs by ``e`` moves ``P`` by at
+    most ``|scale| e`` and each rounding by at most one ulp of its result on
+    either side (within a factor 2 of the plain result's ulp)."""
+    dot = _ordered_dot(q, sq8_unpack_blocked(words))
+    p = dot * scale[None, :]
+    t = p + qsum[:, None] * minv[None, :]
+    s = t - pen[None, :]
+    gm, gi = _bucket_select(s, chunk)
+    g = gi.long()
+    parts = sum(part.float().abs() for part in split3_f32(q))
+    a = torch.gather(parts @ sq8_unpack_blocked(words).T, 1, g)
+    d_pad = q.shape[1]
+    dot_tol = order_bound(3 * d_pad, 2 * d_pad) * a
+    ulps = _ulp(torch.gather(p, 1, g)) + _ulp(torch.gather(t, 1, g)) + _ulp(gm)
+    tol = scale.abs()[g] * dot_tol + 2.0 * ulps
+    return gm, gi, s, tol
+
+
+def sq8_scan_error(q, words, scale, minv, pen, qsum, chunk: int, gm, gi, ref=None):
+    """``(gm, gi)`` of #6 against the plain pass within
+    :func:`sq8_scan_tolerance` (``ref``: its result, when already computed),
+    by the rules of :func:`half_scan_error`. Returns ``(worst, max_tol,
+    max_abs_err)``; the outputs pass when ``worst <= 1``."""
+    if ref is None:
+        ref = sq8_scan_tolerance(q, words, scale, minv, pen, qsum, chunk)
+    return _bucket_error(ref, chunk, gm, gi)
+
+
+def _sq8_query_parts(q: torch.Tensor, w: int):
+    """#6's queries for the kernel: the columns permuted to the words' order
+    (``q'[:, 4 v + j] = q[:, j w + v]``: word ``v`` unpacks into K positions
+    ``4 v .. 4 v + 3``), padded to a multiple of 8, split into three bf16
+    parts (:func:`split3_f32`)."""
+    b = q.shape[0]
+    qp = q.reshape(b, 4, w).transpose(1, 2).reshape(b, 4 * w)
+    return split3_f32(F.pad(qp, (0, _round_up(4 * w, 8) - 4 * w)))
+
+
 def sq8_bucket_gm(q, words, scale, minv, pen, qsum, chunk: int):
     """Bucket winners of the staged SQ8 scan (#6), ``(gm f32, gi int32)``:
     ``q [B_pad, D_pad] f32``, ``words [N, D_pad/4] int32``. CUDA tensors
-    launch ``csrc/sq8_bucket.cu``; CPU tensors take :func:`sq8_bucket_ref`."""
+    launch the SQ8 mode of ``csrc/dense_bucket_tc.cu`` (the words unpacked
+    to bf16 codes in the kernel, the queries permuted and split here once,
+    three bf16 products a K step), held to :func:`sq8_bucket_ref` within
+    :func:`sq8_scan_tolerance`; CPU tensors take :func:`sq8_bucket_ref`."""
     _check_sq8_words(q, words, scale, minv, pen, qsum, chunk)
     if _kernel_route(q, words, scale, minv, pen, qsum):
         return sq8_bucket_ref(q, words, scale, minv, pen, qsum, chunk)
     b_pad, (n, w) = q.shape[0], words.shape
     gm, gi = _gm_gi(b_pad, n, chunk, q.device)
-    _launch(LAUNCHES, "sq8_bucket_gm", "sq8_bucket", "sq8_bucket_launch", _P * 8 + _IIJ,
-            q, words, scale, minv, pen, qsum, gm, gi, b_pad, n, w, chunk)
+    qhi, qmid, qlo = _sq8_query_parts(q, w)
+    _launch(LAUNCHES, "sq8_bucket_gm", "dense_bucket_tc", "sq8_bucket_tc_launch",
+            _P * 10 + (ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int),
+            qhi, qmid, qlo, words, scale, minv, pen, qsum, gm, gi, b_pad, n, qhi.shape[1], w,
+            chunk)
     return gm, gi
 
 
@@ -1178,15 +1297,15 @@ def sq8_bucket_topk(queries, words, scale, minv, penalty, *, k: int, metric, chu
     D_pad/4] int32`` from :func:`~velesdb_tpu_torch.ops.quantization.
     sq8_pack_blocked`); ``penalty``: euclidean dequantized ``|c|^2``, else 0,
     ``+inf`` on rows knocked out. Cosine's ``1/|c|`` is folded into
-    ``scale``/``minv``. ``sum(q)`` is summed here once, in dim order, and
-    handed to the scan."""
+    ``scale``/``minv``. ``sum(q)`` is summed here once, in one reduction,
+    and handed to the scan."""
     metric = DistanceMetric.parse(metric)
     b, d = queries.shape
     d_pad = words.shape[1] * 4
     b_pad = _round_up(max(b, 8), 8)
     q, qq = _prep_queries(queries, metric)
     q = F.pad(q, (0, d_pad - d, 0, b_pad - b))
-    qsum = _ordered_dot(q, torch.ones((1, d_pad), device=q.device))[:, 0]
+    qsum = q.sum(dim=1)
     gm, gi = sq8_bucket_gm(q, words, scale, minv, penalty.float(), qsum, chunk)
     vals, idx = _final_select(gm, gi, k, b)
     if metric is DistanceMetric.EUCLIDEAN:

@@ -44,6 +44,7 @@ from velesdb_tpu_torch.ops.bucket_kernel import (
     _ordered_dot,
     _round_up,
     _score_keys,
+    _ulp,
     hamming_distances,
     order_bound,
     ranked_error,
@@ -196,9 +197,7 @@ def fused_topk_tolerance(q, rows, valid, aux, qq, k: int, metric):
         dot_tol = dot_tol * aux[r]
     elif metric is DistanceMetric.EUCLIDEAN:
         dot_tol = 2.0 * dot_tol
-    mag = vals.abs()
-    ulp = torch.nextafter(mag, torch.full_like(mag, torch.inf)) - mag
-    return vals, ids, s, dot_tol + 2.0 * ulp, gap
+    return vals, ids, s, dot_tol + 2.0 * _ulp(vals), gap
 
 
 def fused_topk_error(q, rows, valid, aux, qq, k: int, metric, vals, idx, ref=None):

@@ -4,6 +4,11 @@ of it and time both on one NVIDIA GPU.
 
     python3 velesdb_tpu_torch/tools/dense_tc_occupancy.py    # from the repo root
 
+It builds the ``csrc/`` of the checkout it runs in (the current directory),
+so run from another checkout's root (``cd build/parent && python3
+<repo>/velesdb_tpu_torch/tools/dense_tc_occupancy.py``) it times that
+checkout's #2b: two checkouts compared in one call.
+
 The variant is the same source with query tiles capped at 64, the launch
 bounds asking for two blocks per SM (at most 128 registers a thread) and the
 stage ring sized so two blocks' shared memory fits: does a second resident
@@ -18,34 +23,35 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
 import torch
 
 N, D, CHUNK = 1_048_576, 128, 8192
-VARIANT = [  # (text in the source, text in the two-blocks-per-SM variant)
-    ("__global__ void __launch_bounds__(kThreads, 1)",
+VARIANT = [  # (pattern in the source, text in the two-blocks-per-SM variant)
+    (r"__global__ void __launch_bounds__\(kThreads, 1\)",
      "__global__ void __launch_bounds__(kThreads, (NQ <= 64 ? 2 : 1))"),
-    ("b_pad <= 64 ? 64 : 128;", "64;"),
-    ("const long long free_bytes = kSmemLimit - 1024",
-     "const long long free_bytes = kSmemLimit / 2 - 1024"),
+    (r"b_pad <= 64 \? 64 : 128;", "64;"),
+    (r"free_bytes =\s*kSmemLimit -", "free_bytes = kSmemLimit / 2 -"),
 ]
 
 
 def _build(_cuda) -> dict:
     src = open("velesdb_tpu_torch/csrc/dense_bucket_tc.cu").read()
     v1 = src
-    for a, b in VARIANT:
-        assert v1.count(a) == 1, a
-        v1 = v1.replace(a, b)
+    for pattern, text in VARIANT:
+        v1, count = re.subn(pattern, text, v1)
+        assert count == 1, pattern
     os.makedirs("build/tc", exist_ok=True)
     procs = {}
     for name, text in (("v0", src), ("v1", v1)):
         with open(f"build/tc/{name}.cu", "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [_cuda._nvcc(), *_cuda._NVCC_FLAGS, "-o", f"build/tc/{name}.so", f"build/tc/{name}.cu"],
+            [_cuda._nvcc(), *_cuda._NVCC_FLAGS, "-I", "velesdb_tpu_torch/csrc", "-o",
+             f"build/tc/{name}.so", f"build/tc/{name}.cu"],
             stderr=subprocess.PIPE, text=True)
     libs = {}
     for name, proc in procs.items():
