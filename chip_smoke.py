@@ -6,10 +6,10 @@
 Phases, in order; any failure exits nonzero:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off, build the nine kernel libraries from ``velesdb_tpu_torch/csrc``
+   off, build the eight kernel libraries from ``velesdb_tpu_torch/csrc``
    (the twelve hand-written kernels: #2 on f32 rows, #3 and #6 are modes of
-   #2b's source; one ``nvcc`` per source, all at once) and print their
-   ptxas registers and spills.
+   #2b's source, #5 an epilogue of #7's; one ``nvcc`` per source, all at
+   once) and print their ptxas registers and spills.
 2. Kernels vs their plain torch versions, bit for bit (``torch.equal``),
    except the five on the tensor cores, held on every launch, here and on
    their main paths, to a stated tolerance through one checker
@@ -64,7 +64,10 @@ Phases, in order; any failure exits nonzero:
 5. Slice 2, ``sift1m-sq8``: the SIFT data as SQ8 (``sq8-int8``, kernel #7),
    auto-rerank behind the storage recall gate: recall@10 >= 0.95 after the
    rerank, the raw coarse pass's recall printed, no filtered-out id, same
-   ids after close + reopen. Slice 3: ``sift1m-sq8-staged``, the collection
+   ids after close + reopen; #7 (on the int8 tensor cores since slice 9)
+   timed at B_pad 256 and 16 against its bound, and it must beat its first
+   (dp4a) design (``FIRST_INT8_MS``) and the library yardstick. Slice 3:
+   ``sift1m-sq8-staged``, the collection
    reopened with ``_SQ8I_MAX_DIM[0] = 128``: block-packed words,
    ``sq8-bucket`` (#6) behind the same gate, the same checks, #6 held
    within its tolerance at B 1, 16 and 256 and timed against its first
@@ -82,7 +85,9 @@ Phases, in order; any failure exits nonzero:
    library yardstick, which it must beat.
 6. Slice 2, ``glove100-binary``: 1,183,514 x 100 cosine BINARY
    (ann-benchmarks glove-100-angular scale), padded to 1,310,720 rows, served
-   by ``hamming-mxu`` (#5); reopened with ``VELESDB_HAMMING_MXU_MAX_BYTES=0``
+   by ``hamming-mxu`` (#5, timed at B_pad 256 and 16, held like #7 to beat
+   its first design and the library); reopened with
+   ``VELESDB_HAMMING_MXU_MAX_BYTES=0``
    it is served by ``hamming-bucket`` (#4). For both, the raw coarse pass is
    held against an exact Hamming oracle on the card: returned distances
    exact, the distance profile equal on >= 0.99 of positions (the bucket
@@ -167,7 +172,10 @@ shape against its plain version and its bound: the larger of its bytes over
 3.35 TB/s and its operations over their peak (int8 at 1,979 TOPS, bf16 and
 f16 at 989 TFLOP/s, fp32 at 67 TFLOP/s, popcount at 16 per SM per clock),
 for this run's inputs; the tensor-core kernels (#2, #3, #6, #8) also print
-the fp32 rate of their first designs. Where a product and a bucket max
+the fp32 rate of their first designs, and the int8 ones (#5, #7, #12, #14
+hm: int8 products plus each epilogue's fp32 operations) the dp4a issue rate
+of theirs, and must beat the first designs' recorded times and the library
+yardstick. Where a product and a bucket max
 compute the function (#1, #2, #2b, #3, #5, #6, #7), the kernel is timed
 against that library yardstick (``torch.mm``, ``torch._int_mm``, then the
 epilogue and ``amax`` over the ``[B, N/chunk, chunk/128, 128]`` view), its
@@ -209,8 +217,10 @@ KERNELS = ("sq8pd_bucket", "sq8i_bucket", "hamming_mxu_bucket", "hamming_bucket"
            "hamming_topk", "dense_bucket", "dense_bucket_tc", "hl_bucket", "sq8_bucket",
            "fused_topk", "ivf_probe", "row_gather")
 # The kernel libraries, one per csrc/ source: #2 on f32 rows (dense_bucket),
-# #3 (hl_bucket) and #6 (sq8_bucket) are modes of dense_bucket_tc.cu.
-LIBS = tuple(name for name in KERNELS if name not in ("dense_bucket", "hl_bucket", "sq8_bucket"))
+# #3 (hl_bucket) and #6 (sq8_bucket) are modes of dense_bucket_tc.cu, #5
+# (hamming_mxu_bucket) an epilogue of sq8i_bucket.cu.
+LIBS = tuple(name for name in KERNELS
+             if name not in ("dense_bucket", "hl_bucket", "sq8_bucket", "hamming_mxu_bucket"))
 # The experiments' timing protocol, cut to keep phase 9 near two minutes with
 # every launch held against its plain version: the scripts' 64 batches x 3
 # samples (exp_sq8i_v2, exp_hamming_mxu) and 16 x 3 (exp_topk) become these.
@@ -223,8 +233,11 @@ PEAK_F32 = 67e12
 PEAK_TC16 = 989e12  # bf16 / f16 tensor cores, dense
 # bound_ms takes the peak of the products the kernel does: bf16/f16 at the
 # tensor-core rate (#2b; three split products a term for #2 on f32 rows, #3,
-# #6 and #8). The fp32 rate of the first designs is printed beside.
+# #6 and #8), int8 at the int8 tensor-core rate (#5, #7, #12) plus each
+# epilogue's fp32 operations. The fp32 rate or the dp4a issue rate of the
+# first designs is printed beside.
 F32_CORES = "at the fp32 CUDA-core rate of the first design"
+DP4A_FIRST = "at the dp4a issue rate of the first design"
 CARD = ""  # "name, power limit" from nvidia-smi, appended to every number
 # The tensor-core kernels against their tolerances: #2b (half_scan_tolerance),
 # #2 on f32 rows (f32_scan_tolerance), #3 (split_scan_tolerance), #6
@@ -249,9 +262,12 @@ FIRST_FUSED_MS = {10: 5.9295, 100: 5.9832}
 # to the tensor cores (PERF.md, rows #2 and #6; NVIDIA H100 80GB HBM3, 700 W)
 FIRST_F32_DENSE_MS = 5.6524
 FIRST_SQ8_MS = 12.4232
-# #7's range before its kernel took an epilogue template parameter
-# (PERF.md, row #7; NVIDIA H100 80GB HBM3, 700 W)
-FIRST_SQ8I_MS = (1.1733, 1.1792)
+# #7, #12 (v1 is #7's entry at the experiment's shape) and #5, #14 hm at their
+# slice shapes in their first (dp4a) design, before they moved to the int8
+# tensor cores (PERF.md, rows #5, #7, #12, #14; NVIDIA H100 80GB HBM3, 700 W)
+FIRST_INT8_MS = {"sq8i_bucket": 1.1773, "sq8i_bucket_v1": 1.1634, "sq8i_v2_bucket": 1.1634,
+                 "sq8i_v2h_bucket": 1.1891, "sq8i_v3_bucket": 1.1051,
+                 "hamming_mxu_bucket": 1.1130, "hamming_mxu_bucket_hm": 0.9876}
 T_START = time.perf_counter()
 
 
@@ -622,6 +638,16 @@ def bound(ops_ms: float, bytes_: float) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def check_beats(name, ms, first_ms, lib_ms, first="the first (fp32-core) design") -> None:
+    """Print a redesigned kernel's time beside its first design's recorded
+    time and the library yardstick, and fail unless it beats both."""
+    say(f"{name} B_pad 256: {first} {first_ms:.4f} ms (recorded, {first_ms / ms:.2f}x), "
+        f"library yardstick {lib_ms:.4f} ms ({lib_ms / ms:.2f}x)")
+    check(ms < first_ms and ms < lib_ms,
+          f"{name} B_pad 256: {ms:.4f} ms, not faster than its first design ({first_ms:.4f}) "
+          f"and the library ({lib_ms:.4f})")
+
+
 def check_faster(name, ms, n, first_ms, lib_ms, ms16, bytes_of) -> None:
     """A mode of the tensor-core scan moved from the fp32 CUDA cores (#2 on
     f32 rows, #6) at B_pad 256 (and 16), N ``n``, D_pad 128: print its bound,
@@ -635,11 +661,27 @@ def check_faster(name, ms, n, first_ms, lib_ms, ms16, bytes_of) -> None:
         say(f"{name} B_pad {b}, N {n}, D_pad 128: kernel {t:.4f} ms; bound {least:.4f} ms "
             f"(three bf16 products {ops_ms:.4f} ms at 989 TFLOP/s, bytes {bytes_ms:.4f} ms): "
             f"{least / t:.4f} of it")
-    say(f"{name} B_pad 256: the first (fp32-core) design {first_ms:.4f} ms (recorded, "
-        f"{first_ms / ms:.2f}x), library yardstick {lib_ms:.4f} ms ({lib_ms / ms:.2f}x)")
-    check(ms < first_ms and ms < lib_ms,
-          f"{name} B_pad 256: {ms:.4f} ms, not faster than its first design ({first_ms:.4f}) "
-          f"and the library ({lib_ms:.4f})")
+    check_beats(name, ms, first_ms, lib_ms)
+
+
+def int8_ops_ms(b, n, d_pad, epi_ops) -> float:
+    """The int8 scans' operations at their peaks: the products at the int8
+    tensor-core rate, ``epi_ops`` fp32 operations a score at the fp32 rate."""
+    return (2 * b * n * d_pad / PEAK_INT8 + epi_ops * b * n / PEAK_F32) * 1e3
+
+
+def check_int8(name, ms, n, lib_ms, ms16, epi_ops, bytes_of) -> None:
+    """A scan moved from dp4a onto the int8 tensor cores (#7, #5) at B_pad 256
+    and 16, N ``n``, D_pad 128: print its bound against ``bytes_of(B_pad)``
+    and its share of it, and fail unless it beats its first design's
+    recorded time and the library yardstick."""
+    for b, t in ((256, ms), (16, ms16)):
+        ops_ms = int8_ops_ms(b, n, 128, epi_ops)
+        least, by = bound(ops_ms, bytes_of(b))
+        say(f"{name} B_pad {b}, N {n}, D_pad 128: kernel {t:.4f} ms; bound {least:.4f} ms "
+            f"({by}; int8 products + {epi_ops} fp32 operations a score {ops_ms:.4f} ms, bytes "
+            f"{bytes_of(b) / PEAK_BYTES * 1e3:.4f} ms): {least / t:.4f} of it")
+    check_beats(name, ms, FIRST_INT8_MS[name], lib_ms, first="the first (dp4a) design")
 
 
 class Recorder:
@@ -819,7 +861,7 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                                   "benchmarks/exp_topk.py:193"),
         "dense_bucket_tc_exp_topk": ("exp_topk", "dense_bucket_tc", "dense_bucket_tc.cu",
                                      "benchmarks/exp_topk.py:193"),
-        "hamming_mxu_bucket_hm": ("exp_hamming_mxu", "hamming_mxu_gm", "hamming_mxu_bucket.cu",
+        "hamming_mxu_bucket_hm": ("exp_hamming_mxu", "hamming_mxu_gm", "sq8i_bucket.cu",
                                   "benchmarks/exp_hamming_mxu.py:66"),
         "sq8pd_bucket_hme": ("exp_hamming_mxu", "sq8pd_bucket_gm", "sq8pd_bucket.cu",
                              "benchmarks/exp_hamming_mxu.py:125"),
@@ -843,28 +885,31 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
     n = rows8.shape[0]
     nb = n // chunk * 128
     base_bytes = b_pad * d_pad + n * d_pad + 8 * b_pad * nb
-    int_ms = 2 * b_pad * n * d_pad / PEAK_INT8 * 1e3
+    dp4a = (DP4A_FIRST, b_pad * n * d_pad / 4, dp4a_rate)
     args7 = (qi, rows8, scale, am, pen, sqi, invqs, chunk)
-    kernel_row("sq8i_bucket_v1", "sq8i_bucket.cu", rows["sq8i_bucket_v1"][3],
-               time_kernel(torch, lambda: bk.sq8i_bucket_gm(*args7)),
+    ms = time_kernel(torch, lambda: bk.sq8i_bucket_gm(*args7))
+    lib = time_kernel(torch, lambda: bucket_max(
+        torch._int_mm(qi, rows8.T).float() * scale + sqi[:, None] * am - invqs[:, None] * pen,
+        chunk))
+    kernel_row("sq8i_bucket_v1", "sq8i_bucket.cu", rows["sq8i_bucket_v1"][3], ms,
                time_kernel(torch, lambda: bk.sq8i_bucket_ref(*args7), iters=5),
-               int_ms + 6 * b_pad * n / PEAK_F32 * 1e3, base_bytes + 12 * n + 8 * b_pad,
-               0.0, ("dp4a", b_pad * n * d_pad / 4, dp4a_rate),
-               library_ms=time_kernel(torch, lambda: bucket_max(
-                   torch._int_mm(qi, rows8.T).float() * scale + sqi[:, None] * am
-                   - invqs[:, None] * pen, chunk)))
+               int8_ops_ms(b_pad, n, d_pad, 6), base_bytes + 12 * n + 8 * b_pad,
+               0.0, library_ms=lib, other=dp4a)
+    check_beats("sq8i_bucket_v1", ms, FIRST_INT8_MS["sq8i_bucket_v1"], lib,
+                first="the first (dp4a) design")
     for variant in ("v2", "v2h", "v3"):
         name = f"sq8i_{variant}_bucket"
         (qi, rows8, aux, qaux, chunk, _), _ = call_of("exp_sq8i_v2", name)
         vargs = (qi, rows8, aux, qaux, chunk, variant)
         if variant == "v3":
-            ops_ms, extra = int_ms, 0
+            ops_ms, extra = int8_ops_ms(b_pad, n, d_pad, 0), 0
 
             def lib(qi=qi, rows8=rows8, chunk=chunk):
                 return bucket_max(torch._int_mm(qi, rows8.T), chunk)
         else:
             item = aux.element_size()
-            ops_ms, extra = int_ms + 5 * b_pad * n / PEAK_F32 * 1e3, 3 * item * n + 2 * item * b_pad
+            ops_ms = int8_ops_ms(b_pad, n, d_pad, 5)
+            extra = 3 * item * n + 2 * item * b_pad
             if variant == "v2":
                 def lib(qi=qi, rows8=rows8, aux=aux, qaux=qaux, chunk=chunk):
                     corr = qaux[:, 1:2] * aux[1] + qaux[:, 2:3] * aux[2]
@@ -875,14 +920,17 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                     corr = qaux[:, 1:2] * aux[1] + qaux[:, 2:3] * aux[2]
                     dot = torch._int_mm(qi, rows8.T).to(torch.bfloat16)
                     return bucket_max(dot * aux[0] + corr, chunk)
-        kernel_row(name, "sq8i_bucket.cu", rows[name][3],
-                   time_kernel(torch, lambda: xk.sq8i_v2_bucket_gm(*vargs)),
+        ms = time_kernel(torch, lambda: xk.sq8i_v2_bucket_gm(*vargs))
+        lib_ms = time_kernel(torch, lib)
+        kernel_row(name, "sq8i_bucket.cu", rows[name][3], ms,
                    time_kernel(torch, lambda: xk.sq8i_v2_bucket_ref(*vargs), iters=5),
-                   ops_ms, base_bytes + extra, held["exp_sq8i_v2", name],
-                   ("dp4a", b_pad * n * d_pad / 4, dp4a_rate), library_ms=time_kernel(torch, lib))
+                   ops_ms, base_bytes + extra, held["exp_sq8i_v2", name], library_ms=lib_ms,
+                   other=dp4a)
+        check_beats(name, ms, FIRST_INT8_MS[name], lib_ms, first="the first (dp4a) design")
     say("#12 library yardsticks: torch._int_mm(qi, rows8.T), the variant's epilogue (v2h in "
-        "bf16 tensors), then the bucket amax; the v2/v2h bounds count 5 epilogue flops per "
-        "(query, row) at the fp32 rate (v2h rounds each fp32 result to bf16), v3 none")
+        "bf16 tensors), then the bucket amax; the bounds count the int8 products at 1,979 "
+        "TOPS and 6 (v1), 5 (v2, v2h: v2h rounds each fp32 result to bf16) or no (v3) "
+        "epilogue operations a (query, row) at the fp32 rate")
 
     def pd_row(name, exp, pick):
         (qi, rows_pd, ptile, chunk), _ = call_of(exp, "sq8pd_bucket_gm", pick)
@@ -910,15 +958,16 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                                         lambda a, k: a[3] == 2048 and a[0].shape[0] >= 256)
     b_pad, d_pad = qi.shape
     n = bits.shape[0]
-    kernel_row("hamming_mxu_bucket_hm", "hamming_mxu_bucket.cu", rows["hamming_mxu_bucket_hm"][3],
-               time_kernel(torch, lambda: bk.hamming_mxu_gm(qi, bits, aux, chunk)),
+    ms = time_kernel(torch, lambda: bk.hamming_mxu_gm(qi, bits, aux, chunk))
+    lib = time_kernel(torch, lambda: bucket_max(torch._int_mm(qi, bits.T) - aux, chunk))
+    kernel_row("hamming_mxu_bucket_hm", "sq8i_bucket.cu", rows["hamming_mxu_bucket_hm"][3], ms,
                time_kernel(torch, lambda: bk.hamming_mxu_ref(qi, bits, aux, chunk), iters=5),
-               2 * b_pad * n * d_pad / PEAK_INT8 * 1e3,
+               int8_ops_ms(b_pad, n, d_pad, 1),
                qi.numel() + bits.numel() + 4 * n + 8 * b_pad * n // chunk * 128,
-               held["exp_hamming_mxu", "hamming_mxu_gm"],
-               ("dp4a", b_pad * n * d_pad / 4, dp4a_rate),
-               library_ms=time_kernel(torch, lambda: bucket_max(
-                   torch._int_mm(qi, bits.T) - aux, chunk)))
+               held["exp_hamming_mxu", "hamming_mxu_gm"], library_ms=lib,
+               other=(DP4A_FIRST, b_pad * n * d_pad / 4, dp4a_rate))
+    check_beats("hamming_mxu_bucket_hm", ms, FIRST_INT8_MS["hamming_mxu_bucket_hm"], lib,
+                first="the first (dp4a) design")
 
     for name, key in (("dense_bucket_exp_topk", "dense_bucket_gm"),
                       ("dense_bucket_tc_exp_topk", "dense_bucket_tc")):
@@ -1513,6 +1562,8 @@ def main() -> None:
             errs["sq8i_bucket"] = max(errs["sq8i_bucket"], hold(
                 f"sq8i_bucket B {b} (B_pad {qi8.shape[0]}), N {idx.n_pad}, D_pad 128, "
                 f"chunk {CHUNK}", out, bk.sq8i_bucket_ref(*args)))
+            if b == 16:
+                ms16 = time_kernel(torch, lambda: bk.sq8i_bucket_gm(*args))
         ms = time_kernel(torch, lambda: bk.sq8i_bucket_gm(*args))
         plain = time_kernel(torch, lambda: bk.sq8i_bucket_ref(*args), iters=5)
         lib = time_kernel(torch, lambda: bucket_max(
@@ -1521,16 +1572,15 @@ def main() -> None:
         n = idx.n_pad
         kernel_row(
             "sq8i_bucket", "sq8i_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:996", ms, plain,
-            (2 * 256 * n * 128 / PEAK_INT8 + 6 * 256 * n / PEAK_F32) * 1e3,
+            int8_ops_ms(256, n, 128, 6),
             256 * 128 + n * 128 + 3 * 4 * n + 2 * 4 * 256 + 8 * 256 * n // CHUNK * 128,
-            errs["sq8i_bucket"], ("dp4a", 256 * n * 128 / 4, dp4a_rate), library_ms=lib,
+            errs["sq8i_bucket"], library_ms=lib,
+            other=(DP4A_FIRST, 256 * n * 128 / 4, dp4a_rate),
         )
         say("sq8i_bucket library yardstick: torch._int_mm(qi, rows8.T), the affine epilogue, "
             "then the bucket amax")
-        lo, hi = FIRST_SQ8I_MS
-        say(f"sq8i_bucket (#7, its entry beside the epilogue variants): {ms:.4f} ms against "
-            f"{lo}-{hi} ms before the epilogue template (PERF.md, row #7): "
-            + ("within 3%" if lo / 1.03 <= ms <= hi * 1.03 else "OUTSIDE 3% of that range"))
+        check_int8("sq8i_bucket", ms, n, lib, ms16, 6, lambda b: (
+            b * 128 + n * 128 + 12 * n + 8 * b + 8 * b * n // CHUNK * 128))
         del out, args
 
         with MainPath(counters, bk, "sq8i_bucket_gm", "sq8i_bucket_gm") as run:
@@ -2285,6 +2335,9 @@ def main() -> None:
             errs["hamming_mxu_bucket"] = max(errs["hamming_mxu_bucket"], hold(
                 f"hamming_mxu_bucket B {b} (B_pad {qi2.shape[0]}), N {idx.n_pad}, D_pad 128, "
                 f"chunk {CHUNK}", out, bk.hamming_mxu_ref(qi2, idx._ham_bits, idx._ham_aux, CHUNK)))
+            if b == 16:
+                ms16 = time_kernel(torch, lambda: bk.hamming_mxu_gm(qi2, idx._ham_bits,
+                                                                    idx._ham_aux, CHUNK))
         n = idx.n_pad
         ms = time_kernel(torch, lambda: bk.hamming_mxu_gm(qi2, idx._ham_bits, idx._ham_aux, CHUNK))
         plain = time_kernel(torch, lambda: bk.hamming_mxu_ref(qi2, idx._ham_bits, idx._ham_aux,
@@ -2292,14 +2345,16 @@ def main() -> None:
         lib = time_kernel(torch, lambda: bucket_max(
             torch._int_mm(qi2, idx._ham_bits.T) - idx._ham_aux, CHUNK))
         kernel_row(
-            "hamming_mxu_bucket", "hamming_mxu_bucket.cu",
-            "velesdb_tpu/ops/bucket_kernel.py:494", ms, plain,
-            2 * 256 * n * 128 / PEAK_INT8 * 1e3,
+            "hamming_mxu_bucket", "sq8i_bucket.cu",
+            "velesdb_tpu/ops/bucket_kernel.py:494", ms, plain, int8_ops_ms(256, n, 128, 1),
             256 * 128 + n * 128 + 4 * n + 8 * 256 * n // CHUNK * 128,
-            errs["hamming_mxu_bucket"], ("dp4a", 256 * n * 128 / 4, dp4a_rate), library_ms=lib,
+            errs["hamming_mxu_bucket"], library_ms=lib,
+            other=(DP4A_FIRST, 256 * n * 128 / 4, dp4a_rate),
         )
         say("hamming_mxu_bucket library yardstick: torch._int_mm(2 qbits, bits.T) - aux, then "
             "the bucket amax")
+        check_int8("hamming_mxu_bucket", ms, n, lib, ms16, 1, lambda b: (
+            b * 128 + n * 128 + 4 * n + 8 * b * n // CHUNK * 128))
         # packed scan (#4) at its slice shape on the same packed corpus
         qp = binary_quantize(gq[:256])
         pen0 = torch.where(idx._valid, 0.0, torch.inf)

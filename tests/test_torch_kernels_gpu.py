@@ -947,3 +947,87 @@ def test_row_gather_out_of_range_ids_score_nan(cuda):
         xk.row_gather_scores(q, corpus, idx, group=65)
     with pytest.raises(ValueError):
         xk.row_gather_scores(q[:4], corpus, idx)
+
+
+# -- slice 9: #7, #12's epilogues and #5 on the int8 tensor cores ---------------
+
+# (B_pad, D_pad, chunk, N): the query-tile dispatch (NQ 8 .. 128, ragged
+# tiles at 24 and 136), a zero-filled half K step (D_pad 16, 48, 112), eight
+# K blocks (1,024), one slice a bucket (chunk 128), and each entry's D_pad
+# cap at NQ 8 and 16 ("cap").
+_INT8_TC_SHAPES = [(8, 128, 8192, 16_384), (24, 48, 128, 4096), (136, 112, 8192, 16_384),
+                   (256, 16, 1024, 8192), (256, 1024, 8192, 16_384), (8, "cap", 128, 1024),
+                   (16, "cap", 2048, 4096)]
+_INT8_TC_CAPS = {"sq8i": bk._SQ8I_MAX_DPAD, "v2": 1024, "v2h": 1024, "v3": 1024,
+                 "hamming": bk._HAM_MAX_DPAD}
+_INT8_TC_TIE_LANE = 5
+
+
+def _int8_tc_case(cuda, epilogue, b_pad, d_pad, chunk, n):
+    """Seeded operands of one epilogue. Chunk 0 is knocked out (pen = +inf,
+    #5: aux + 2^20; v3 has no penalty), and every slice of bucket lane 5 in
+    chunk 1 holds one row with one set of per-row values, so they tie.
+    Returns ``(kernel, plain, counter dict, key, args)``."""
+    rng = np.random.default_rng(b_pad * 7 + d_pad + chunk)
+    tie = chunk + _INT8_TC_TIE_LANE + np.arange(chunk // 128) * 128
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    if epilogue == "hamming":
+        qi = 2 * (rng.random((b_pad, d_pad)) < 0.5).astype(np.int8)
+        bits = (rng.random((n, d_pad)) < 0.5).astype(np.int8)
+        knocked = rng.random(n) < 0.15
+        knocked[:chunk] = True
+        bits[tie], knocked[tie] = bits[tie[0]], knocked[tie[0]]
+        aux = (bits.astype(np.int32).sum(1) + bk._HAM_BIG * knocked).astype(np.int32)
+        return (bk.hamming_mxu_gm, bk.hamming_mxu_ref, bk.LAUNCHES, "hamming_mxu_gm",
+                (dev(qi), dev(bits), dev(aux), chunk))
+    qi = rng.integers(-127, 128, (b_pad, d_pad)).astype(np.int8)
+    rows = rng.integers(-128, 128, (n, d_pad)).astype(np.int8)
+    scale = rng.uniform(0.005, 0.02, n).astype(np.float32)
+    am = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    pen = rng.uniform(0.0, 50.0, n).astype(np.float32)
+    pen[rng.random(n) < 0.15] = np.inf
+    pen[:chunk] = np.inf
+    for v in (rows, scale, am, pen):
+        v[tie] = v[tie[0]]
+    invqs = rng.uniform(0.5, 2.0, b_pad).astype(np.float32)
+    sqi = qi.astype(np.float32).sum(1)
+    if epilogue == "sq8i":
+        return (bk.sq8i_bucket_gm, bk.sq8i_bucket_ref, bk.LAUNCHES, "sq8i_bucket_gm",
+                (*(dev(a) for a in (qi, rows, scale, am, pen, sqi, invqs)), chunk))
+    aux = qaux = None
+    if epilogue != "v3":
+        dt = torch.bfloat16 if epilogue == "v2h" else torch.float32
+        aux = dev(np.stack([scale, am, pen] + [np.zeros(n, np.float32)] * 5)).to(dt)
+        qaux = np.zeros((b_pad, 8), np.float32)
+        qaux[:, 1], qaux[:, 2] = sqi, -invqs
+        qaux = dev(qaux).to(dt)
+    return (xk.sq8i_v2_bucket_gm, xk.sq8i_v2_bucket_ref, xk.LAUNCHES, f"sq8i_{epilogue}_bucket",
+            (dev(qi), dev(rows), aux, qaux, chunk, epilogue))
+
+
+@pytest.mark.parametrize("b_pad,d_pad,chunk,n", _INT8_TC_SHAPES)
+@pytest.mark.parametrize("epilogue", list(_INT8_TC_CAPS))
+def test_int8_tc_edges_equal_plain(cuda, epilogue, b_pad, d_pad, chunk, n):
+    """Every epilogue of the int8 tensor-core scan, bit for bit against its
+    plain version at the tiling's edges; the knocked-out chunk's buckets
+    return slice 0 (-inf; #5: at most 2 D_pad - 2^20), and the tied lane its
+    smallest slice."""
+    d_pad = _INT8_TC_CAPS[epilogue] if d_pad == "cap" else d_pad
+    kernel, plain, launches, key, args = _int8_tc_case(cuda, epilogue, b_pad, d_pad, chunk, n)
+    before = launches[key]
+    gm, gi = kernel(*args)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    rm, ri = plain(*args)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+    if epilogue == "hamming":
+        assert bool((gm[:, :128] <= 2 * d_pad - bk._HAM_BIG).all())
+    elif epilogue != "v3":
+        assert bool(torch.isneginf(gm[:, :128]).all())
+        slice0 = torch.arange(128, dtype=torch.int32).expand(b_pad, 128)
+        assert torch.equal(gi[:, :128].cpu(), slice0)
+    if chunk > 128:
+        assert bool((gi[:, 128 + _INT8_TC_TIE_LANE] == chunk + _INT8_TC_TIE_LANE).all())

@@ -175,13 +175,6 @@ __host__ __device__ constexpr int stage_bytes(int m) { return a_tiles(m) * kStag
 // Shared-memory bytes past the query tile and the stages: qsum in mode 4.
 __host__ __device__ constexpr int extra_bytes(int m, int nq) { return m == kSq8 ? nq * 4 : 0; }
 
-// Byte-selector that puts the low byte of the second __byte_perm operand at
-// byte ``p`` of the first: the slice index of accumulator ``4i + p`` lives in
-// byte ``p`` of word ``i``.
-__device__ __forceinline__ unsigned put_byte_sel(int p) {
-  return p == 0 ? 0x3214u : p == 1 ? 0x3240u : p == 2 ? 0x3410u : 0x4210u;
-}
-
 // The operands of one launch. ``q`` .. ``q3`` are the query parts (mode 1:
 // q; 2, 3: qhi, qlo; 4: qhi, qmid, qlo), ``rows`` the rows (mode 2: hi; 3:
 // f32; 4: int32 words), ``rows2`` mode 2's lo; ``cc`` the additive penalty

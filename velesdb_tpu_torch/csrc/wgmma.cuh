@@ -1,9 +1,10 @@
 // wgmma.cuh — the Hopper tensor-core building blocks shared by the wgmma
 // kernels (dense_bucket_tc.cu: #2b, #3, #2 on f32 rows and #6; fused_topk.cu:
-// #8).
+// #8; sq8i_bucket.cu: #7, #12 and #5).
 //
-// - wgmma.mma_async m64nNk16 (N = 8 .. 128) on bf16 or f16 operands, both
-//   K-major in shared memory, fp32 accumulators in registers;
+// - wgmma.mma_async m64nNk16 (N = 8 .. 128) on bf16 or f16 operands and
+//   m64nNk32 on s8 operands, both K-major in shared memory, fp32 or s32
+//   accumulators in registers; the byte packing of the bucket select;
 // - the shared-memory matrix descriptor of the 128-byte-swizzled K-major
 //   layout (8-row groups 1024 bytes apart) and the swizzle itself;
 // - 16-byte cp.async with zero fill, its groups, and the proxy fence that
@@ -25,56 +26,58 @@
 
 namespace {
 
-// -- wgmma m64nNk16, f32 accumulators, A and B K-major in shared memory -------
+// -- wgmma m64nNk16 (bf16, f16) and m64nNk32 (s8), A and B K-major in shared
+// memory, accumulators in registers ------------------------------------------
+//
+// One macro per width N: INSTR is the instruction with its shape and types, C
+// the accumulators' constraint ("+f" for f32, "+r" for s32), TAIL the operands
+// after scale-d. The float forms take imm-scale-a/b and the two transposes
+// ("p, 1, 1, 0, 0"); the integer form takes none ("p"), and its 8-bit operands
+// must both be K-major.
 
-#define VDB_WGMMA_N8(TY)                                                      \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"                   \
-               "wgmma.mma_async.sync.aligned.m64n8k16.f32." TY "." TY " "    \
-               "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"               \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])              \
+#define VDB_WGMMA_N8(INSTR, C, TAIL)                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n" INSTR " "         \
+               "{%0, %1, %2, %3}, %4, %5, " TAIL ";\n}\n"                    \
+               : C(d[0]), C(d[1]), C(d[2]), C(d[3])                          \
                : "l"(da), "l"(db), "r"(scale_d))
 
-#define VDB_WGMMA_N16(TY)                                                     \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                  \
-               "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "   \
-               "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n" \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
-                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])              \
+#define VDB_WGMMA_N16(INSTR, C, TAIL)                                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n" INSTR " "        \
+               "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, " TAIL ";\n}\n"    \
+               : C(d[0]), C(d[1]), C(d[2]), C(d[3]),                         \
+                 C(d[4]), C(d[5]), C(d[6]), C(d[7])                          \
                : "l"(da), "l"(db), "r"(scale_d))
 
-#define VDB_WGMMA_N32(TY)                                                     \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                  \
-               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "   \
+#define VDB_WGMMA_N32(INSTR, C, TAIL)                                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" INSTR " "        \
                "{%0, %1, %2, %3, %4, %5, %6, %7, "                           \
                "%8, %9, %10, %11, %12, %13, %14, %15}, "                     \
-               "%16, %17, p, 1, 1, 0, 0;\n}\n"                               \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
-                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
-                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])          \
+               "%16, %17, " TAIL ";\n}\n"                                    \
+               : C(d[0]), C(d[1]), C(d[2]), C(d[3]),                         \
+                 C(d[4]), C(d[5]), C(d[6]), C(d[7]),                         \
+                 C(d[8]), C(d[9]), C(d[10]), C(d[11]),                       \
+                 C(d[12]), C(d[13]), C(d[14]), C(d[15])                      \
                : "l"(da), "l"(db), "r"(scale_d))
 
-#define VDB_WGMMA_N64(TY)                                                     \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                  \
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "   \
+#define VDB_WGMMA_N64(INSTR, C, TAIL)                                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" INSTR " "        \
                "{%0, %1, %2, %3, %4, %5, %6, %7, "                           \
                "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
                "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
                "%24, %25, %26, %27, %28, %29, %30, %31}, "                   \
-               "%32, %33, p, 1, 1, 0, 0;\n}\n"                               \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
-                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
-                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
-                 "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
-                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
-                 "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])          \
+               "%32, %33, " TAIL ";\n}\n"                                    \
+               : C(d[0]), C(d[1]), C(d[2]), C(d[3]),                         \
+                 C(d[4]), C(d[5]), C(d[6]), C(d[7]),                         \
+                 C(d[8]), C(d[9]), C(d[10]), C(d[11]),                       \
+                 C(d[12]), C(d[13]), C(d[14]), C(d[15]),                     \
+                 C(d[16]), C(d[17]), C(d[18]), C(d[19]),                     \
+                 C(d[20]), C(d[21]), C(d[22]), C(d[23]),                     \
+                 C(d[24]), C(d[25]), C(d[26]), C(d[27]),                     \
+                 C(d[28]), C(d[29]), C(d[30]), C(d[31])                      \
                : "l"(da), "l"(db), "r"(scale_d))
 
-#define VDB_WGMMA_N128(TY)                                                    \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+#define VDB_WGMMA_N128(INSTR, C, TAIL)                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" INSTR " "        \
                "{%0, %1, %2, %3, %4, %5, %6, %7, "                           \
                "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
                "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
@@ -83,38 +86,70 @@ namespace {
                "%40, %41, %42, %43, %44, %45, %46, %47, "                    \
                "%48, %49, %50, %51, %52, %53, %54, %55, "                    \
                "%56, %57, %58, %59, %60, %61, %62, %63}, "                   \
-               "%64, %65, p, 1, 1, 0, 0;\n}\n"                               \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
-                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
-                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
-                 "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
-                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
-                 "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
-                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
-                 "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
-                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
-                 "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
-                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
-                 "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
-                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
-                 "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])          \
+               "%64, %65, " TAIL ";\n}\n"                                    \
+               : C(d[0]), C(d[1]), C(d[2]), C(d[3]),                         \
+                 C(d[4]), C(d[5]), C(d[6]), C(d[7]),                         \
+                 C(d[8]), C(d[9]), C(d[10]), C(d[11]),                       \
+                 C(d[12]), C(d[13]), C(d[14]), C(d[15]),                     \
+                 C(d[16]), C(d[17]), C(d[18]), C(d[19]),                     \
+                 C(d[20]), C(d[21]), C(d[22]), C(d[23]),                     \
+                 C(d[24]), C(d[25]), C(d[26]), C(d[27]),                     \
+                 C(d[28]), C(d[29]), C(d[30]), C(d[31]),                     \
+                 C(d[32]), C(d[33]), C(d[34]), C(d[35]),                     \
+                 C(d[36]), C(d[37]), C(d[38]), C(d[39]),                     \
+                 C(d[40]), C(d[41]), C(d[42]), C(d[43]),                     \
+                 C(d[44]), C(d[45]), C(d[46]), C(d[47]),                     \
+                 C(d[48]), C(d[49]), C(d[50]), C(d[51]),                     \
+                 C(d[52]), C(d[53]), C(d[54]), C(d[55]),                     \
+                 C(d[56]), C(d[57]), C(d[58]), C(d[59]),                     \
+                 C(d[60]), C(d[61]), C(d[62]), C(d[63])                      \
                : "l"(da), "l"(db), "r"(scale_d))
 
+// The float forms' instruction: m64nNk16, f32 accumulators, TY operands.
+#define VDB_HALF(N, TY) "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY
+#define VDB_HALF_TAIL "p, 1, 1, 0, 0"
+
+// d += A . B^T over one K step of 16 (scale_d = 0: d = A . B^T), bf16 or f16.
 template <int NQ, bool kBf16>
 __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db, int scale_d) {
   if constexpr (NQ == 8) {
-    if constexpr (kBf16) VDB_WGMMA_N8("bf16"); else VDB_WGMMA_N8("f16");
+    if constexpr (kBf16) VDB_WGMMA_N8(VDB_HALF(8, "bf16"), "+f", VDB_HALF_TAIL);
+    else VDB_WGMMA_N8(VDB_HALF(8, "f16"), "+f", VDB_HALF_TAIL);
   } else if constexpr (NQ == 16) {
-    if constexpr (kBf16) VDB_WGMMA_N16("bf16"); else VDB_WGMMA_N16("f16");
+    if constexpr (kBf16) VDB_WGMMA_N16(VDB_HALF(16, "bf16"), "+f", VDB_HALF_TAIL);
+    else VDB_WGMMA_N16(VDB_HALF(16, "f16"), "+f", VDB_HALF_TAIL);
   } else if constexpr (NQ == 32) {
-    if constexpr (kBf16) VDB_WGMMA_N32("bf16"); else VDB_WGMMA_N32("f16");
+    if constexpr (kBf16) VDB_WGMMA_N32(VDB_HALF(32, "bf16"), "+f", VDB_HALF_TAIL);
+    else VDB_WGMMA_N32(VDB_HALF(32, "f16"), "+f", VDB_HALF_TAIL);
   } else if constexpr (NQ == 64) {
-    if constexpr (kBf16) VDB_WGMMA_N64("bf16"); else VDB_WGMMA_N64("f16");
+    if constexpr (kBf16) VDB_WGMMA_N64(VDB_HALF(64, "bf16"), "+f", VDB_HALF_TAIL);
+    else VDB_WGMMA_N64(VDB_HALF(64, "f16"), "+f", VDB_HALF_TAIL);
   } else {
     static_assert(NQ == 128, "query tile of 8, 16, 32, 64 or 128");
-    if constexpr (kBf16) VDB_WGMMA_N128("bf16"); else VDB_WGMMA_N128("f16");
+    if constexpr (kBf16) VDB_WGMMA_N128(VDB_HALF(128, "bf16"), "+f", VDB_HALF_TAIL);
+    else VDB_WGMMA_N128(VDB_HALF(128, "f16"), "+f", VDB_HALF_TAIL);
+  }
+}
+
+// The integer form: m64nNk32, s32 accumulators, s8 operands. Every product
+// and sum is exact (no saturation is asked for; the callers keep the sums
+// inside int32).
+#define VDB_S8(N) "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8"
+
+// d += A . B^T over one K step of 32 int8 (scale_d = 0: d = A . B^T).
+template <int NQ>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (NQ == 8) {
+    VDB_WGMMA_N8(VDB_S8(8), "+r", "p");
+  } else if constexpr (NQ == 16) {
+    VDB_WGMMA_N16(VDB_S8(16), "+r", "p");
+  } else if constexpr (NQ == 32) {
+    VDB_WGMMA_N32(VDB_S8(32), "+r", "p");
+  } else if constexpr (NQ == 64) {
+    VDB_WGMMA_N64(VDB_S8(64), "+r", "p");
+  } else {
+    static_assert(NQ == 128, "query tile of 8, 16, 32, 64 or 128");
+    VDB_WGMMA_N128(VDB_S8(128), "+r", "p");
   }
 }
 
@@ -123,6 +158,20 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The bucket scans' running (max, slice) select keeps each accumulator's
+// slice index in one byte. Byte-selector that puts the low byte of the second
+// __byte_perm operand at byte ``p`` of the first: the slice index of
+// accumulator ``4i + p`` lives in byte ``p`` of word ``i``.
+__device__ __forceinline__ unsigned put_byte_sel(int p) {
+  return p == 0 ? 0x3214u : p == 1 ? 0x3240u : p == 2 ? 0x3410u : 0x4210u;
 }
 
 // Shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups

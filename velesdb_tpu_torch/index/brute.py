@@ -28,7 +28,7 @@ does:
   ``sq8-bucket`` (the SQ8 mode of ``csrc/dense_bucket_tc.cu``, block-packed
   words unpacked on the tensor cores) where it holds
   and D >= ``_SQ8I_MAX_DIM``, else ``sq8-streamed`` (plain torch).
-- BINARY (packed sign bits): ``hamming-mxu`` (``csrc/hamming_mxu_bucket.cu``)
+- BINARY (packed sign bits): ``hamming-mxu`` (``csrc/sq8i_bucket.cu``)
   while the 1 byte/bit shadow fits ``VELESDB_HAMMING_MXU_MAX_BYTES``, else
   ``hamming-bucket`` (``csrc/hamming_bucket.cu``) where the guard holds, else
   ``hamming-topk`` (``csrc/hamming_topk.cu``, exact).

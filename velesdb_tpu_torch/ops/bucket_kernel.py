@@ -5,7 +5,7 @@ a query batch against a padded corpus chunk by chunk and keeps ONE winner per
 128-lane bucket of each chunk (``_bucket_select``), so the ``[B, N]`` score
 matrix never exists in device memory; an exact ``torch.topk`` over the bucket
 winners (``_final_select``) finishes the search. Eight hand-written CUDA
-kernels in five sources (``csrc/``), each with its plain torch version
+kernels in four sources (``csrc/``), each with its plain torch version
 beside it. The float scans are four modes of one tensor-core kernel,
 ``csrc/dense_bucket_tc.cu``:
 
@@ -42,8 +42,11 @@ and Hamming kernels:
 - ``sq8i_bucket`` (#7, :func:`sq8i_bucket_gm`): the per-ROW SQ8 scan, int8
   queries against int8 ``code - 128`` rows with the f32 affine epilogue. It
   serves SQ8 storage, and FULL storage where ``sq8pd_build`` refuses.
-- ``hamming_mxu_bucket`` (#5, :func:`hamming_mxu_gm`): Hamming distance as an
-  int8 dot of 0/1 bit rows (the BINARY default while the bit shadow fits).
+- ``hamming_mxu_launch`` (#5, :func:`hamming_mxu_gm`): Hamming distance as an
+  int8 dot of 0/1 bit rows (the BINARY default while the bit shadow fits),
+  an epilogue of #7's kernel. #7 and #5 run on the int8 tensor cores
+  (``wgmma`` s8, s32 accumulators): an int8 dot is exact in any order, so
+  both stay bit for bit against their plain versions.
 - ``hamming_bucket`` (#4, :func:`hamming_bucket_gm`): XOR + popcount over the
   packed words (BINARY past the bit-shadow budget).
 
@@ -557,7 +560,7 @@ def sq8_int8_rows(codes: torch.Tensor) -> torch.Tensor:
     return (c - 128).to(torch.int8)
 
 
-_SQ8I_MAX_DPAD = 12288  # 16 queries x D_pad bytes of shared memory
+_SQ8I_MAX_DPAD = 12288  # a 16-query tile (192 KB) and two 16 KB stages of shared memory
 
 
 def _check_sq8i(qi, rows8, scale, am, pen, sqi, invqs, chunk):
@@ -645,7 +648,7 @@ def sq8i_rerank_topk(queries, rows8, scale, minv, penalty, corpus, *, k, m, metr
 # ---------------------------------------------------------------------------
 
 _HAM_BIG = 1 << 20  # knockout >> max popcount(D), far from int32 overflow
-_HAM_MAX_DPAD = 6144  # 32 queries x D_pad bytes of shared memory
+_HAM_MAX_DPAD = 6144  # a 32-query tile (192 KB) and two 16 KB stages of shared memory
 
 
 def hamming_bits_rows(slots: torch.Tensor, dim: int) -> torch.Tensor:
@@ -673,14 +676,14 @@ def hamming_mxu_ref(qi, bits, aux, chunk: int):
 
 def hamming_mxu_gm(qi, bits, aux, chunk: int):
     """Bucket winners of the bit-plane Hamming scan, ``(gm f32, gi int32)``.
-    CUDA tensors launch ``csrc/hamming_mxu_bucket.cu``; CPU tensors take
-    :func:`hamming_mxu_ref`."""
+    CUDA tensors launch ``csrc/sq8i_bucket.cu``'s Hamming entry; CPU tensors
+    take :func:`hamming_mxu_ref`."""
     _check_mxu(qi, bits, aux, chunk)
     if _kernel_route(qi, bits, aux):
         return hamming_mxu_ref(qi, bits, aux, chunk)
     (b_pad, d_pad), n = qi.shape, bits.shape[0]
     gm, gi = _gm_gi(b_pad, n, chunk, qi.device)
-    _launch(LAUNCHES, "hamming_mxu_gm", "hamming_mxu_bucket", "hamming_mxu_launch", _P * 5 + _IIJ,
+    _launch(LAUNCHES, "hamming_mxu_gm", "sq8i_bucket", "hamming_mxu_launch", _P * 5 + _IIJ,
             qi, bits, aux, gm, gi, b_pad, n, d_pad, chunk)
     return gm, gi
 
