@@ -6,10 +6,11 @@
 Phases, in order; any failure exits nonzero:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off, build the eight kernel libraries from ``velesdb_tpu_torch/csrc``
+   off, build the seven kernel libraries from ``velesdb_tpu_torch/csrc``
    (the twelve hand-written kernels: #2 on f32 rows, #3 and #6 are modes of
-   #2b's source, #5 an epilogue of #7's; one ``nvcc`` per source, all at
-   once) and print their ptxas registers and spills.
+   #2b's source, #5 and #1 epilogues of #7's; one ``nvcc`` per source, all
+   at once) and print the ptxas registers and spills of every
+   instantiation, the five float epilogues' beside #1's int32 one.
 2. Kernels vs their plain torch versions, bit for bit (``torch.equal``),
    except the five on the tensor cores, held on every launch, here and on
    their main paths, to a stated tolerance through one checker
@@ -30,9 +31,13 @@ Phases, in order; any failure exits nonzero:
    ``order_bound(3 D_pad, 2 D_pad) A``, scaled by the metric, + 2 ulp), each
    id equal to the plain one where the plain gap at its rank exceeds twice
    the tolerance:
-   ``sq8pd_bucket`` (#1) at the slice shape (B_pad 256, N 1,048,576, D_pad
-   128, chunk 8192), at B 1 and B 16, and at ragged shapes (B 13 -> 16,
-   D 100 -> 128, N 131,072, 15% invalid + 15% masked, three metrics); the
+   ``sq8pd_bucket`` (#1, the int32 epilogue of #7's int8 tensor-core kernel
+   since slice 10) at the slice shape (B_pad 256, N 1,048,576, D_pad 128,
+   chunk 8192), at B 1 and B 16, and at ragged shapes (B 13 -> 16, D 100 ->
+   128, N 131,072, 15% invalid + 15% masked, three metrics), timed at B_pad
+   256 and 16 against its bound (int8 products, 2 epilogue operations a
+   score, the rows, ``ptile`` and ``gm``), and it must beat its first (dp4a)
+   design (``FIRST_INT8_MS``) and the library yardstick; the
    four slice-2 kernels and the four slice-3 kernels (``dense_bucket`` #2 on
    f32 rows and #2b on f16 and bf16 rows, ``fused_topk`` #8 on all three,
    ``hl_bucket`` #3,
@@ -95,7 +100,13 @@ Phases, in order; any failure exits nonzero:
    sign sketches of this synthetic data are weak, a property of the method.
 7. Slice 2, ``100k-binary``: 100,000 x 100 cosine BINARY, below
    ``BUCKET_MIN_ROWS``, served by ``hamming-topk`` (#9): the raw pass equals
-   the exact oracle's ids and distances.
+   the exact oracle's ids and distances. #9 (split across the card since
+   slice 10) is held bit for bit at B 1, 16 and 256, k 10 and 320 (the raw
+   pass's oversample 32 x k 10, which ``search_batch`` asks for), timed at B
+   256 with k 10 and 320 and at B 16 and B 1 with k 10, beside the library
+   yardstick at both k (``|q| + |c| - 2 torch._int_mm`` on the unpacked
+   bits, then ``torch.topk``), and it must beat its first design
+   (``FIRST_TOPK_MS``) and the library at both k.
 8. Slice 2, ``offset-full-assist``: 262,144 x 128 euclidean FULL, the
    clustered data + 100 per coordinate. ``sq8pd_build`` refuses it
    (penalty / step over its int32 budget), so ``int8-assist`` (#7) serves.
@@ -175,7 +186,8 @@ for this run's inputs; the tensor-core kernels (#2, #3, #6, #8) also print
 the fp32 rate of their first designs, and the int8 ones (#5, #7, #12, #14
 hm: int8 products plus each epilogue's fp32 operations) the dp4a issue rate
 of theirs, and must beat the first designs' recorded times and the library
-yardstick. Where a product and a bucket max
+yardstick (#1, #12 v5 and #14 hme too: int8 products plus 2 operations a
+score). Where a product and a bucket max
 compute the function (#1, #2, #2b, #3, #5, #6, #7), the kernel is timed
 against that library yardstick (``torch.mm``, ``torch._int_mm``, then the
 epilogue and ``amax`` over the ``[B, N/chunk, chunk/128, 128]`` view), its
@@ -218,9 +230,10 @@ KERNELS = ("sq8pd_bucket", "sq8i_bucket", "hamming_mxu_bucket", "hamming_bucket"
            "fused_topk", "ivf_probe", "row_gather")
 # The kernel libraries, one per csrc/ source: #2 on f32 rows (dense_bucket),
 # #3 (hl_bucket) and #6 (sq8_bucket) are modes of dense_bucket_tc.cu, #5
-# (hamming_mxu_bucket) an epilogue of sq8i_bucket.cu.
+# (hamming_mxu_bucket) and #1 (sq8pd_bucket) epilogues of sq8i_bucket.cu.
 LIBS = tuple(name for name in KERNELS
-             if name not in ("dense_bucket", "hl_bucket", "sq8_bucket", "hamming_mxu_bucket"))
+             if name not in ("dense_bucket", "hl_bucket", "sq8_bucket", "hamming_mxu_bucket",
+                             "sq8pd_bucket"))
 # The experiments' timing protocol, cut to keep phase 9 near two minutes with
 # every launch held against its plain version: the scripts' 64 batches x 3
 # samples (exp_sq8i_v2, exp_hamming_mxu) and 16 x 3 (exp_topk) become these.
@@ -264,10 +277,21 @@ FIRST_F32_DENSE_MS = 5.6524
 FIRST_SQ8_MS = 12.4232
 # #7, #12 (v1 is #7's entry at the experiment's shape) and #5, #14 hm at their
 # slice shapes in their first (dp4a) design, before they moved to the int8
-# tensor cores (PERF.md, rows #5, #7, #12, #14; NVIDIA H100 80GB HBM3, 700 W)
+# tensor cores (PERF.md, rows #5, #7, #12, #14; NVIDIA H100 80GB HBM3, 700 W);
+# #1 at B_pad 256, N 1,048,576, D_pad 128, and as #12 v5 and #14 hme, the
+# same kernel at the experiments' shapes, in its first (dp4a) design
+# (PERF.md rows #1, #12, #14; chip_smoke.py runs of slices 5 and 6 on an
+# NVIDIA H100 80GB HBM3, 700 W)
 FIRST_INT8_MS = {"sq8i_bucket": 1.1773, "sq8i_bucket_v1": 1.1634, "sq8i_v2_bucket": 1.1634,
                  "sq8i_v2h_bucket": 1.1891, "sq8i_v3_bucket": 1.1051,
-                 "hamming_mxu_bucket": 1.1130, "hamming_mxu_bucket_hm": 0.9876}
+                 "hamming_mxu_bucket": 1.1130, "hamming_mxu_bucket_hm": 0.9876,
+                 "sq8pd_bucket": 0.8844, "sq8pd_bucket_v5": 0.8804, "sq8pd_bucket_hme": 0.9796}
+# #9 at B 256, N 106,496, W 4 in its first design (one block a query, an
+# in-order walk), at k 10 and at the raw pass's k 320 (PERF.md row #9 and
+# section 5: chip_smoke.py runs of slices 5 and 3 on an NVIDIA H100 80GB
+# HBM3, 700 W)
+FIRST_TOPK_MS = {10: 0.5733, 320: 0.5741}
+TOPK_M = 320  # 100k-binary's raw pass: the storage gate's oversample 32 x k 10
 T_START = time.perf_counter()
 
 
@@ -671,16 +695,18 @@ def int8_ops_ms(b, n, d_pad, epi_ops) -> float:
 
 
 def check_int8(name, ms, n, lib_ms, ms16, epi_ops, bytes_of) -> None:
-    """A scan moved from dp4a onto the int8 tensor cores (#7, #5) at B_pad 256
-    and 16, N ``n``, D_pad 128: print its bound against ``bytes_of(B_pad)``
-    and its share of it, and fail unless it beats its first design's
-    recorded time and the library yardstick."""
+    """A scan moved from dp4a onto the int8 tensor cores (#7, #5, #1) at
+    B_pad 256 and 16, N ``n``, D_pad 128: print its bound against
+    ``bytes_of(B_pad)`` and its share of it, and fail unless it beats its
+    first design's recorded time and the library yardstick. The epilogue's
+    operations count at the fp32 rate (#1's are int32: the table of peaks
+    has no separate int32 rate)."""
     for b, t in ((256, ms), (16, ms16)):
         ops_ms = int8_ops_ms(b, n, 128, epi_ops)
         least, by = bound(ops_ms, bytes_of(b))
         say(f"{name} B_pad {b}, N {n}, D_pad 128: kernel {t:.4f} ms; bound {least:.4f} ms "
-            f"({by}; int8 products + {epi_ops} fp32 operations a score {ops_ms:.4f} ms, bytes "
-            f"{bytes_of(b) / PEAK_BYTES * 1e3:.4f} ms): {least / t:.4f} of it")
+            f"({by}; int8 products + {epi_ops} epilogue operations a score {ops_ms:.4f} ms, "
+            f"bytes {bytes_of(b) / PEAK_BYTES * 1e3:.4f} ms): {least / t:.4f} of it")
     check_beats(name, ms, FIRST_INT8_MS[name], lib_ms, first="the first (dp4a) design")
 
 
@@ -855,7 +881,7 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                             "benchmarks/exp_sq8i_v2.py:108"),
         "sq8i_v3_bucket": ("exp_sq8i_v2", "sq8i_v3_bucket", "sq8i_bucket.cu",
                            "benchmarks/exp_sq8i_v2.py:126"),
-        "sq8pd_bucket_v5": ("exp_sq8i_v2", "sq8pd_bucket_gm", "sq8pd_bucket.cu",
+        "sq8pd_bucket_v5": ("exp_sq8i_v2", "sq8pd_bucket_gm", "sq8i_bucket.cu",
                             "benchmarks/exp_sq8i_v2.py:144"),
         "dense_bucket_exp_topk": ("exp_topk", "dense_bucket_gm", "dense_bucket_tc.cu",
                                   "benchmarks/exp_topk.py:193"),
@@ -863,7 +889,7 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                                      "benchmarks/exp_topk.py:193"),
         "hamming_mxu_bucket_hm": ("exp_hamming_mxu", "hamming_mxu_gm", "sq8i_bucket.cu",
                                   "benchmarks/exp_hamming_mxu.py:66"),
-        "sq8pd_bucket_hme": ("exp_hamming_mxu", "sq8pd_bucket_gm", "sq8pd_bucket.cu",
+        "sq8pd_bucket_hme": ("exp_hamming_mxu", "sq8pd_bucket_gm", "sq8i_bucket.cu",
                              "benchmarks/exp_hamming_mxu.py:125"),
         "row_gather": ("exp_gather_kernel", "row_gather", "row_gather.cu",
                        "benchmarks/exp_gather_kernel.py:103"),
@@ -936,23 +962,26 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
         (qi, rows_pd, ptile, chunk), _ = call_of(exp, "sq8pd_bucket_gm", pick)
         b_pad, d_pad = qi.shape
         n = rows_pd.shape[0]
-        kernel_row(name, "sq8pd_bucket.cu", rows[name][3],
-                   time_kernel(torch, lambda: bk.sq8pd_bucket_gm(qi, rows_pd, ptile, chunk)),
+        ms = time_kernel(torch, lambda: bk.sq8pd_bucket_gm(qi, rows_pd, ptile, chunk))
+        lib = time_kernel(torch, lambda: bucket_max(torch._int_mm(qi, rows_pd.T) * 64 + ptile,
+                                                    chunk))
+        kernel_row(name, "sq8i_bucket.cu", rows[name][3], ms,
                    time_kernel(torch, lambda: bk.sq8pd_bucket_gm_ref(qi, rows_pd, ptile, chunk),
                                iters=5),
-                   2 * b_pad * n * d_pad / PEAK_INT8 * 1e3,
+                   int8_ops_ms(b_pad, n, d_pad, 2),
                    qi.numel() + rows_pd.numel() + 4 * n + 4 * b_pad * n // chunk * 128,
-                   held[exp, "sq8pd_bucket_gm"], ("dp4a", b_pad * n * d_pad / 4, dp4a_rate),
-                   library_ms=time_kernel(torch, lambda: bucket_max(
-                       torch._int_mm(qi, rows_pd.T) * 64 + ptile, chunk)))
+                   held[exp, "sq8pd_bucket_gm"], library_ms=lib,
+                   other=(DP4A_FIRST, b_pad * n * d_pad / 4, dp4a_rate))
+        check_beats(name, ms, FIRST_INT8_MS[name], lib, first="the first (dp4a) design")
         return n, chunk
 
     pd_row("sq8pd_bucket_v5", "exp_sq8i_v2", lambda a, k: a[0].shape[0] >= 256)
     n_h, c_h = pd_row("sq8pd_bucket_hme", "exp_hamming_mxu",
                       lambda a, k: a[3] == 2048 and a[0].shape[0] >= 256)
     say(f"#1 at the experiments' shapes: _k_v5 on the per-dimension shadow (N 1,048,576, chunk "
-        f"8192), _k_hme on the bit rows (N {n_h}, chunk {c_h}); library yardstick "
-        "torch._int_mm * 64 + ptile, then the bucket amax")
+        f"8192), _k_hme on the bit rows (N {n_h}, chunk {c_h}); bound: int8 products + 2 "
+        "epilogue operations a score at the fp32 rate; library yardstick torch._int_mm * 64 + "
+        "ptile, then the bucket amax")
 
     (qi, bits, aux, chunk), _ = call_of("exp_hamming_mxu", "hamming_mxu_gm",
                                         lambda a, k: a[3] == 2048 and a[0].shape[0] >= 256)
@@ -1141,11 +1170,11 @@ def main() -> None:
     slice_shape = f"B_pad 256, N {sift_pad}, D_pad 128, chunk {CHUNK}"
     sift_pd = shadow(np.pad(sift, ((0, sift_pad - SIFT_N), (0, 0))), "euclidean",
                      np.arange(sift_pad) < SIFT_N)
-    # the kernel has one build per query tile (32, 16, 8): the batch sizes of
-    # the main path (256, 16, 1) reach all three at the slice's N
+    # the kernel has one build per query tile (128, 16, 8): the batch sizes
+    # of the main path (256, 16, 1) reach all three at the slice's N
     errs = {name: 0.0 for name in KERNELS}
     for b in (1, 16):
-        *_, err = gm_case(
+        qi16, *_, err = gm_case(
             f"sq8pd_bucket B {b}, N {sift_pad}, D_pad 128, chunk {CHUNK}, euclidean",
             sift_q[:b], sift_pd, sift_pad, CHUNK,
         )
@@ -1168,20 +1197,25 @@ def main() -> None:
         errs["sq8pd_bucket"] = max(errs["sq8pd_bucket"], err)
 
     kernel_ms = time_kernel(torch, lambda: bk.sq8pd_bucket_gm(qi, rows_pd, ptile, CHUNK))
+    ms16 = time_kernel(torch, lambda: bk.sq8pd_bucket_gm(qi16, rows_pd, ptile, CHUNK))
     plain_ms = time_kernel(torch, lambda: bk.sq8pd_bucket_gm_ref(qi, rows_pd, ptile, CHUNK))
     lib_ms = time_kernel(torch, lambda: bucket_max(
         torch._int_mm(qi, rows_pd.T) * 64 + ptile, CHUNK))
     b_pad, d_pad = qi.shape
+
+    def pd_bytes(b):  # the queries, rows and ptile read once, gm written once
+        return b * d_pad + rows_pd.numel() + 4 * ptile.numel() + 4 * b * sift_pad // CHUNK * 128
+
     kernel_row(
-        "sq8pd_bucket", "sq8pd_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:695",
-        kernel_ms, plain_ms, 2 * b_pad * sift_pad * d_pad / PEAK_INT8 * 1e3,
-        qi.numel() + rows_pd.numel() + 4 * ptile.numel() + 4 * b_pad * sift_pad // CHUNK * 128,
-        errs["sq8pd_bucket"], ("dp4a", b_pad * sift_pad * d_pad / 4, dp4a_rate),
-        library_ms=lib_ms,
+        "sq8pd_bucket", "sq8i_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:695",
+        kernel_ms, plain_ms, int8_ops_ms(b_pad, sift_pad, d_pad, 2), pd_bytes(b_pad),
+        errs["sq8pd_bucket"], library_ms=lib_ms,
+        other=(DP4A_FIRST, b_pad * sift_pad * d_pad / 4, dp4a_rate),
     )
     say("sq8pd_bucket library yardstick: torch._int_mm(qi, rows.T) * 64 + ptile, then the "
         "bucket amax")
-    del sift_pd, qi, rows_pd, ptile
+    check_int8("sq8pd_bucket", kernel_ms, sift_pad, lib_ms, ms16, 2, pd_bytes)
+    del sift_pd, qi, qi16, rows_pd, ptile
     torch.cuda.empty_cache()
 
     # the slice-2 kernels at the ragged shapes: 15% invalid + 15% masked rows
@@ -2480,32 +2514,49 @@ def main() -> None:
         check(cols.info()["serve_engine"] == "hamming-topk",
               f"serve_engine {cols.info()['serve_engine']!r}, expected 'hamming-topk'")
         sq_pk = binary_quantize(torch.from_numpy(small_q[:256]).to(dev))
+        qs9 = {b: sq_pk[:b].contiguous() for b in (1, 16, 256)}
         for b in (1, 16, 256):
-            out = pk.hamming_topk(sq_pk[:b].contiguous(), idx._packed, idx._valid, K)
-            torch.cuda.synchronize()
-            errs["hamming_topk"] = max(errs["hamming_topk"], hold(
-                f"hamming_topk B {b}, N {idx.n_pad}, W 4, k {K}", out,
-                pk.hamming_topk_ref(sq_pk[:b].contiguous(), idx._packed, idx._valid, K)))
-        ms = time_kernel(torch, lambda: pk.hamming_topk(sq_pk, idx._packed, idx._valid, K))
-        plain = time_kernel(torch, lambda: pk.hamming_topk_ref(sq_pk, idx._packed, idx._valid, K),
-                            iters=5)
+            for k9 in (K, TOPK_M):
+                out = pk.hamming_topk(qs9[b], idx._packed, idx._valid, k9)
+                torch.cuda.synchronize()
+                errs["hamming_topk"] = max(errs["hamming_topk"], hold(
+                    f"hamming_topk B {b}, N {idx.n_pad}, W 4, k {k9}", out,
+                    pk.hamming_topk_ref(qs9[b], idx._packed, idx._valid, k9)))
+        ms9 = {(b, k9): time_kernel(torch, lambda: pk.hamming_topk(qs9[b], idx._packed,
+                                                                  idx._valid, k9))
+               for b, k9 in ((256, K), (256, TOPK_M), (16, K), (1, K))}
+        plain = time_kernel(torch, lambda: pk.hamming_topk_ref(sq_pk, idx._packed, idx._valid,
+                                                               TOPK_M), iters=5)
         n, w = idx.n_pad, idx._packed.shape[1]
         # the same distances from the unpacked 0/1 bytes (set-up, not timed)
         bits9 = binary_unpack(idx._packed, 32 * w).to(torch.int8)
         qb9 = binary_unpack(sq_pk, 32 * w).to(torch.int8)
         c9, q9 = bits9.to(torch.int32).sum(1), qb9.to(torch.int32).sum(1)
         far = torch.where(idx._valid, 0, 1 << 20).to(torch.int32)
-        lib = time_kernel(torch, lambda: torch.topk(
-            q9[:, None] + (c9 + far) - 2 * torch._int_mm(qb9, bits9.T), K, dim=1, largest=False))
+        lib9 = {k9: time_kernel(torch, lambda: torch.topk(
+            q9[:, None] + (c9 + far) - 2 * torch._int_mm(qb9, bits9.T), k9, dim=1,
+            largest=False)) for k9 in (K, TOPK_M)}
+        ops9 = 256 * int(idx._valid.sum()) * w / popc_rate * 1e3  # one popcount a word
         kernel_row(
             "hamming_topk", "hamming_topk.cu", "velesdb_tpu/ops/pallas_kernels.py:317",
-            ms, plain, 256 * int(idx._valid.sum()) * w / popc_rate * 1e3,
-            4 * 256 * w + 4 * n * w + n + 12 * 256 * K,
-            errs["hamming_topk"], ("popc", 256 * B100K_N * w, popc_rate), library_ms=lib,
+            ms9[256, TOPK_M], plain, ops9, 4 * 256 * w + 4 * n * w + n + 12 * 256 * TOPK_M,
+            errs["hamming_topk"], ("popc", 256 * B100K_N * w, popc_rate),
+            library_ms=lib9[TOPK_M],
         )
+        for (b, k9), t in ms9.items():
+            least, by = bound(ops9 * b / 256, 4 * b * w + 4 * n * w + n + 12 * b * k9)
+            say(f"hamming_topk B {b}, N {n}, W {w}, k {k9}: kernel {t:.4f} ms; bound "
+                f"{least:.4f} ms ({by}): {least / t:.4f} of it"
+                + (f"; first design {FIRST_TOPK_MS[k9]:.4f} ms (recorded, "
+                   f"{FIRST_TOPK_MS[k9] / t:.2f}x), library {lib9[k9]:.4f} ms "
+                   f"({lib9[k9] / t:.2f}x)" if b == 256 else ""))
         say("hamming_topk library yardstick: |q| + |c| - 2 torch._int_mm(qbits, bits.T) on the "
             "unpacked 0/1 bytes, invalid rows pushed past every distance, then torch.topk")
-        del bits9, qb9
+        for k9 in (K, TOPK_M):
+            check(ms9[256, k9] < FIRST_TOPK_MS[k9] and ms9[256, k9] < lib9[k9],
+                  f"hamming_topk B 256, k {k9}: {ms9[256, k9]:.4f} ms, not faster than its first "
+                  f"design ({FIRST_TOPK_MS[k9]:.4f}) and the library ({lib9[k9]:.4f})")
+        del bits9, qb9, qs9
         with MainPath(counters, brute_mod, "hamming_topk", "hamming_topk") as run:
             s256 = cols.search_batch(small_q[:256], k=K)
             run.launched("search_batch b=256")
@@ -2516,6 +2567,9 @@ def main() -> None:
             sv, si = cols._search_device(small_q[:256], K, None)
             run.launched("raw device pass b=256")
         launches["hamming_topk"] = run.launches()
+        ks9 = sorted({kw.get("k", 10) for _, kw, _ in run.calls})
+        check(TOPK_M in ks9, f"100k-binary's main path launched #9 at k {ks9}, not {TOPK_M}")
+        print(f"100k-binary main path: #9 launched at k {ks9}", flush=True)
         errs["hamming_topk"] = max(errs["hamming_topk"], run.hold_all(
             lambda q, packed, valid=None, k=10: pk.hamming_topk_ref(q, packed, valid, k),
             lambda q, packed, valid=None, k=10: (f"hamming_topk B {q.shape[0]}, "

@@ -101,15 +101,54 @@ def test_pd_serve_path_launches_the_kernel(cuda):
 
 
 def test_sq8pd_bucket_kernel_width_not_multiple_of_16(cuda):
-    """D_pad = 132 takes the kernel's 4-byte load path."""
+    """D_pad = 132 is refused: the kernel copies rows 16 bytes at a time
+    (every caller pads D to a multiple of 128), and nothing is launched."""
     g = torch.Generator(device=cuda).manual_seed(5)
     qi = torch.randint(-127, 128, (24, 132), dtype=torch.int8, device=cuda, generator=g)
     rows = torch.randint(-127, 128, (2048, 132), dtype=torch.int8, device=cuda, generator=g)
     pen = torch.randint(0, 1 << 20, (2048,), dtype=torch.int32, device=cuda, generator=g)
     ptile = bk.sq8pd_ptile(pen, 1024)
-    gm = bk.sq8pd_bucket_gm(qi, rows, ptile, 1024)
+    before = bk.LAUNCHES["sq8pd_bucket_gm"]
+    with pytest.raises(ValueError):
+        bk.sq8pd_bucket_gm(qi, rows, ptile, 1024)
+    with pytest.raises(ValueError):  # past the int32 encoding's cap
+        bk.sq8pd_bucket_gm(torch.zeros((8, 528), dtype=torch.int8, device=cuda),
+                           torch.zeros((2048, 528), dtype=torch.int8, device=cuda), ptile, 1024)
+    assert bk.LAUNCHES["sq8pd_bucket_gm"] == before
+
+
+# (B_pad, D_pad, chunk): the query tiles 8 .. 128 of #1's int8 tensor-core
+# epilogue (ragged at 24), zero-filled K steps (16, 48), the serve width (128)
+# and the cap (512), one slice a bucket (chunk 128) up to 64 (8,192).
+@pytest.mark.parametrize("chunk", [128, 2048, 8192])
+@pytest.mark.parametrize("d_pad", [16, 48, 128, 512])
+@pytest.mark.parametrize("b_pad", [8, 16, 24, 256])
+def test_sq8pd_bucket_kernel_edges(cuda, b_pad, d_pad, chunk):
+    """#1 on the int8 tensor cores bit for bit at its tiling's edges: 15% of
+    rows and all of chunk 0 knocked out at the largest penalty the encoding
+    takes, the most negative dot on a knocked-out row, and every slice of
+    bucket lane 5 in chunk 1 one row (the slice bits decide)."""
+    rng = np.random.default_rng(b_pad * 7 + d_pad + chunk)
+    n = 2 * max(chunk, 2048)
+    qi = rng.integers(-127, 128, (b_pad, d_pad)).astype(np.int8)
+    rows = rng.integers(-127, 128, (n, d_pad)).astype(np.int8)
+    pen = rng.integers(0, bk._PD_PEN_CAP + 1, n).astype(np.int32)
+    knocked = rng.random(n) < 0.15
+    knocked[:chunk] = True
+    pen[knocked] = bk._pd_invalid_pen(d_pad)
+    qi[0], rows[1] = 127, -127
+    lane = chunk + 5 + np.arange(chunk // 128) * 128
+    rows[lane], pen[lane] = rows[lane[0]], pen[lane[0]]
+    qi, rows = torch.from_numpy(qi).to(cuda), torch.from_numpy(rows).to(cuda)
+    ptile = bk.sq8pd_ptile(torch.from_numpy(pen).to(cuda), chunk)
+    before = bk.LAUNCHES["sq8pd_bucket_gm"]
+    gm = bk.sq8pd_bucket_gm(qi, rows, ptile, chunk)
     torch.cuda.synchronize()
-    assert torch.equal(gm, bk.sq8pd_bucket_gm_ref(qi, rows, ptile, 1024))
+    assert bk.LAUNCHES["sq8pd_bucket_gm"] == before + 1
+    assert gm.dtype == torch.int32 and torch.equal(gm, bk.sq8pd_bucket_gm_ref(qi, rows, ptile,
+                                                                             chunk))
+    assert bool((gm[:, :128] // 64 < bk._pd_empty_thresh(d_pad)).all())
+    assert bool((gm[:, 128 + 5] & 63 == chunk // 128 - 1).all())
 
 
 # -- slice 2: the per-row SQ8 kernel and the three Hamming kernels ----------
@@ -194,6 +233,76 @@ def test_hamming_topk_kernel_equals_plain(cuda, b, d, n, k):
     dist, idx = pk.hamming_topk(q, packed, valid, k)
     torch.cuda.synchronize()
     assert pk.LAUNCHES["hamming_topk"] == before + 1
+    rd, ri = pk.hamming_topk_ref(q, packed, valid, k)
+    assert torch.equal(dist, rd) and torch.equal(idx, ri)
+
+
+def _topk_words(rng, n, w):
+    return torch.from_numpy(rng.integers(-2**31, 2**31, (n, w), dtype=np.int64).astype(np.int32))
+
+
+def _topk_tie_case(cuda, name, b, w, rng):
+    """``(q, packed, valid, k)`` of a tie-heavy #9 case on the card (the CPU
+    model of the kernel's steps holds the same cases in
+    ``test_torch_hamming_topk_split.py``)."""
+    q = _topk_words(rng, b, w)
+    if name == "all_equal":  # one row repeated: the first k rows
+        n, k = 5000, 300
+        packed = _topk_words(rng, 1, w).repeat(n, 1)
+        valid = torch.ones(n, dtype=torch.bool)
+    elif name == "straddle":  # distance 0 for query 0 around every 256-row boundary
+        n, k = 4000, 100
+        packed = _topk_words(rng, n, w)
+        near = (torch.arange(n) % 256 >= 250) | (torch.arange(n) % 256 < 6)
+        packed[near] = q[0]
+        valid = torch.ones(n, dtype=torch.bool)
+    elif name == "dead_chunk":  # the nearest rows all in one invalid chunk
+        n, k = 4096, 50
+        packed = _topk_words(rng, n, w)
+        packed[256:512] = q[0]
+        valid = torch.from_numpy(rng.random(n) > 0.15)
+        valid[256:512] = False
+    elif name == "few_valid":  # fewer valid rows than k: +inf / -1 empties
+        n, k = 3000, 320
+        valid = torch.zeros(n, dtype=torch.bool)
+        valid[torch.from_numpy(rng.choice(n, 100, replace=False))] = True
+        packed = _topk_words(rng, n, w)
+    else:  # k = N over repeated rows
+        n = k = 2000
+        packed = _topk_words(rng, 8, w).repeat(n // 8, 1)
+        valid = torch.from_numpy(rng.random(n) > 0.1)
+    return q.to(cuda), packed.to(cuda), valid.to(cuda), k
+
+
+@pytest.mark.parametrize("w", [1, 4, 24, 256])
+@pytest.mark.parametrize("b", [1, 16, 256])
+@pytest.mark.parametrize("name", ["all_equal", "straddle", "dead_chunk", "few_valid",
+                                  "k_is_n"])
+def test_hamming_topk_kernel_ties(cuda, name, b, w):
+    """#9 split across the card, bit for bit with the stable sort on the
+    tie-heavy cases, at every query-tile and word-count path."""
+    q, packed, valid, k = _topk_tie_case(cuda, name, b, w, np.random.default_rng(b + w))
+    before = pk.LAUNCHES["hamming_topk"]
+    dist, idx = pk.hamming_topk(q, packed, valid, k)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["hamming_topk"] == before + 1
+    rd, ri = pk.hamming_topk_ref(q, packed, valid, k)
+    assert torch.equal(dist, rd) and torch.equal(idx, ri)
+
+
+@pytest.mark.parametrize("k", [1, 10, 320, "n"])
+@pytest.mark.parametrize("b", [1, 16, 256])
+def test_hamming_topk_kernel_sizes(cuda, b, k):
+    """#9 at the 100k-binary shape (N 106,496, W 4: the chunk of 1,024 rows
+    at B 256, 256 below) and k up to N on a smaller corpus."""
+    rng = np.random.default_rng(b * 3 + (0 if k == "n" else k))
+    n = 4096 if k == "n" else 106_496
+    k = n if k == "n" else k
+    x = torch.from_numpy(_clustered(rng, n + b, 100)).to(cuda)
+    packed, q = binary_quantize(x[:n]), binary_quantize(x[n:])
+    valid = torch.from_numpy(rng.random(n) > 0.15).to(cuda)
+    dist, idx = pk.hamming_topk(q, packed, valid, k)
+    torch.cuda.synchronize()
     rd, ri = pk.hamming_topk_ref(q, packed, valid, k)
     assert torch.equal(dist, rd) and torch.equal(idx, ri)
 

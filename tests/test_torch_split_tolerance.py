@@ -521,11 +521,11 @@ def test_library_names_hash_the_headers_their_sources_include(tmp_path, monkeypa
     srcs = _cuda._sources(str(csrc / "fused_topk.cu"), [])
     assert [os.path.basename(p) for p in srcs] == ["fused_topk.cu", "wgmma.cuh"]
     before = {name: _cuda._paths(name)[1]
-              for name in ("fused_topk", "dense_bucket_tc", "sq8i_bucket", "sq8pd_bucket")}
+              for name in ("fused_topk", "dense_bucket_tc", "sq8i_bucket", "hamming_topk")}
     with open(csrc / "wgmma.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {name: _cuda._paths(name)[1] for name in before}
     assert after["fused_topk"] != before["fused_topk"]
     assert after["dense_bucket_tc"] != before["dense_bucket_tc"]
     assert after["sq8i_bucket"] != before["sq8i_bucket"]
-    assert after["sq8pd_bucket"] == before["sq8pd_bucket"]  # includes no header
+    assert after["hamming_topk"] == before["hamming_topk"]  # includes no header

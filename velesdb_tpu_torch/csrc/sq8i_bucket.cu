@@ -1,13 +1,17 @@
 // sq8i_bucket.cu — the int8 bucket scans on Hopper's int8 tensor cores: the
-// per-row SQ8 scan with four epilogues, and the bit-plane Hamming scan.
+// per-row SQ8 scan with four epilogues, the bit-plane Hamming scan, and the
+// per-dimension "enc-select" scan.
 //
 // Replaces velesdb_tpu/ops/bucket_kernel.py::_sq8i_kernel (the Pallas kernel
 // launched by sq8i_bucket_topk), the three epilogue experiments over the
-// same int8 scan in benchmarks/exp_sq8i_v2.py (_k_v2, _k_v2h, _k_v3), and
+// same int8 scan in benchmarks/exp_sq8i_v2.py (_k_v2, _k_v2h, _k_v3),
 // velesdb_tpu/ops/bucket_kernel.py::_hamming_mxu_kernel (launched by
-// hamming_mxu_topk). Every epilogue is bit for bit against its plain torch
-// version (sq8i_bucket_ref, hamming_mxu_ref, and
-// velesdb_tpu_torch/experiments/kernels.py's sq8i_v2_bucket_ref):
+// hamming_mxu_topk) and velesdb_tpu/ops/bucket_kernel.py::_sq8pd_kernel
+// (launched by sq8pd_candidates; also benchmarks/exp_sq8i_v2.py's _k_v5 and
+// benchmarks/exp_hamming_mxu.py's _k_hme). Every epilogue is bit for bit
+// against its plain torch version (sq8i_bucket_ref, hamming_mxu_ref,
+// sq8pd_bucket_gm_ref, and velesdb_tpu_torch/experiments/kernels.py's
+// sq8i_v2_bucket_ref):
 //
 //   inputs   qi     int8  [B_pad, D_pad]  per-query symmetric int8 queries
 //                                         (#5: 2 * query sign bits, 0 or 2)
@@ -19,6 +23,7 @@
 //   gm[b, c*128 + j] = max over slices i of s[b, c*chunk + i*128 + j], gi its
 //   row; ties go to the smallest slice (the reference's _bucket_select), so a
 //   bucket of -inf scores (pen = +inf) returns its slice-0 row.
+//   #1 (sq8pd_bucket_launch) has no gi: its gm is int32, see PdEnc below.
 //
 // The epilogues, s[b, r] from doti:
 //   #7  (sq8i_bucket_launch): scale, am, pen f32 [N]; sqi, invqs f32 [B_pad]
@@ -38,6 +43,17 @@
 //        s = float(doti - aux[r])  (= |q| - hamming(q, c) - knockout), exact:
 //        |s| <= 2^20 + 2 * D_pad < 2^24. The strict > of the running max
 //        keeps the smallest slice of a tie, as the integer select does.
+//   #1  (sq8pd_bucket_launch, PdEnc): qi, rows the per-dimension int8 shadow
+//        in [-127, 127]; ptile int32 [N] = -64 * pen_int + in-chunk slice
+//        index; s = doti * 64 + ptile[r] in int32, and
+//        gm int32 [B_pad, (N / chunk) * 128] = max over slices of s. The
+//        slice index sits in the low 6 bits of every score, so no two
+//        slices of a bucket tie and the integer max needs no order; the
+//        decode (sq8pd_candidates) reads the row back from those bits.
+// The epilogue's trait (Select) says what the select keeps: Score = float
+// with kSlice (a running float max and its slice, one byte each, gm f32 +
+// gi), or Score = int32_t without it (PdEnc: an int32 running max, no slice
+// bytes, gm int32 only). |enc| reaches 2^31, more than a float holds exactly.
 // Every product and sum is written with __fmul_rn / __fadd_rn / __fsub_rn in
 // the plain version's order: nvcc would otherwise contract a*b + c into an
 // FMA, which PyTorch's one-op-per-kernel arithmetic never does. A bf16 step
@@ -47,13 +63,19 @@
 // int32 headroom at the caps: #7's rows are code - 128 in [-128, 127] and its
 // queries in [-127, 127], so every partial sum is at most 128 * 127 * 12,288
 // = 199,753,728 < 2^31 at D_pad 12,288; #5's dot is at most 2 * 6,144.
+// #1 (D_pad <= 512): |doti| <= 127^2 * 512 = 8,258,048, so |doti * 64| <
+// 2^29; the largest penalty, _pd_invalid_pen(512) = 2 * 8,258,048 + 2^22 =
+// 20,710,400 of a knocked-out row, gives |64 * pen_int| < 1.33e9, so every
+// score s lies in (-1.86e9, 5.3e8], inside int32 with no wrap. An s32
+// wgmma accumulation is exact in any order.
 //
 // What bounds it on this card. 2 * B_pad * N * D_pad int8 operations at
 // 1,979 TOPS (0.035 ms at B_pad 256, N 1,048,576, D_pad 128) against N *
-// D_pad bytes of rows, 12 bytes of epilogue values a row (#5: 4) and the
-// gm/gi writes (0.054 ms); the epilogue adds 5 to 6 fp32 operations and a
-// compare per (query, row), none but the select for v3 and one subtraction
-// for #5 (0.024 ms at the fp32 rate for #7).
+// D_pad bytes of rows, 12 bytes of epilogue values a row (#5 and #1: 4) and
+// the gm/gi writes (0.054 ms; #1 writes gm alone: 0.046 ms); the epilogue
+// adds 5 to 6 fp32 operations and a compare per (query, row), none but the
+// select for v3, one subtraction for #5 and one integer multiply-add for #1
+// (0.024 ms at the fp32 rate for #7).
 //
 // What the design does about that: #2b's pipeline (dense_bucket_tc.cu, mode
 // 1) on int8 operands with s32 accumulators.
@@ -72,11 +94,13 @@
 // - the epilogue is a template parameter and stays in registers: each
 //   functor reads only the per-row and per-query values it uses, turns the
 //   exact s32 dot into the score and keeps a running (max, slice) per (row
-//   lane, query), the slice packed one byte each, and gm/gi are written once
-//   per chunk, so the [B, N] score tile never exists.
+//   lane, query), the slice packed one byte each (#1: an int32 max alone),
+//   and gm/gi are written once per chunk, so the [B, N] score tile never
+//   exists.
 // The query tile is the largest whose NQ x D_pad bytes fit beside two
 // stages: NQ 128 up to D_pad 1,536, NQ 16 at #7's cap of 12,288, NQ 32 at
-// #5's cap of 6,144. The ring takes as many stages as fit beside it, up to 8.
+// #5's cap of 6,144. The ring takes as many stages as fit beside it, up to 8
+// (#1, D_pad <= 512: always 8).
 //
 // What it leaves on the table: as in #2b, each step waits for its wgmma
 // group before the epilogue, so the tensor cores and the epilogue never
@@ -186,13 +210,41 @@ struct Hamming {
   }
 };
 
+// #1: the encoded score doti * 64 + ptile[r], an int32 whose low 6 bits are
+// the slice: the select is an integer max and the output has no gi.
+struct PdEnc {
+  const int32_t* ptile;
+  struct Row {
+    int pt;
+  };
+  __device__ float qa(int) const { return 0.0f; }
+  __device__ float qb(int) const { return 0.0f; }
+  __device__ Row row(long long r) const { return {__ldg(ptile + r)}; }
+  __device__ int32_t score(int acc, float, float, const Row& w) const { return acc * 64 + w.pt; }
+};
+
+// What the select keeps: a float score and its slice (gm f32 + gi), or, for
+// a score that carries its slice in its low bits, the score alone (gm of
+// Score, no gi).
+template <class Epi>
+struct Select {
+  using Score = float;
+  static constexpr bool kSlice = true;
+};
+template <>
+struct Select<PdEnc> {
+  using Score = int32_t;
+  static constexpr bool kSlice = false;
+};
+
 template <int NQ, int S, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
 sq8i_tc_kernel(const int8_t* __restrict__ qi, const int8_t* __restrict__ rows, const Epi epi,
-               float* __restrict__ gm, int32_t* __restrict__ gi, int b_pad, int d_pad,
-               int chunk, int n_qtiles, long long n_buckets) {
+               typename Select<Epi>::Score* __restrict__ gm, int32_t* __restrict__ gi,
+               int b_pad, int d_pad, int chunk, int n_qtiles, long long n_buckets) {
+  using Score = typename Select<Epi>::Score;
   constexpr int R = NQ / 2;  // accumulators per thread: two rows x NQ/4 queries
-  constexpr int W = NQ / 8;  // packed slice-index words per thread
+  constexpr int W = Select<Epi>::kSlice ? NQ / 8 : 1;  // packed slice-index words per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // every operand region starts 1024-byte aligned in the shared window (the
   // swizzle's repeat), so the launch asks for 1 KB more than it uses
@@ -264,12 +316,16 @@ sq8i_tc_kernel(const int8_t* __restrict__ qi, const int8_t* __restrict__ rows, c
   }
 
   int acc[R];
-  float mx[R];
+  Score mx[R];
   unsigned mi[W];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     acc[i] = 0;
-    mx[i] = -__int_as_float(0x7f800000);  // -inf
+    if constexpr (Select<Epi>::kSlice) {
+      mx[i] = -__int_as_float(0x7f800000);  // -inf
+    } else {
+      mx[i] = INT_MIN;
+    }
   }
 #pragma unroll
   for (int i = 0; i < W; ++i) mi[i] = 0u;
@@ -310,10 +366,14 @@ sq8i_tc_kernel(const int8_t* __restrict__ qi, const int8_t* __restrict__ rows, c
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const int col = 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
-        const float v = epi.score(acc[i], s_qa[col], s_qb[col], (i & 2) ? w_hi : w_lo);
-        if (v > mx[i]) {
-          mx[i] = v;
-          mi[i / 4] = __byte_perm(mi[i / 4], sb, put_byte_sel(i % 4));
+        const Score v = epi.score(acc[i], s_qa[col], s_qb[col], (i & 2) ? w_hi : w_lo);
+        if constexpr (Select<Epi>::kSlice) {
+          if (v > mx[i]) {
+            mx[i] = v;
+            mi[i / 4] = __byte_perm(mi[i / 4], sb, put_byte_sel(i % 4));
+          }
+        } else {
+          mx[i] = max(mx[i], v);  // the slice is in the score's low bits
         }
       }
       if (s + 1 < slices) {
@@ -331,9 +391,11 @@ sq8i_tc_kernel(const int8_t* __restrict__ qi, const int8_t* __restrict__ rows, c
     const int lane_row = lr + ((i & 2) ? 8 : 0);
     if (q0 + col < b_pad) {
       const long long off = static_cast<long long>(q0 + col) * n_buckets + c * kLanes + lane_row;
-      const int slice = static_cast<int>((mi[i / 4] >> (8 * (i % 4))) & 0xFFu);
       gm[off] = mx[i];
-      gi[off] = static_cast<int32_t>(row0 + slice * kLanes + lane_row);
+      if constexpr (Select<Epi>::kSlice) {
+        const int slice = static_cast<int>((mi[i / 4] >> (8 * (i % 4))) & 0xFFu);
+        gi[off] = static_cast<int32_t>(row0 + slice * kLanes + lane_row);
+      }
     }
   }
 }
@@ -345,8 +407,9 @@ size_t smem_bytes(int nq, int s, int d_pad) {
 }
 
 template <int NQ, int S, class Epi>
-cudaError_t launch(const int8_t* qi, const int8_t* rows, const Epi& epi, float* gm, int32_t* gi,
-                   int b_pad, long long n, int d_pad, int chunk, cudaStream_t stream) {
+cudaError_t launch(const int8_t* qi, const int8_t* rows, const Epi& epi,
+                   typename Select<Epi>::Score* gm, int32_t* gi, int b_pad, long long n,
+                   int d_pad, int chunk, cudaStream_t stream) {
   const int n_qtiles = (b_pad + NQ - 1) / NQ;
   const long long n_chunks = n / chunk;
   const long long blocks = n_chunks * n_qtiles;
@@ -373,16 +436,22 @@ cudaError_t launch(const int8_t* qi, const int8_t* rows, const Epi& epi, float* 
   return cudaGetLastError();
 }
 
-// The ring takes as many stages as fit beside the query tile, up to 8.
+// The ring takes as many stages as fit beside the query tile, up to 8. #1's
+// D_pad cap of 512 always leaves room for 8 (a 64 KB tile at NQ 128), so it
+// builds that ring alone.
 template <int NQ, class Epi>
-cudaError_t launch_stages(const int8_t* qi, const int8_t* rows, const Epi& epi, float* gm,
-                          int32_t* gi, int b_pad, long long n, int d_pad, int chunk,
-                          cudaStream_t stream) {
-  const long long free_bytes = kSmemLimit - static_cast<long long>(smem_bytes(NQ, 0, d_pad));
-  const long long s = free_bytes / kStageBytes;
-  if (s >= 8) return launch<NQ, 8>(qi, rows, epi, gm, gi, b_pad, n, d_pad, chunk, stream);
-  if (s >= 4) return launch<NQ, 4>(qi, rows, epi, gm, gi, b_pad, n, d_pad, chunk, stream);
-  return launch<NQ, 2>(qi, rows, epi, gm, gi, b_pad, n, d_pad, chunk, stream);
+cudaError_t launch_stages(const int8_t* qi, const int8_t* rows, const Epi& epi,
+                          typename Select<Epi>::Score* gm, int32_t* gi, int b_pad, long long n,
+                          int d_pad, int chunk, cudaStream_t stream) {
+  if constexpr (!Select<Epi>::kSlice) {
+    return launch<NQ, 8>(qi, rows, epi, gm, gi, b_pad, n, d_pad, chunk, stream);
+  } else {
+    const long long free_bytes = kSmemLimit - static_cast<long long>(smem_bytes(NQ, 0, d_pad));
+    const long long s = free_bytes / kStageBytes;
+    if (s >= 8) return launch<NQ, 8>(qi, rows, epi, gm, gi, b_pad, n, d_pad, chunk, stream);
+    if (s >= 4) return launch<NQ, 4>(qi, rows, epi, gm, gi, b_pad, n, d_pad, chunk, stream);
+    return launch<NQ, 2>(qi, rows, epi, gm, gi, b_pad, n, d_pad, chunk, stream);
+  }
 }
 
 // The query tile: the smallest of 8 .. 128 that holds the batch, then the
@@ -392,7 +461,7 @@ int dispatch(const void* qi, const void* rows, const Epi& epi, void* gm, void* g
              long long n, int d_pad, int chunk, void* stream) {
   const auto* q = static_cast<const int8_t*>(qi);
   const auto* r = static_cast<const int8_t*>(rows);
-  auto* m = static_cast<float*>(gm);
+  auto* m = static_cast<typename Select<Epi>::Score*>(gm);
   auto* g = static_cast<int32_t*>(gi);
   auto s = static_cast<cudaStream_t>(stream);
   int nq = b_pad <= 8 ? 8 : b_pad <= 16 ? 16 : b_pad <= 32 ? 32 : b_pad <= 64 ? 64 : 128;
@@ -465,4 +534,16 @@ extern "C" int hamming_mxu_launch(const void* qi, const void* bits, const void* 
   }
   const Hamming epi{static_cast<const int32_t*>(aux)};
   return dispatch(qi, bits, epi, gm, gi, b_pad, n, d_pad, chunk, stream);
+}
+
+// #1, the per-dimension enc-select scan: ``ptile`` int32 [N], ``gm`` int32
+// [B_pad, N / chunk * 128], no gi.
+extern "C" int sq8pd_bucket_launch(const void* qi, const void* rows, const void* ptile,
+                                   void* gm, int b_pad, long long n, int d_pad, int chunk,
+                                   void* stream) {
+  if (bad_shape(b_pad, n, d_pad, chunk, 512)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PdEnc epi{static_cast<const int32_t*>(ptile)};
+  return dispatch(qi, rows, epi, gm, nullptr, b_pad, n, d_pad, chunk, stream);
 }

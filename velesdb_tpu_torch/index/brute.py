@@ -9,9 +9,9 @@ does:
 - FULL, F16, BF16 (f32, f16 or bf16 rows; cosine rows pre-normalized), at D
   < 512 and where the bucket collision guard holds (at least
   ``BUCKET_MIN_ROWS`` padded rows), in this order:
-  1. ``int8-assist-pd`` (FULL): the per-dim int8 scan
-     (``csrc/sq8pd_bucket.cu``) keeps m = clamp(2k-4, 16, 256) candidates,
-     then an exact fp32 rerank;
+  1. ``int8-assist-pd`` (FULL): the per-dim int8 scan (the ``PdEnc``
+     epilogue of ``csrc/sq8i_bucket.cu``) keeps m = clamp(2k-4, 16, 256)
+     candidates, then an exact fp32 rerank;
   2. ``int8-assist`` (FULL, where ``sq8pd_build`` refuses the corpus and D <
      ``_SQ8I_MAX_DIM``): the per-row int8 scan (``csrc/sq8i_bucket.cu``) over
      an SQ8 shadow, then the exact rerank;

@@ -39,14 +39,16 @@ and Hamming kernels:
   the winner's value AND its row. int32 budget (dim <= 512): |doti| <=
   127*127*dim, valid ``pen_int`` capped at ``_PD_PEN_CAP`` (else
   :func:`sq8pd_build` refuses), knocked-out rows carry ``_pd_invalid_pen``.
+  It runs as the int32 epilogue of #7's kernel on the int8 tensor cores
+  (``sq8pd_bucket_launch`` in ``csrc/sq8i_bucket.cu``).
 - ``sq8i_bucket`` (#7, :func:`sq8i_bucket_gm`): the per-ROW SQ8 scan, int8
   queries against int8 ``code - 128`` rows with the f32 affine epilogue. It
   serves SQ8 storage, and FULL storage where ``sq8pd_build`` refuses.
 - ``hamming_mxu_launch`` (#5, :func:`hamming_mxu_gm`): Hamming distance as an
   int8 dot of 0/1 bit rows (the BINARY default while the bit shadow fits),
-  an epilogue of #7's kernel. #7 and #5 run on the int8 tensor cores
+  an epilogue of #7's kernel. #7, #5 and #1 run on the int8 tensor cores
   (``wgmma`` s8, s32 accumulators): an int8 dot is exact in any order, so
-  both stay bit for bit against their plain versions.
+  all three stay bit for bit against their plain versions.
 - ``hamming_bucket`` (#4, :func:`hamming_bucket_gm`): XOR + popcount over the
   packed words (BINARY past the bit-shadow budget).
 
@@ -282,6 +284,9 @@ def _launch(launches: dict, counter: str, lib: str, symbol: str, argtypes: tuple
     launches[counter] += 1
 
 
+_PD_MAX_DPAD = 512  # the int32 encoding's budget (sq8pd_build refuses dim > 512)
+
+
 def _check_gm_args(qi, rows_pd, ptile, chunk: int) -> None:
     if not (qi.device == rows_pd.device == ptile.device):
         raise ValueError("qi, rows_pd and ptile must be on one device")
@@ -299,8 +304,8 @@ def _check_gm_args(qi, rows_pd, ptile, chunk: int) -> None:
             f"shape mismatch: qi {tuple(qi.shape)}, rows_pd {tuple(rows_pd.shape)}, "
             f"ptile {tuple(ptile.shape)}"
         )
-    if d_pad % 4 or d_pad > 512:
-        raise ValueError(f"D_pad={d_pad} must be a multiple of 4 and <= 512")
+    if d_pad % 16 or d_pad > _PD_MAX_DPAD:
+        raise ValueError(f"D_pad={d_pad} must be a multiple of 16 and <= {_PD_MAX_DPAD}")
     if chunk <= 0 or chunk % _LANES or chunk > _MAX_CHUNK or n % chunk:
         raise ValueError(
             f"chunk={chunk} must be a multiple of 128, <= {_MAX_CHUNK}, "
@@ -325,19 +330,16 @@ def sq8pd_bucket_gm(qi: torch.Tensor, rows_pd: torch.Tensor, ptile: torch.Tensor
                     chunk: int) -> torch.Tensor:
     """Encoded bucket maxima ``gm int32 [B_pad, N/chunk*128]``.
 
-    On CUDA tensors this launches ``csrc/sq8pd_bucket.cu`` on the current
-    stream (or raises); CPU tensors take :func:`sq8pd_bucket_gm_ref`."""
+    On CUDA tensors this launches the ``PdEnc`` epilogue of
+    ``csrc/sq8i_bucket.cu`` on the current stream (or raises); CPU tensors
+    take :func:`sq8pd_bucket_gm_ref`."""
     _check_gm_args(qi, rows_pd, ptile, chunk)
-    if qi.device.type == "cpu":
+    if _kernel_route(qi, rows_pd, ptile):
         return sq8pd_bucket_gm_ref(qi, rows_pd, ptile, chunk)
-    if qi.device.type != "cuda":
-        raise ValueError(f"unsupported device {qi.device}")
-    if rows_pd.data_ptr() % 4 or qi.data_ptr() % 4:
-        raise ValueError("qi and rows_pd must be 4-byte aligned")
     b_pad = qi.shape[0]
     n, d_pad = rows_pd.shape
     gm = torch.empty((b_pad, n // chunk * _LANES), dtype=torch.int32, device=qi.device)
-    _launch(LAUNCHES, "sq8pd_bucket_gm", "sq8pd_bucket", "sq8pd_bucket_launch", _P * 4 + _IIJ,
+    _launch(LAUNCHES, "sq8pd_bucket_gm", "sq8i_bucket", "sq8pd_bucket_launch", _P * 4 + _IIJ,
             qi, rows_pd, ptile, gm, b_pad, n, d_pad, chunk)
     return gm
 

@@ -292,7 +292,21 @@ def fused_topk(queries, corpus, valid=None, k: int = 10,
         return torch.where(idx < 0, torch.inf, torch.sqrt((-vals).clamp_min(0.0))), idx
     return torch.where(idx < 0, -torch.inf, vals), idx
 
-_MAX_WORDS = 256  # 32 * 256 + 1 histogram bins in shared memory
+_MAX_WORDS = 256  # 32 * 256 + 1 histogram bins a query
+_TOPK_TILE = 256  # rows of one walk step of #9's blocks
+_TOPK_BLOCKS = 512  # the (chunk, 32-query tile) blocks #9's chunk aims for
+_TOPK_SEG_ROWS = 16  # rows at the threshold #9 keeps per (query, chunk): kSegRows
+
+
+def _topk_chunk(b: int, n: int) -> int:
+    """Rows per block of #9 (``csrc/hamming_topk.cu``): the largest power of
+    two from 8,192 down to 256 that still gives ``_TOPK_BLOCKS`` blocks of
+    (chunk, 32 queries), so that even one query's work spreads over the card."""
+    tiles = -(-b // 32)
+    chunk = 8192
+    while chunk > _TOPK_TILE and tiles * -(-n // chunk) < _TOPK_BLOCKS:
+        chunk //= 2
+    return chunk
 
 
 def _check(q, packed, valid, k):
@@ -326,7 +340,9 @@ def hamming_topk(packed_q, packed_corpus, valid=None, k: int = 10):
     corpus (``int32`` words from :func:`~velesdb_tpu_torch.ops.quantization.
     binary_quantize`), skipping rows where ``valid`` is False. ``k`` is
     clamped to N. CUDA tensors launch ``csrc/hamming_topk.cu``; CPU tensors
-    take :func:`hamming_topk_ref`."""
+    take :func:`hamming_topk_ref`. On the card the scratch is ``B * k`` int64
+    keys and ``B * (32 W + 5 + 18 ceil(N / chunk))`` int32 counters and rows
+    (``csrc/hamming_topk.cu``'s header gives the layout)."""
     n = packed_corpus.shape[0]
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=packed_corpus.device)
@@ -336,9 +352,14 @@ def hamming_topk(packed_q, packed_corpus, valid=None, k: int = 10):
         return hamming_topk_ref(packed_q, packed_corpus, valid, k)
     b, w = packed_q.shape
     dev = packed_q.device
+    chunk = _topk_chunk(b, n)
     dist = torch.empty((b, k), dtype=torch.float32, device=dev)
     idx = torch.empty((b, k), dtype=torch.int64, device=dev)
-    scratch = torch.empty((b, k), dtype=torch.int64, device=dev)
-    _launch(LAUNCHES, "hamming_topk", "hamming_topk", "hamming_topk_launch", _P * 6 + _IIJ,
-            packed_q, packed_corpus, valid, dist, idx, scratch, b, n, w, k)
+    keys = torch.empty((b, k), dtype=torch.int64, device=dev)
+    segs = -(-n // chunk)  # per (query, chunk): a count, its offset, the kept rows
+    ints = torch.empty(b * (32 * w + 5 + (2 + _TOPK_SEG_ROWS) * segs), dtype=torch.int32,
+                       device=dev)
+    _launch(LAUNCHES, "hamming_topk", "hamming_topk", "hamming_topk_launch",
+            _P * 7 + _IIJ + (ctypes.c_int,),
+            packed_q, packed_corpus, valid, dist, idx, keys, ints, b, n, w, k, chunk)
     return dist, idx

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the int8 bucket scans (#7, #12's v2 / v2h / v3 epilogues, #5) of the
-checkout this runs from, on one NVIDIA GPU.
+"""Time the int8 bucket scans (#7, #12's v2 / v2h / v3 epilogues, #5, #1)
+and the exact Hamming top-k (#9) of the checkout this runs from, on one
+NVIDIA GPU.
 
     python3 velesdb_tpu_torch/tools/int8_tc_timing.py    # from a checkout's root
 
@@ -10,21 +11,28 @@ another checkout's root (``cd build/parent && python3
 checkout's kernels: two checkouts compared in one call. Random operands made
 on the card from seed 0 at the shapes of ``chip_smoke.py``'s cells: N
 1,048,576 (#5: 1,310,720), D_pad 128, chunk 8,192, B_pad 256 and 16; 15% of
-rows knocked out. Each kernel's first launch is held against its plain
-version bit for bit (``torch.equal`` on gm and gi), then 20 launches are
-timed with CUDA events. Prints the card's name and power limit, the ptxas
-lines of ``sq8i_bucket``, and one line per (kernel, B_pad).
+rows knocked out (#1: at ``_pd_invalid_pen``). #9 on the sign words of
+100k-binary's shape (N 106,496, W 4, clustered data, 15% of rows invalid) at
+B 256 with k 10 and 320 and at B 16 and 1 with k 10. Each kernel's first
+launch is held against its plain version bit for bit (``torch.equal`` on
+every output), then 20 launches are timed with CUDA events; #9's launches
+are then traced with ``torch.profiler`` for the device time of each of its
+kernels. Prints the card's name and power limit, the ptxas registers and
+spills of each kernel instantiation the run built, one line per (kernel,
+batch) and one per (#9 shape, kernel).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 
 import torch
 
 N7, N5, D, CHUNK = 1_048_576, 1_310_720, 128, 8192
+N9, D9 = 106_496, 100
 
 
 def _time(fn, iters=20) -> float:
@@ -40,12 +48,43 @@ def _time(fn, iters=20) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _profile(fn, calls=10) -> dict:
+    """Device milliseconds a call of each kernel ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    return per
+
+
+def _ptxas(log: str):
+    """``(entry function, registers, spill line)`` of each instantiation."""
+    entry = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            yield entry, int(m.group(1))
+
+
 def main() -> None:
     sys.path.insert(0, os.getcwd())
     if not torch.cuda.is_available():
         sys.exit("int8_tc_timing: needs an NVIDIA GPU")
     from velesdb_tpu_torch.experiments import kernels as xk
     from velesdb_tpu_torch.ops import _cuda, bucket_kernel as bk
+    from velesdb_tpu_torch.ops import pallas_kernels as pk
+    from velesdb_tpu_torch.ops.quantization import binary_quantize
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -60,6 +99,10 @@ def main() -> None:
     bits = (torch.rand((N5, D), device=dev, generator=g) < 0.5).to(torch.int8)
     knocked = torch.rand(N5, device=dev, generator=g) < 0.15
     aux5 = (bits.to(torch.int32).sum(1) + bk._HAM_BIG * knocked).to(torch.int32)
+    rows_pd = torch.randint(-127, 128, (N7, D), dtype=torch.int8, device=dev, generator=g)
+    pen_pd = torch.randint(0, bk._PD_PEN_CAP, (N7,), dtype=torch.int32, device=dev, generator=g)
+    pen_pd[torch.rand(N7, device=dev, generator=g) < 0.15] = bk._pd_invalid_pen(D)
+    ptile = bk.sq8pd_ptile(pen_pd, CHUNK)
     lines = []
     for b in (256, 16):
         qi = torch.randint(-127, 128, (b, D), dtype=torch.int8, device=dev, generator=g)
@@ -79,18 +122,37 @@ def main() -> None:
             "#12 v3": (xk.sq8i_v2_bucket_gm, xk.sq8i_v2_bucket_ref,
                        (qi, rows8, None, None, CHUNK, "v3")),
             "#5 hamming_mxu": (bk.hamming_mxu_gm, bk.hamming_mxu_ref, (q5, bits, aux5, CHUNK)),
+            "#1 sq8pd_bucket": (bk.sq8pd_bucket_gm, bk.sq8pd_bucket_gm_ref,
+                                (qi, rows_pd, ptile, CHUNK)),
         }
         for name, (kernel, plain, args) in cases.items():
-            gm, gi = kernel(*args)
-            rm, ri = plain(*args)
-            same = torch.equal(gm, rm) and torch.equal(gi, ri)
+            out, want = kernel(*args), plain(*args)
+            out, want = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+            same = all(torch.equal(a, r) for a, r in zip(out, want))
             ms = _time(lambda: kernel(*args))
             lines.append(f"{name} B_pad {b}: {ms:.4f} ms, bit for bit: {same}")
             print(lines[-1], flush=True)
-    log = _cuda.BUILD_LOG.get("sq8i_bucket", "").splitlines()
-    for ln in log:
-        if "Used" in ln or "spill" in ln:
-            print("ptxas sq8i_bucket: " + ln.strip(), flush=True)
+    # #9 on clustered sign bits, so that distances tie as on the collection
+    centers = torch.randn((64, D9), device=dev, generator=g) * 2.0
+    pick = torch.randint(0, 64, (N9 + 256,), device=dev, generator=g)
+    x = centers[pick] + 0.7 * torch.randn((N9 + 256, D9), device=dev, generator=g)
+    packed, q9 = binary_quantize(x[:N9]), binary_quantize(x[N9:])
+    valid = torch.rand(N9, device=dev, generator=g) >= 0.15
+    for b, k in ((256, 10), (256, 320), (16, 10), (1, 10)):
+        qb = q9[:b].contiguous()
+        out, want = pk.hamming_topk(qb, packed, valid, k), pk.hamming_topk_ref(qb, packed, valid, k)
+        same = torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+        ms = _time(lambda: pk.hamming_topk(qb, packed, valid, k))
+        lines.append(f"#9 hamming_topk B {b}, k {k}: {ms:.4f} ms, bit for bit: {same}")
+        print(lines[-1], flush=True)
+        for name, t in sorted(_profile(lambda: pk.hamming_topk(qb, packed, valid, k)).items(),
+                              key=lambda kv: -kv[1]):
+            print(f"    #9 B {b}, k {k} profile: {t:.4f} ms/call  {name[:90]}", flush=True)
+    for lib in sorted(_cuda.BUILD_LOG):
+        for entry, regs in _ptxas(_cuda.BUILD_LOG[lib]):
+            print(f"ptxas {lib}: {regs} registers  {entry}", flush=True)
+        spills = {ln.strip() for ln in _cuda.BUILD_LOG[lib].splitlines() if "spill" in ln}
+        print(f"ptxas {lib}: " + " | ".join(sorted(spills)), flush=True)
     if not all(ln.endswith("True") for ln in lines):
         sys.exit("int8_tc_timing: a kernel differs from its plain version")
 
