@@ -21,16 +21,28 @@ whose rows are all invalid; fewer valid rows than k; k = N; k 320 over a few
 chunks; each at W 1, 4 and 24.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
 import velesdb_tpu.ops.pallas_kernels as jpk
 import velesdb_tpu_torch.ops.pallas_kernels as tpk
+from velesdb_tpu_torch.ops import _cuda
 from velesdb_tpu_torch.ops.bucket_kernel import hamming_distances
 
 B = 5
-SEG_ROWS = 16  # rows at T the kernel's collect keeps per (query, chunk)
+
+
+def _source_int(name: str) -> int:
+    """A ``constexpr int`` of ``csrc/hamming_topk.cu``."""
+    with open(os.path.join(_cuda._CSRC, "hamming_topk.cu")) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+SEG_ROWS = _source_int("kSegRows")  # rows at T collect keeps per (query, chunk)
 
 
 def _chunked_topk(q, packed, valid, k, chunk, seed=0):
@@ -177,12 +189,14 @@ def test_topk_chunk_spreads_the_work(b, n, chunk):
 
 
 def test_scratch_stays_bounded():
-    """The counters take 4 B (32 W + 5 + 18 ceil(N / chunk)) bytes: under
-    B N / 3.5 for the per-chunk part at any k, since chunk >= 256."""
+    """The counters take 4 B (32 W + 5 + (2 + kSegRows) ceil(N / chunk))
+    bytes (the source's ``hamming_topk_scratch_ints``): under B N / 3.5 for
+    the per-chunk part at any k, since chunk >= 256."""
+    per_chunk = 2 + SEG_ROWS  # a count at T, its offset, the kept rows
     for b, n, w in [(256, 106_496, 4), (1, 4096, 256), (13, 5_000_000, 24)]:
         chunk = tpk._topk_chunk(b, n)
-        assert 4 * b * 18 * -(-n // chunk) <= b * n / 3.5 + 4 * b * 18
+        assert 4 * b * per_chunk * -(-n // chunk) <= b * n / 3.5 + 4 * b * per_chunk
     b, n, w, k = 256, 106_496, 4, 320
     chunk = tpk._topk_chunk(b, n)
-    total = 4 * b * (32 * w + 5 + 18 * -(-n // chunk)) + 8 * b * k
+    total = 4 * b * (32 * w + 5 + per_chunk * -(-n // chunk)) + 8 * b * k
     assert total < 2.8e6

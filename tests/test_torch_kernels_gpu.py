@@ -307,6 +307,34 @@ def test_hamming_topk_kernel_sizes(cuda, b, k):
     assert torch.equal(dist, rd) and torch.equal(idx, ri)
 
 
+def test_hamming_topk_kernel_owns_its_scratch(cuda):
+    """#9's wrapper allocates the int32 scratch the source asks for, and the
+    C entry refuses a shorter one instead of writing past it."""
+    import ctypes
+    import os
+    import re
+
+    from velesdb_tpu_torch.ops import _cuda
+
+    with open(os.path.join(_cuda._CSRC, "hamming_topk.cu")) as f:
+        seg_rows = int(re.search(r"constexpr int kSegRows = (\d+);", f.read()).group(1))
+    b, n, w, k = 16, 4096, 4, 10
+    chunk = pk._topk_chunk(b, n)
+    n_ints = pk._topk_scratch_ints(b, n, w, chunk)
+    assert n_ints == b * (32 * w + 5 + (2 + seg_rows) * -(-n // chunk))
+    q = torch.zeros((b, w), dtype=torch.int32, device=cuda)
+    packed = torch.zeros((n, w), dtype=torch.int32, device=cuda)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    dist = torch.empty((b, k), device=cuda)
+    idx = torch.empty((b, k), dtype=torch.int64, device=cuda)
+    keys = torch.empty((b, k), dtype=torch.int64, device=cuda)
+    ints = torch.empty(n_ints - 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bk._launch(pk.LAUNCHES, "hamming_topk", "hamming_topk", "hamming_topk_launch",
+                   bk._P * 7 + (ctypes.c_longlong,) + bk._IIJ + (ctypes.c_int,),
+                   q, packed, valid, dist, idx, keys, ints, n_ints - 1, b, n, w, k, chunk)
+
+
 def test_slice2_kernels_refuse_bad_input(cuda):
     qi = torch.zeros((8, 128), dtype=torch.int8, device=cuda)
     rows = torch.zeros((1024, 128), dtype=torch.int8, device=cuda)

@@ -19,8 +19,10 @@
 //                     query its histogram of 32 W + 1 bins, a key counter,
 //                     the threshold (T, lt, need), and per (query, chunk)
 //                     the count of rows at T, its exclusive scan and up to
-//                     16 of those rows
-// Both are wrapper-owned (torch.empty); the kernels allocate nothing. The
+//                     16 (kSegRows) of those rows
+// Both are wrapper-owned (torch.empty); the kernels allocate nothing. This
+// file owns the layout: the wrapper sizes ints by hamming_topk_scratch_ints,
+// and the launch refuses a shorter one. The
 // scratch is 4 B (32 W + 5 + 18 ceil(N / chunk)) + 8 B k bytes: 2.7 MB at
 // B 256, N 106,496, W 4, k 320, chunk 1,024. k <= N bounds the keys by the
 // outputs' own size, and chunk >= 256 bounds the per-chunk part by B N / 3.5
@@ -82,6 +84,15 @@
 // each of passes 1 and 3 takes 0.044-0.049 ms there (torch.profiler,
 // PERF.md), about half the popcount rate; collect is held to 32 registers
 // (eight blocks an SM), which took it from 0.053-0.059 ms to that.
+//
+// Two forks, each measured against its single path on an H100 80GB HBM3 at
+// 700 W (B 256, N 106,496, W 4; tools/int8_tc_timing.py --topk, PERF.md):
+// count and collect hold the query words in registers at W = 4 (0.048 and
+// 0.044 ms, against 0.089 and 0.089 with the words in shared memory: four
+// shared loads a row and lane beside four popcounts; place, a warp a query,
+// reads its words from global memory and gained nothing from the fork), and
+// finish sorts up to 4,096 keys from a shared copy (0.011 ms at k 320,
+// against 0.018 with the keys read through L1).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -319,7 +330,6 @@ finish_kernel(const int* __restrict__ thr, const long long* __restrict__ keys,
 }
 
 // 5. place: one warp per (query, chunk)
-template <int WT>
 __global__ void __launch_bounds__(kThreads)
 place_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ packed,
              const uint8_t* __restrict__ valid, const int* __restrict__ thr,
@@ -356,12 +366,7 @@ place_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ packed
     if (r < r1 && valid[r]) {
       const uint32_t* row = packed + static_cast<long long>(r) * w;
       int d = 0;
-      if constexpr (WT > 0) {
-#pragma unroll
-        for (int i = 0; i < WT; ++i) d += __popc(__ldg(qrow + i) ^ __ldg(row + i));
-      } else {
-        for (int i = 0; i < w; ++i) d += __popc(__ldg(qrow + i) ^ __ldg(row + i));
-      }
+      for (int i = 0; i < w; ++i) d += __popc(__ldg(qrow + i) ^ __ldg(row + i));
       eq = d == t_at;
     }
     const unsigned ball = __ballot_sync(kAll, eq);
@@ -414,22 +419,31 @@ cudaError_t run(const uint32_t* q, const uint32_t* packed, const uint8_t* valid,
                                                          n_qtiles, n_chunks);
   finish_kernel<<<b, kThreads, 0, stream>>>(thr, keys, seg_cnt, seg_off, dist, idx, b, w, k,
                                             n_chunks);
-  place_kernel<WT><<<static_cast<unsigned>((segs + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
+  place_kernel<<<static_cast<unsigned>((segs + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
       q, packed, valid, thr, seg_cnt, seg_off, seg_rows, dist, idx, b, n, w, k, chunk, n_chunks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The int32 scratch ``ints`` of one launch, in elements: per query the
+// histogram, the key counter and the threshold, and per (query, chunk) the
+// count at T, its offset and kSegRows rows (the carving in ``run``).
+extern "C" long long hamming_topk_scratch_ints(int b, long long n, int w, int chunk) {
+  const long long n_chunks = (n + chunk - 1) / chunk;
+  return static_cast<long long>(b) * (32LL * w + 5 + (2 + kSegRows) * n_chunks);
+}
+
 // Plain C entry point, loaded with ctypes. Launches on ``stream`` without
 // synchronizing and returns the first CUDA error code. ``keys`` is int64
-// [b, k]; ``ints`` int32 [b * (32 w + 5 + 18 * ceil(n / chunk))]; ``chunk`` a
-// multiple of 256.
+// [b, k]; ``ints`` int32 of ``n_ints`` >= hamming_topk_scratch_ints elements;
+// ``chunk`` a multiple of 256.
 extern "C" int hamming_topk_launch(const void* q, const void* packed, const void* valid,
-                                   void* dist, void* idx, void* keys, void* ints, int b,
-                                   long long n, int w, int k, int chunk, void* stream) {
+                                   void* dist, void* idx, void* keys, void* ints,
+                                   long long n_ints, int b, long long n, int w, int k, int chunk,
+                                   void* stream) {
   if (b <= 0 || n <= 0 || n > INT_MAX || w <= 0 || w > 256 || k <= 0 || k > n ||
-      chunk <= 0 || chunk % kTile != 0) {
+      chunk <= 0 || chunk % kTile != 0 || n_ints < hamming_topk_scratch_ints(b, n, w, chunk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* qq = static_cast<const uint32_t*>(q);

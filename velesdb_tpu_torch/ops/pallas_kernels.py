@@ -35,6 +35,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from velesdb_tpu_torch.ops import _cuda
 from velesdb_tpu_torch.ops.bucket_kernel import (
     _FLOAT_CODES,
     _IIJ,
@@ -295,7 +296,6 @@ def fused_topk(queries, corpus, valid=None, k: int = 10,
 _MAX_WORDS = 256  # 32 * 256 + 1 histogram bins a query
 _TOPK_TILE = 256  # rows of one walk step of #9's blocks
 _TOPK_BLOCKS = 512  # the (chunk, 32-query tile) blocks #9's chunk aims for
-_TOPK_SEG_ROWS = 16  # rows at the threshold #9 keeps per (query, chunk): kSegRows
 
 
 def _topk_chunk(b: int, n: int) -> int:
@@ -307,6 +307,15 @@ def _topk_chunk(b: int, n: int) -> int:
     while chunk > _TOPK_TILE and tiles * -(-n // chunk) < _TOPK_BLOCKS:
         chunk //= 2
     return chunk
+
+
+def _topk_scratch_ints(b: int, n: int, w: int, chunk: int) -> int:
+    """The int32 scratch elements of one #9 launch, as the kernel's source
+    lays them out (``hamming_topk_scratch_ints``)."""
+    fn = _cuda.library("hamming_topk").hamming_topk_scratch_ints
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    return fn(b, n, w, chunk)
 
 
 def _check(q, packed, valid, k):
@@ -341,8 +350,9 @@ def hamming_topk(packed_q, packed_corpus, valid=None, k: int = 10):
     binary_quantize`), skipping rows where ``valid`` is False. ``k`` is
     clamped to N. CUDA tensors launch ``csrc/hamming_topk.cu``; CPU tensors
     take :func:`hamming_topk_ref`. On the card the scratch is ``B * k`` int64
-    keys and ``B * (32 W + 5 + 18 ceil(N / chunk))`` int32 counters and rows
-    (``csrc/hamming_topk.cu``'s header gives the layout)."""
+    keys and the int32 counters and rows that the kernel's
+    ``hamming_topk_scratch_ints`` asks for (``csrc/hamming_topk.cu``'s header
+    gives the layout)."""
     n = packed_corpus.shape[0]
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=packed_corpus.device)
@@ -356,10 +366,9 @@ def hamming_topk(packed_q, packed_corpus, valid=None, k: int = 10):
     dist = torch.empty((b, k), dtype=torch.float32, device=dev)
     idx = torch.empty((b, k), dtype=torch.int64, device=dev)
     keys = torch.empty((b, k), dtype=torch.int64, device=dev)
-    segs = -(-n // chunk)  # per (query, chunk): a count, its offset, the kept rows
-    ints = torch.empty(b * (32 * w + 5 + (2 + _TOPK_SEG_ROWS) * segs), dtype=torch.int32,
-                       device=dev)
+    n_ints = _topk_scratch_ints(b, n, w, chunk)
+    ints = torch.empty(n_ints, dtype=torch.int32, device=dev)
     _launch(LAUNCHES, "hamming_topk", "hamming_topk", "hamming_topk_launch",
-            _P * 7 + _IIJ + (ctypes.c_int,),
-            packed_q, packed_corpus, valid, dist, idx, keys, ints, b, n, w, k, chunk)
+            _P * 7 + (ctypes.c_longlong,) + _IIJ + (ctypes.c_int,),
+            packed_q, packed_corpus, valid, dist, idx, keys, ints, n_ints, b, n, w, k, chunk)
     return dist, idx

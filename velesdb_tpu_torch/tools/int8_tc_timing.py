@@ -4,6 +4,7 @@ and the exact Hamming top-k (#9) of the checkout this runs from, on one
 NVIDIA GPU.
 
     python3 velesdb_tpu_torch/tools/int8_tc_timing.py    # from a checkout's root
+    python3 velesdb_tpu_torch/tools/int8_tc_timing.py --topk    # #9 alone
 
 It imports ``velesdb_tpu_torch`` from the current directory, so run from
 another checkout's root (``cd build/parent && python3
@@ -13,13 +14,13 @@ on the card from seed 0 at the shapes of ``chip_smoke.py``'s cells: N
 1,048,576 (#5: 1,310,720), D_pad 128, chunk 8,192, B_pad 256 and 16; 15% of
 rows knocked out (#1: at ``_pd_invalid_pen``). #9 on the sign words of
 100k-binary's shape (N 106,496, W 4, clustered data, 15% of rows invalid) at
-B 256 with k 10 and 320 and at B 16 and 1 with k 10. Each kernel's first
-launch is held against its plain version bit for bit (``torch.equal`` on
-every output), then 20 launches are timed with CUDA events; #9's launches
-are then traced with ``torch.profiler`` for the device time of each of its
-kernels. Prints the card's name and power limit, the ptxas registers and
-spills of each kernel instantiation the run built, one line per (kernel,
-batch) and one per (#9 shape, kernel).
+B 256, 16 and 1, each with k 10 and 320; ``--topk`` times #9 alone. Each
+kernel's first launch is held against its plain version bit for bit
+(``torch.equal`` on every output), then 20 launches are timed with CUDA
+events; #9's launches are then traced with ``torch.profiler`` for the device
+time of each of its kernels and their sum. Prints the card's name and power
+limit, the ptxas registers and spills of each kernel instantiation the run
+built, one line per (kernel, batch) and one per (#9 shape, kernel).
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def main() -> None:
     pen_pd[torch.rand(N7, device=dev, generator=g) < 0.15] = bk._pd_invalid_pen(D)
     ptile = bk.sq8pd_ptile(pen_pd, CHUNK)
     lines = []
-    for b in (256, 16):
+    for b in () if "--topk" in sys.argv[1:] else (256, 16):
         qi = torch.randint(-127, 128, (b, D), dtype=torch.int8, device=dev, generator=g)
         sqi = qi.float().sum(1)
         invqs = torch.rand(b, device=dev, generator=g) + 0.5
@@ -138,16 +139,17 @@ def main() -> None:
     x = centers[pick] + 0.7 * torch.randn((N9 + 256, D9), device=dev, generator=g)
     packed, q9 = binary_quantize(x[:N9]), binary_quantize(x[N9:])
     valid = torch.rand(N9, device=dev, generator=g) >= 0.15
-    for b, k in ((256, 10), (256, 320), (16, 10), (1, 10)):
+    for b, k in ((256, 10), (256, 320), (16, 10), (16, 320), (1, 10), (1, 320)):
         qb = q9[:b].contiguous()
         out, want = pk.hamming_topk(qb, packed, valid, k), pk.hamming_topk_ref(qb, packed, valid, k)
         same = torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
         ms = _time(lambda: pk.hamming_topk(qb, packed, valid, k))
         lines.append(f"#9 hamming_topk B {b}, k {k}: {ms:.4f} ms, bit for bit: {same}")
         print(lines[-1], flush=True)
-        for name, t in sorted(_profile(lambda: pk.hamming_topk(qb, packed, valid, k)).items(),
-                              key=lambda kv: -kv[1]):
+        per = _profile(lambda: pk.hamming_topk(qb, packed, valid, k))
+        for name, t in sorted(per.items(), key=lambda kv: -kv[1]):
             print(f"    #9 B {b}, k {k} profile: {t:.4f} ms/call  {name[:90]}", flush=True)
+        print(f"    #9 B {b}, k {k} device total: {sum(per.values()):.4f} ms/call", flush=True)
     for lib in sorted(_cuda.BUILD_LOG):
         for entry, regs in _ptxas(_cuda.BUILD_LOG[lib]):
             print(f"ptxas {lib}: {regs} registers  {entry}", flush=True)
