@@ -1043,6 +1043,269 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
         errs[name] = held.get((rows[name][0], rows[name][1]), errs.get(name, 0.0))
 
 
+def graph_phase(torch, dev, counters, launches, errs, sift_oi, of_i) -> None:
+    """Phase 10, ``sift1m-graph``: the phase 3 data (made again from its
+    seed: phase 5c frees it) through ``Database`` ->
+    ``create_collection(index_kind="graph")`` with ``GraphParams.auto``
+    (degree 64, knn_k 32, build_nprobe 32, entry_probes 64, entry_points 96,
+    expand_width 16), #10 as the beam's SQ8 entry scan."""
+    from velesdb_tpu_torch import Database
+    import velesdb_tpu_torch.index.graph_index as gmod
+    import velesdb_tpu_torch.index.ivf as ivf_mod
+    from velesdb_tpu_torch.index.params import GraphParams
+    from velesdb_tpu_torch.ops import ivf_kernel as ik
+
+    t_phase = time.perf_counter()
+    sift_all = make_clustered(np.random.default_rng(42), SIFT_N + HELD_OUT, SIFT_D)
+    sift, sift_q = sift_all[:SIFT_N], sift_all[SIFT_N:]
+    filt = {"type": "eq", "field": "cat", "value": 3}
+    tmp = tempfile.mkdtemp(prefix="velesdb_chip_graph_")
+    try:
+        t0 = time.perf_counter()
+        db = Database.open(tmp, device=DEVICE)
+        col = db.create_collection("sift1m_graph", SIFT_D, metric="euclidean", index_kind="graph")
+        col.upsert_bulk(range(SIFT_N), sift, [{"cat": i % 8} for i in range(SIFT_N)])
+        col.refresh_device()
+        torch.cuda.synchronize()
+        say(f"sift1m-graph ingest + device refresh: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        prof = {}
+        t0 = time.perf_counter()
+        check(col._ensure_ann(force=True, profile=prof), "sift1m-graph: no graph built")
+        gi, eiv = col.ann, col.ann._entry_ivf
+        say(f"sift1m-graph build {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in prof.items()))
+        say(f"sift1m-graph build peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        want = GraphParams.auto(SIFT_D, SIFT_N)
+        check(gi.params == want, f"sift1m-graph params {gi.params} are not auto's {want}")
+        check(eiv is not None and eiv.storage == "sq8" and gi._route_cents is not None,
+              "sift1m-graph: no SQ8 entry IVF or router")
+        say(f"sift1m-graph index: n_pad {gi.n_pad}, degree {gi._adj.shape[1]}, router "
+            f"{gi._route_cents.shape[0]} partitions; entry IVF {eiv.c_real} partitions "
+            f"({eiv.c} padded), L {eiv.part_len}, probes {gi.params.entry_probes}, dispatch "
+            f"cap {gi._dispatch_cap()}")
+        calib = {e: col.planner.engine_recall("graph", e) for e in (16, 32, 64, 128, 256)}
+        print("sift1m-graph calibrated recall per ef: " + ", ".join(
+            f"ef {e} {r:.4f}" for e, r in calib.items()), flush=True)
+
+        def probe_desc(q, qsum, probe, rows, aux):
+            return (f"ivf_probe sq8 B {q.shape[0]}, nprobe {probe.shape[1]}, L {rows.shape[1]}, "
+                    f"D_pad {q.shape[1]} (graph entry)")
+
+        res = {}
+        with MainPath(counters, ik, "ivf_probe_scores", "ivf_probe") as run:
+            for ef in (128, 64, 256):
+                res[ef] = []
+                for i in range(0, 256, 16):
+                    res[ef] += col.search_batch(sift_q[i:i + 16], k=K, ef=ef)
+                    run.launched(f"search_batch b=16 ef={ef} (queries {i}-{i + 15})")
+            r256 = col.search_batch(sift_q[:256], k=K, ef=128)
+            run.launched("search_batch b=256 ef=128")
+            r1 = col.search(sift_q[300], k=K, ef=128)
+            run.launched("search")
+            check(all(c[0][2].shape[1] == gi.params.entry_probes for c in run.calls),
+                  "sift1m-graph: #10 did not probe entry_probes partitions")
+        launches["ivf_probe"] += run.launches()
+        n_launch = run.launches()
+        errs["ivf_probe"] = max(errs["ivf_probe"], run.hold_all(ik.ivf_probe_ref, probe_desc))
+        say(f"sift1m-graph: {n_launch} launches of #10 on the main path, each equal to its "
+            f"plain version bit for bit")
+        # the b = 16 searches again with #10's plain version patched in
+        kernel = ik.ivf_probe_scores
+        ik.ivf_probe_scores = lambda q, qsum, probe, rows, aux, sched=None: ik.ivf_probe_ref(
+            q, qsum, probe, rows, aux)
+        try:
+            plain16 = []
+            for i in range(0, 256, 16):
+                plain16 += col.search_batch(sift_q[i:i + 16], k=K, ef=128)
+        finally:
+            ik.ivf_probe_scores = kernel
+        check([[h.id for h in r] for r in plain16] == [[h.id for h in r] for r in res[128]],
+              "sift1m-graph: the b=16 searches through #10's plain version returned other ids")
+        rec = {ef: ids_recall(rows, sift_oi[:256]) for ef, rows in res.items()}
+        print(f"sift1m-graph recall@10 vs float64 oracle, b=16 over 256 queries: ef 64 "
+              f"{rec[64]:.4f}, ef 128 {rec[128]:.4f}, ef 256 {rec[256]:.4f}; b=256 ef 128 "
+              f"{ids_recall(r256, sift_oi[:256]):.4f}, search "
+              f"{ids_recall([r1], sift_oi[300:301]):.4f}; the b=16 searches through #10's "
+              f"plain version: identical ids", flush=True)
+        check(rec[128] >= 0.95, f"sift1m-graph recall@10 b=16 ef=128 = {rec[128]:.4f} < 0.95")
+
+        # filters: the starvation guards (an ef bump, capped at the beam's
+        # 512, with the entry IVF; exact past 512 without it; exact at no
+        # passing row) and the masked entry scan
+        mask = col._filter_mask(filt)
+        plan10 = col._plan_search(sift_q[:16], K, mask, ef=128)
+        plan100 = col._plan_search(sift_q[:16], 100, mask, ef=128)
+        none = col._plan_search(sift_q[:16], K, col._filter_mask(
+            {"type": "eq", "field": "cat", "value": 99}), ef=128)
+        check(plan10[:3] == ("graph", 40, 480) and plan100[:3] == ("graph", 128, 512)
+              and none[0] == "exact",
+              f"sift1m-graph guard plans {plan10}, {plan100}, {none}")
+        saved, gi._entry_ivf = gi._entry_ivf, None
+        try:
+            plain_guard = (col._plan_search(sift_q[:16], K, mask, ef=128),
+                           col._plan_search(sift_q[:16], 100, mask, ef=128))
+            routed = col.search_batch(sift_q[:16], k=K, ef=128, filter=filt)
+        finally:
+            gi._entry_ivf = saved
+        check(plain_guard[0][:3] == ("graph", 40, 480) and plain_guard[1][0] == "exact",
+              f"sift1m-graph guard plans without the entry IVF {plain_guard}")
+        before = ik.LAUNCHES["ivf_probe"]
+        f16 = []
+        for i in range(0, 256, 16):
+            f16 += col.search_batch(sift_q[i:i + 16], k=K, ef=128, filter=filt)
+        f100 = col.search_batch(sift_q[:16], k=100, ef=128, filter=filt)
+        check(ik.LAUNCHES["ivf_probe"] == before, "a filtered graph search launched #10")
+        bad = [h.id for rows in (f16, f100, routed) for r in rows for h in r
+               if h.id % 8 != 3 or h.payload != {"cat": 3}]
+        check(not bad, f"sift1m-graph filtered search returned filtered-out ids {bad[:5]}")
+        hits = [len(r) for r in f100]
+        print(f"sift1m-graph filtered (cat 1/8): recall@10 b=16 ef 128 (served at ef "
+              f"{plan10[2]}) {ids_recall(f16, of_i[:256]):.4f}, k=100 served at ef "
+              f"{plan100[2]} with {min(hits)}-{max(hits)} hits a query; routed entries (entry "
+              f"IVF set aside, ef {plain_guard[0][2]}) recall@10 "
+              f"{ids_recall(routed, of_i[:16]):.4f}; no filtered-out id; the no-entry-IVF "
+              f"guard sends k=100 to exact, an empty filter to exact", flush=True)
+
+        # timing: search_batch p50, the device path, busy, idle share, top kernels
+        measure(torch, "sift1m-graph ef=128", lambda b: col.search_batch(b, k=K, ef=128),
+                "sift1m-graph device path ef=128 (no hydrate)",
+                lambda b: col._search_device(b, K, None, ef=128)[1].cpu(), sift_q, (256, 16))
+        # #10 at the entry shape, and the beam's gather-and-score step alone
+        corpus = gi._corpus
+        for b in (16, 256):
+            qt = torch.from_numpy(sift_q[:b]).to(dev)
+            args = ik.probe_operands(qt, eiv._centroids, eiv._cent_sq, eiv._parts,
+                                     nprobe=gi.params.entry_probes, metric=gi.metric)[:3]
+            q, qsum, probe = args
+            aux = eiv._kernel_state()[0]
+            out = ik.ivf_probe_scores(q, qsum, probe, eiv._parts, aux)
+            errs["ivf_probe"] = max(errs["ivf_probe"], hold(
+                f"ivf_probe sq8 B {b}, nprobe {probe.shape[1]}, L {eiv.part_len} (graph entry)",
+                out, ik.ivf_probe_ref(q, qsum, probe, eiv._parts, aux)))
+            ms = time_kernel(torch, lambda: ik.ivf_probe_scores(q, qsum, probe, eiv._parts, aux))
+            plain = time_kernel(torch, lambda: ik.ivf_probe_ref(q, qsum, probe, eiv._parts, aux),
+                                iters=2)
+            L, width = eiv.part_len, eiv._parts.shape[2]
+            uniq = int(torch.unique(probe).numel())
+            slots = b * probe.shape[1] * L
+            bytes_ = uniq * L * (4 * width + 12) + 4 * (q.numel() + b + probe.numel() + slots)
+            ops = 2 * slots * q.shape[1] + 4 * slots
+            b_ms, b_by = bound(ops / PEAK_F32 * 1e3, bytes_)
+            say(f"ivf_probe graph entry b={b} (nprobe {probe.shape[1]}, L {L}, D_pad "
+                f"{q.shape[1]}, {uniq} unique partitions of {probe.numel()} probes): kernel "
+                f"{ms:.4f} ms, plain torch {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{b_ms / ms:.4f} of it); library yardstick: none (SQ8 words)")
+            busy, top = device_profile(
+                torch, lambda _: ik.ivf_probe_scores(q, qsum, probe, eiv._parts, aux), [0] * 10)
+            split = (f"device {busy:.4f} ms a call (torch.profiler): " + ", ".join(
+                f"{name[:40]} {t:.4f} ms" for name, t in top)) if busy > 0.0 else (
+                "the schedule / scan split not measured (no device events in the profile)")
+            say(f"ivf_probe graph entry b={b}: {probe.numel()} probes, the schedule "
+                f"{'from probe_runs' if probe.numel() > ik.SCHED_RANK_MAX else 'ranked on the card'}"
+                f"; {split}")
+            ew, deg = gi.params.expand_width, gi._adj.shape[1]
+            g = torch.Generator(device="cpu").manual_seed(b)
+            bids = torch.randint(0, SIFT_N, (b, ew), generator=g).to(dev)
+            nbrs = gi._adj[bids].reshape(b, ew * deg).long()
+            qn = qt.float()
+
+            def step():
+                return torch.bmm(corpus[nbrs], qn[:, :, None])[:, :, 0]
+
+            gms = time_kernel(torch, step)
+            rows = b * ew * deg
+            g_bytes = rows * (SIFT_D * 4 + 8) + qn.numel() * 4 + rows * 4
+            say(f"sift1m-graph beam gather-and-score step b={b} x ew {ew} x degree {deg} = "
+                f"{rows} per-query rows of {SIFT_D} f32: {gms:.4f} ms (corpus[ids] gather + "
+                f"bmm), bytes bound {g_bytes / PEAK_BYTES * 1e3:.4f} ms "
+                f"({g_bytes / PEAK_BYTES * 1e3 / gms:.4f} of it); "
+                f"{max(2, -(-128 // ew))} steps a search at ef 128")
+            del out
+
+        # close + reopen: ann.npz and .entry.npz restore with no k-means run
+        ids_before = [[h.id for h in r] for r in res[128][:64]]
+        db.close()
+        db = Database.open(tmp, device=DEVICE)
+        col = db.get_collection("sift1m_graph")
+        col.index_kind = "graph"
+        km_calls, builds = [], []
+        km, build = ivf_mod.kmeans, gmod.GraphIndex.build
+        ivf_mod.kmeans = lambda *a, **kw: km_calls.append(1) or km(*a, **kw)
+        gmod.GraphIndex.build = lambda *a, **kw: builds.append(1) or build(*a, **kw)
+        try:
+            t0 = time.perf_counter()
+            with MainPath(counters, ik, "ivf_probe_scores", "ivf_probe") as run:
+                re16 = []
+                for i in range(0, 64, 16):
+                    re16 += col.search_batch(sift_q[i:i + 16], k=K, ef=128)
+                    run.launched(f"reopened search_batch b=16 (queries {i}-{i + 15})")
+            say(f"sift1m-graph reopen: load, entry-IVF reassembly, calibration and 4 searches "
+                f"{time.perf_counter() - t0:.2f} s")
+        finally:
+            ivf_mod.kmeans, gmod.GraphIndex.build = km, build
+        launches["ivf_probe"] += run.launches()
+        errs["ivf_probe"] = max(errs["ivf_probe"], run.hold_all(ik.ivf_probe_ref, probe_desc))
+        check(not km_calls and not builds, "sift1m-graph reopen ran k-means or a build")
+        check([[h.id for h in r] for r in re16] == ids_before,
+              "reopened sift1m-graph returned other ids")
+        print("sift1m-graph close + reopen: restored from ann.npz and ann.npz.entry.npz with no "
+              "k-means run and no build; same ids for 64 queries", flush=True)
+
+        # upserts after the build: found through the graph delta, which
+        # leaves the unmasked searches on #10 (the stale slots dead in a
+        # copy of its state); the b=16 path timed before and after, with the
+        # graph's own share apart
+        b16 = [sift_q[i:i + 16] for i in range(0, 16 * (TIMED_CALLS + 1), 16)]
+
+        def med16(fn):
+            return statistics.median(time_calls(torch, fn, b16))
+
+        t_pre = med16(lambda b: col._search_device(b, K, None, ef=128)[1].cpu())
+        new = sift_q[1000:1000 + IVF_UPSERTS] + 0.01
+        col.upsert_bulk(range(SIFT_N, SIFT_N + IVF_UPSERTS), new, [{"cat": 8}] * IVF_UPSERTS)
+        with MainPath(counters, ik, "ivf_probe_scores", "ivf_probe") as run:
+            found = col.search_batch(new[:64], k=K, ef=128)
+            run.launched("search_batch b=64 after the upserts")
+            u16 = []
+            for i in range(0, 256, 16):
+                u16 += col.search_batch(sift_q[i:i + 16], k=K, ef=128)
+                run.launched(f"search_batch b=16 after the upserts (queries {i}-{i + 15})")
+            u256 = col.search_batch(sift_q[:256], k=K, ef=128)
+            run.launched("search_batch b=256 after the upserts")
+        launches["ivf_probe"] += run.launches()
+        errs["ivf_probe"] = max(errs["ivf_probe"], run.hold_all(ik.ivf_probe_ref, probe_desc))
+        check(not col.ann.dirty, "sift1m-graph upserts marked the graph dirty")
+        check([r[0].id for r in found] == list(range(SIFT_N, SIFT_N + 64)),
+              "sift1m-graph upserted rows not found through the delta")
+        ru = ids_recall(u16, sift_oi[:256])
+        check(ru >= 0.95, f"sift1m-graph recall@10 b=16 after the upserts = {ru:.4f} < 0.95")
+        print(f"sift1m-graph: {IVF_UPSERTS} rows upserted after the build found through the "
+              f"delta ({len(col._stale['graph'])} stale slots, searched exactly beside the "
+              f"graph, which leaves them out: #10 on every unmasked search, the slots dead in "
+              f"its state); recall@10 ef=128 b=16 {ru:.4f}, b=256 "
+              f"{ids_recall(u256, sift_oi[:256]):.4f}", flush=True)
+        gi = col.ann
+        stale = np.fromiter(col._stale["graph"], np.int64)
+        t_dev = med16(lambda b: col._search_device(b, K, None, ef=128)[1].cpu())
+        t_idx = med16(lambda b: gi.search(b, K, ef=128)[1].cpu())
+        t_ex = med16(lambda b: gi.search(b, K, ef=128, exclude=stale)[1].cpu())
+        say(f"sift1m-graph b=16 ef=128, median ms of {TIMED_CALLS} calls (CUDA events): the "
+            f"reopened collection's device path before the upserts {t_pre:.4f}, after "
+            f"{t_dev:.4f}; GraphIndex.search alone {t_idx:.4f}, with the delta's "
+            f"{len(stale)} slots as exclude {t_ex:.4f}")
+        measure(torch, "sift1m-graph after the upserts ef=128",
+                lambda b: col.search_batch(b, k=K, ef=128),
+                "sift1m-graph after the upserts device path ef=128 (no hydrate)",
+                lambda b: col._search_device(b, K, None, ef=128)[1].cpu(), sift_q, (256, 16))
+        db.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say(f"phase 10 sift1m-graph: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     global CARD
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1960,9 +2223,9 @@ def main() -> None:
         ru16 = ids_recall([r for rows in u16 for r in rows], sift_oi[:256])
         check(ru16 >= 0.95, f"sift1m-ivf recall@10 b=16 after the upserts = {ru16:.4f} < 0.95")
         print(f"sift1m-ivf: {IVF_UPSERTS} rows upserted after the build found through the "
-              f"delta ({len(col._stale)} stale slots), no rebuild; unfiltered searches stay on "
-              f"#10 with the stale slots dead; recall@10 b=16 ef=128 {ru16:.4f} (against the "
-              f"oracle before the upserts)", flush=True)
+              f"delta ({len(col._stale['ivf'])} stale slots), no rebuild; unfiltered searches "
+              f"stay on #10 with the stale slots dead; recall@10 b=16 ef=128 {ru16:.4f} "
+              f"(against the oracle before the upserts)", flush=True)
         report_qps(torch, "sift1m-ivf ef=128 after the upserts search_batch",
                    lambda b: col.search_batch(b, k=K, ef=128), sift_q, 16)
         db.delete_collection("sift1m")
@@ -2706,6 +2969,10 @@ def main() -> None:
     # -- 9. slice 6: the four kernel experiments (#11-#14) ---------------------
     phase("9. experiments")
     experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate)
+
+    # -- 10. slice 11: sift1m-graph, the graph engine with #10 as its entry --
+    phase("10. sift1m-graph")
+    graph_phase(torch, dev, counters, launches, errs, sift_oi, of_i)
 
     say(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for name, row in record.items():

@@ -16,7 +16,6 @@ import pytest
 
 import velesdb_tpu
 import velesdb_tpu_torch
-from velesdb_tpu_torch.index.ivf import IvfIndex
 
 RTOL = 1e-5
 N, DIM = 2000, 24
@@ -136,6 +135,19 @@ def test_port_never_imports_jax(tmp_path):
         v.upsert_bulk(range(3000), x)
         v.index_kind = "ivf"
         assert v.search(x[9], k=3)[0].id == 9 and not v.ivf.dirty
+        import velesdb_tpu_torch.index.graph_index, velesdb_tpu_torch.ops.chunked
+        from velesdb_tpu_torch.index.ivf import ivf_self_knn, nn_descent_round
+        v.index_kind = "graph"
+        assert v.search(x[9], k=3, ef=64)[0].id == 9 and not v.ann.dirty
+        g = velesdb_tpu_torch.index.graph_index.GraphIndex(
+            16, "euclidean", velesdb_tpu_torch.index.params.GraphParams(entry_probes=8),
+            device="cpu")
+        g.EXACT_KNN_MAX_ROWS = 1000
+        y = np.random.default_rng(2).standard_normal((5000, 16)).astype(np.float32)
+        g.build(y, np.ones(5000, bool))
+        assert g._entry_ivf is not None and g.search(y[5:6], 1)[1].item() == 5
+        knn = ivf_self_knn(x, 4, "euclidean", device="cpu")
+        assert nn_descent_round(x, knn, "euclidean", device="cpu").shape == (3000, 4)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert not [m for m in sys.modules if m.split(".")[0] == "velesdb_tpu"]
         print("no-jax-ok")
@@ -171,10 +183,10 @@ def test_unported_surfaces_raise(tmp_path, action):
     col = db.create_collection("c", 4)
     col.upsert(1, np.ones(4, np.float32))
     calls = {
-        "index_graph": lambda: setattr(col, "index_kind", "graph"),
-        # IVF serves since slice 4; its graph-entry build waits for the graph
-        "index_ivf": lambda: IvfIndex(4, "cosine", device="cpu").build_from_centroids(
-            None, None, None),
+        # the graph ANN index and the entry IVF serve since slice 11; the
+        # knowledge graph (MATCH, the collection's graph methods) waits
+        "index_graph": lambda: db.match_query("c", "MATCH (a)-[:R]->(b) RETURN b"),
+        "index_ivf": lambda: col.ensure_graph(),
         "text_search_batch": lambda: col.text_search_batch(["shoes"]),
         "text_search": lambda: col.text_search("shoes"),
         "hybrid_search": lambda: col.hybrid_search(np.ones(4), "shoes"),

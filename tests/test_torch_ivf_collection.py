@@ -147,16 +147,21 @@ def test_ivf_reopen_then_delta_after_upserts(pinned):
     finally:
         tivf.ivf_probe_topk = orig
     assert calls == [20]  # the delta keeps the probe op's branch
-    assert not col.ivf.dirty and len(col._stale) == 21
+    assert not col.ivf.dirty and len(col._stale["ivf"]) == 21
     assert [r[0].id for r in hits] == list(range(N, N + 20))
     assert hits[0][0].payload == {"cat": 9}
     assert gone not in {h.id for r in col.search_batch(q[:4], k=10) for h in r}
 
 
 def test_graph_index_kind_still_raises(tmp_path):
+    """Since the graph slice ``index_kind="graph"`` is served; a kind no
+    package knows still raises, and leaves the pin as it was."""
     col = velesdb_tpu_torch.Database(str(tmp_path), device="cpu").create_collection("g", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        col.index_kind = "graph"
+    col.index_kind = "graph"
+    assert col.index_kind == "graph"
+    with pytest.raises(ValueError, match="index_kind"):
+        col.index_kind = "hnsw"
+    assert col.index_kind == "graph"
     col.index_kind = "ivf"
     assert col.index_kind == "ivf"
 

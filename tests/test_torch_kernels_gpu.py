@@ -1168,3 +1168,132 @@ def test_int8_tc_edges_equal_plain(cuda, epilogue, b_pad, d_pad, chunk, n):
         assert torch.equal(gi[:, :128].cpu(), slice0)
     if chunk > 128:
         assert bool((gi[:, 128 + _INT8_TC_TIE_LANE] == chunk + _INT8_TC_TIE_LANE).all())
+
+
+# -- slice 11: the graph's beam search with #10 as its SQ8 entry scan ----------
+
+import velesdb_tpu_torch.index.graph_index as gmod  # noqa: E402
+from velesdb_tpu_torch.index.params import GraphParams  # noqa: E402
+
+
+def _graph_on(device, x, metric, monkeypatch, **params):
+    monkeypatch.setattr(gmod.GraphIndex, "EXACT_KNN_MAX_ROWS", 4096)
+    gi = gmod.GraphIndex(x.shape[1], metric, GraphParams(
+        degree=32, knn_k=16, entry_probes=16, entry_points=48, expand_width=8, **params),
+        device=device)
+    xt = torch.from_numpy(x).to(device)
+    gi.build(x, np.ones(len(x), bool), corpus_dev=xt)
+    return gi
+
+
+def _plain_probe(monkeypatch):
+    """#10's plain version in place of the kernel, on the card."""
+
+    def plain(q, qsum, probe, rows, aux, sched=None):
+        return ik.ivf_probe_ref(q, qsum, probe, rows, aux)
+
+    monkeypatch.setattr(ik, "ivf_probe_scores", plain)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot_product"])
+def test_graph_beam_kernel_entry_equals_plain(cuda, monkeypatch, metric, quantized):
+    """A graph built on the card (approximate kNN, entry IVF): every
+    unmasked search launches #10 once a dispatch, at b 16 and b 200; the
+    same searches with #10's plain version patched in return the same ids
+    and values bit for bit, and a masked search launches nothing."""
+    rng = np.random.default_rng(7)
+    x = _clustered(rng, 12_000 + 200, 64)
+    base, q = x[:12_000], x[12_000:]
+    if metric == "cosine":
+        base = base / np.linalg.norm(base, axis=1, keepdims=True)
+    gi = _graph_on(cuda, base, metric, monkeypatch, quantized_traversal=quantized)
+    assert gi._entry_ivf is not None and gi._entry_ivf._parts.device.type == cuda.type
+    got = {}
+    for b in (16, 200):
+        before = ik.LAUNCHES["ivf_probe"]
+        got[b] = gi.search(q[:b], 10, ef=64)
+        torch.cuda.synchronize()
+        assert ik.LAUNCHES["ivf_probe"] == before + 1
+    before = ik.LAUNCHES["ivf_probe"]
+    mask = np.ones(gi.n_pad, bool)
+    mask[::2] = False
+    _, mids = gi.search(q[:16], 10, ef=64, mask=mask)
+    assert ik.LAUNCHES["ivf_probe"] == before
+    m = mids.cpu().numpy()
+    assert mask[m[m >= 0]].all()
+    _plain_probe(monkeypatch)
+    for b in (16, 200):
+        vals, ids = gi.search(q[:b], 10, ef=64)
+        assert torch.equal(ids, got[b][1]) and torch.equal(vals, got[b][0])
+    assert ik.LAUNCHES["ivf_probe"] == before
+
+
+def test_graph_beam_on_card_matches_cpu(cuda, monkeypatch):
+    """One graph, carried from the card to the CPU: the card's beam (with
+    #10) and the CPU's (with #10's plain version) agree on the ids; the
+    tie-stable selects keep both walks alike."""
+    rng = np.random.default_rng(9)
+    x = _clustered(rng, 12_000 + 32, 64)
+    base, q = x[:12_000], x[12_000:]
+    gi = _graph_on(cuda, base, "euclidean", monkeypatch)
+    cpu = gmod.GraphIndex(64, "euclidean", gi.params, device="cpu")
+    for key in ("n", "n_pad"):
+        setattr(cpu, key, getattr(gi, key))
+    for key in ("_corpus", "_adj", "_sqnorm", "_valid", "_seed_ids", "_route_cents",
+                "_route_csq", "_route_rows"):
+        setattr(cpu, key, getattr(gi, key).cpu())
+    eiv = IvfIndex(64, "euclidean", device="cpu")
+    for key in ("n", "c", "c_real", "part_len", "storage"):
+        setattr(eiv, key, getattr(gi._entry_ivf, key))
+    for key in ("_centroids", "_cent_sq", "_parts", "_part_scale", "_part_minv", "_part_rows",
+                "_part_sq"):
+        setattr(eiv, key, getattr(gi._entry_ivf, key).cpu())
+    eiv._kern = tuple(t.cpu() for t in gi._entry_ivf._kernel_state())
+    eiv._dirty = False
+    cpu._entry_ivf, cpu._dirty = eiv, False
+    vals, ids = gi.search(q, 10, ef=64)
+    want_vals, want_ids = cpu.search(q, 10, ef=64)
+    assert (ids.cpu() == want_ids).float().mean() >= 0.99
+    same = ids.cpu() == want_ids
+    torch.testing.assert_close(vals.cpu()[same], want_vals[same], rtol=1e-4, atol=1e-4)
+
+
+def test_graph_collection_on_the_card(cuda, tmp_path):
+    """``Database`` -> a ``graph`` collection on the card: #10 on every
+    unmasked search, also after upserts (the delta's slots dead in its
+    state), none under a filter; the upserted rows found, the same ids
+    after a reopen."""
+    import velesdb_tpu_torch
+
+    rng = np.random.default_rng(11)
+    x = _clustered(rng, 110_000 + 64, 32)
+    base, q = x[:110_000], x[110_000:]
+    db = velesdb_tpu_torch.Database.open(str(tmp_path), device=cuda)
+    col = db.create_collection("g", 32, metric="euclidean", index_kind="graph")
+    col.upsert_bulk(range(110_000), base, [{"cat": i % 8} for i in range(110_000)])
+    col.search_batch(q[:16], k=10, ef=128)  # build + calibrate
+    assert col.ann._entry_ivf is not None and col.ann.params.entry_probes == 16
+    before = ik.LAUNCHES["ivf_probe"]
+    res = col.search_batch(q[:16], k=10, ef=128)
+    assert ik.LAUNCHES["ivf_probe"] == before + 1
+    flt = col.search_batch(q[:16], k=10, ef=128, filter={"type": "eq", "field": "cat",
+                                                           "value": 3})
+    assert ik.LAUNCHES["ivf_probe"] == before + 1
+    assert all(h.id % 8 == 3 for r in flt for h in r)
+    ids = [[h.id for h in r] for r in res]
+    db.close()
+    db = velesdb_tpu_torch.Database.open(str(tmp_path), device=cuda)
+    col = db.get_collection("g")
+    col.index_kind = "graph"
+    assert [[h.id for h in r] for r in col.search_batch(q[:16], k=10, ef=128)] == ids
+    col.upsert_bulk(range(110_000, 110_016), q[:16] + 0.01)
+    col.delete(ids[0][0])
+    before = ik.LAUNCHES["ivf_probe"]
+    hits = col.search_batch(q[:16] + 0.01, k=1, ef=128)
+    assert ik.LAUNCHES["ivf_probe"] == before + 1 and len(col._stale["graph"]) == 17
+    assert [r[0].id for r in hits] == list(range(110_000, 110_016))
+    again = col.search_batch(q[:16], k=10, ef=128)
+    assert ik.LAUNCHES["ivf_probe"] == before + 2
+    assert ids[0][0] not in {h.id for r in again for h in r}
+    db.close()

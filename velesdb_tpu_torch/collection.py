@@ -1,6 +1,6 @@
 """Collection: one named dataset = durable host storage + device search state.
 
-Counterpart of ``velesdb_tpu/collection.py``, exact search only. The
+Counterpart of ``velesdb_tpu/collection.py``: exact, IVF and graph search. The
 canonical store is host-side and append-oriented (memmap vectors + CRC WAL,
 payload log; the on-disk format is the reference package's, byte for byte);
 the device holds a padded snapshot refreshed lazily after mutations, and
@@ -15,21 +15,25 @@ oversample until it clears the quality profile's bar. ``quality="perfect"``
 reranks on any storage. Half-precision collections (F16, BF16) serve their
 own scores with no auto-rerank, as in the reference (``collection.py:777``).
 
-The IVF engine (:class:`~velesdb_tpu_torch.index.ivf.IvfIndex`, kernel #10)
-serves when pinned with ``index_kind = "ivf"``, and through the planner
+The ANN engines serve when pinned (``index_kind = "ivf"`` or ``"graph"``),
+and through the planner
 (:class:`~velesdb_tpu_torch.velesql.planner.QueryPlanner`) in ``"auto"``
-once the collection holds ``ann_min_rows`` (2M) rows or a fresh IVF index.
-A post-build recall probe records the IVF recall per ef with the planner: an
-unpinned engine below the quality profile's bar demotes to exact, and a
-smaller calibrated ef that clears it is served instead. Mutations after a
-build land in a delta that is searched exactly beside the index, until it
-outgrows ``delta_rebuild_fraction`` of the rows. The graph index, text,
-hybrid, VelesQL and graph methods raise ``NotImplementedError``
-(ROADMAP.md).
+once the collection holds ``ann_min_rows`` (2M) rows or a fresh index:
+:class:`~velesdb_tpu_torch.index.ivf.IvfIndex` (kernel #10) on every float
+metric and storage but BINARY, and the beam-search
+:class:`~velesdb_tpu_torch.index.graph_index.GraphIndex` (whose entry IVF
+launches #10) on FULL, F16 and BF16 storage. A post-build recall probe
+records each engine's recall per ef with the planner: an unpinned engine
+below the quality profile's bar demotes to exact, and a smaller calibrated ef
+that clears it is served instead. Mutations after a build land in a
+per-engine delta that is searched exactly beside the index, until it
+outgrows ``delta_rebuild_fraction`` of the rows. Text, hybrid, VelesQL and
+the knowledge-graph methods raise ``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import threading
@@ -41,8 +45,10 @@ import torch
 
 from velesdb_tpu_torch.column.store import ColumnStore
 from velesdb_tpu_torch.index.brute import BruteForceIndex, not_in_slice
+from velesdb_tpu_torch.index.graph_index import GraphIndex
 from velesdb_tpu_torch.index.ivf import IvfIndex
-from velesdb_tpu_torch.index.params import SearchQuality
+from velesdb_tpu_torch.index.ivf import stage_mark as _mark
+from velesdb_tpu_torch.index.params import GraphParams, SearchQuality
 from velesdb_tpu_torch.ops.distance import DistanceMetric
 from velesdb_tpu_torch.ops.quantization import SQ8Vectors, StorageMode
 from velesdb_tpu_torch.ops.streamed import streamed_topk
@@ -124,17 +130,23 @@ class Collection:
         self.payloads = PayloadLog(path)
         self._device_dirty = True
         self._slot_ids: np.ndarray | None = None  # [used] int64, -1 = tombstone
-        self._index_kind = "auto"  # auto | exact | ivf
+        self._index_kind = "auto"  # auto | exact | graph | ivf
+        self.ann: GraphIndex | None = None  # the graph engine, built on demand
+        if self.metric in _ANN_METRICS and self.storage_mode in _ANN_MODES:
+            self.ann = GraphIndex(self.dim, self.metric, device=self.device)
         self.ivf: IvfIndex | None = None  # built on demand (pinned or planner-selected)
         self.ann_min_rows = ANN_MIN_ROWS
+        self.reindex_events: list[dict] = []  # graph rebuilds with wider params
         self._planner: QueryPlanner | None = None
-        # incremental IVF maintenance: slots mutated since the build are
-        # excluded from the index and searched exactly from a compact device
-        # snapshot; a rebuild only triggers past ``delta_rebuild_fraction``
-        self._stale: set[int] = set()
+        # incremental ANN maintenance, per engine: slots mutated since the
+        # build are excluded from the index and searched exactly from a
+        # compact device snapshot; a rebuild only triggers past
+        # ``delta_rebuild_fraction``
+        self._stale: dict[str, set[int]] = {"graph": set(), "ivf": set()}
         self._mut_counter = 0
         self.delta_rebuild_fraction = 0.10
-        self._delta_cache = None  # (mutation counter, vecs, slots, alive)
+        # engine -> (mutation counter, vecs, slots, alive)
+        self._delta_cache: dict[str, tuple] = {}
         # (engine, batch bucket, k_fetch, ef) classes already timed: the first
         # call of a class is a warm-up and stays out of the latency EMA
         self._timed_sigs: set[tuple] = set()
@@ -162,8 +174,8 @@ class Collection:
 
     @index_kind.setter
     def index_kind(self, kind: str) -> None:
-        if kind not in ("auto", "exact", "ivf"):
-            raise not_in_slice(f"index_kind={kind!r}")
+        if kind not in ("auto", "exact", "ivf", "graph"):
+            raise ValueError(f"unknown index_kind {kind!r}: auto, exact, ivf or graph")
         self._index_kind = kind
 
     # -- config ------------------------------------------------------------
@@ -322,58 +334,74 @@ class Collection:
         self._device_dirty = True
         self._mut_counter += 1
         self.columns.invalidate(ids)
-        # a live IVF index absorbs mutations through the delta; before the
+        # live ANN indexes absorb mutations through their deltas; before the
         # first build (or once dirty) the coming full build covers every row
-        if self.ivf is not None and not self.ivf.dirty:
+        track = {"graph": self.ann is not None and not self.ann.dirty and self.ann.n_pad > 0,
+                 "ivf": self.ivf is not None and not self.ivf.dirty}
+        if any(track.values()):
             if slots is None:
                 slots = [self.vectors.id_to_slot.get(int(v)) for v in ids]
-            self._stale.update(int(s) for s in slots if s is not None)
+            live = [int(s) for s in slots if s is not None]
             budget = max(1024, int(self.delta_rebuild_fraction * max(self.count(), 1)))
-            if len(self._stale) > budget:
-                self.ivf.invalidate(ids)
+            for engine, index in (("graph", self.ann), ("ivf", self.ivf)):
+                if track[engine]:
+                    self._stale[engine].update(live)
+                    if len(self._stale[engine]) > budget:
+                        index.invalidate(ids)
 
-    def _delta_snapshot(self):
+    def _delta_snapshot(self, engine: str):
         """Compact device snapshot ``(counter, vecs, slots, alive)`` of the
-        stale rows (current vectors + liveness), cached per mutation counter;
-        None while the delta is empty."""
-        if not self._stale:
+        engine's stale rows (current vectors + liveness), cached per mutation
+        counter; None while the delta is empty."""
+        stale = self._stale[engine]
+        if not stale:
             return None
-        if self._delta_cache is not None and self._delta_cache[0] == self._mut_counter:
-            return self._delta_cache
-        slots = np.fromiter(self._stale, np.int64, len(self._stale))
+        cached = self._delta_cache.get(engine)
+        if cached is not None and cached[0] == self._mut_counter:
+            return cached
+        slots = np.fromiter(stale, np.int64, len(stale))
         free = set(self.vectors._free_slots)
         alive = np.fromiter((s not in free for s in slots), bool, len(slots))
         n_pad = 1 << max(8, int(len(slots) - 1).bit_length())
         vecs = np.pad(np.asarray(self.vectors.slot_view()[slots], np.float32),
                       ((0, n_pad - len(slots)), (0, 0)))
-        self._delta_cache = (
+        self._delta_cache[engine] = (
             self._mut_counter,
             torch.from_numpy(vecs).to(self.device),
             np.pad(slots, (0, n_pad - len(slots)), constant_values=-1),
             np.pad(alive, (0, n_pad - len(slots))),
         )
-        return self._delta_cache
+        return self._delta_cache[engine]
 
-    def _ann_delta_search(self, q: np.ndarray, k_fetch: int, ef: int | None, mask,
-                          ivf_nprobe: int | None = None):
-        """IVF search with incremental-delta semantics: stale slots are
+    def _ann_delta_search(self, engine: str, q: np.ndarray, k_fetch: int, ef: int | None,
+                          mask, ivf_nprobe: int | None = None):
+        """ANN search with incremental-delta semantics: stale slots are
         excluded from the (possibly stale) index and searched exactly from the
         compact delta snapshot; the two top-k lists merge with a stable sort
         (index hits first among equal scores, as the reference's host merge).
-        An unfiltered small batch keeps the probe kernel through the
-        exclusion (``IvfIndex.search``'s ``exclude``); the reference masks the
-        stale slots, which moves it to the plain probing path."""
+
+        Both engines take the stale slots as ``exclude``: an unfiltered
+        search keeps its probe kernel (#10: the graph's entry scan, IVF's
+        scan on a small batch), the slots dead in a copy of its state; a
+        filtered one folds them into the mask. The reference masks them
+        always, which moves both to their plain probing paths."""
         used = max(self.vectors.used_slots, 1)
-        delta = self._delta_snapshot()
+        delta = self._delta_snapshot(engine)
         base_mask = None if mask is None else np.asarray(mask)[:used]
         stale = None
         if delta is not None:
-            _, dvecs, dslots, dalive = delta
+            dslots = delta[2]
             stale = dslots[(dslots >= 0) & (dslots < used)]
-        vals, idx = self.ivf.search(q, k_fetch, ef=ef, mask=base_mask, nprobe=ivf_nprobe,
-                                    exclude=stale)
+        if engine == "graph":
+            vals, idx = self.ann.search(
+                q, k_fetch, ef=ef, exclude=stale,
+                mask=None if base_mask is None else _pad_mask(base_mask, self.ann.n_pad))
+        else:
+            vals, idx = self.ivf.search(q, k_fetch, ef=ef, mask=base_mask, nprobe=ivf_nprobe,
+                                        exclude=stale)
         if delta is None:
             return vals, idx
+        _, dvecs, dslots, dalive = delta
         dval = dalive
         if base_mask is not None:
             in_range = (dslots >= 0) & (dslots < used)
@@ -415,30 +443,86 @@ class Collection:
 
     def _choose_engine(self, batch: int, quality=None, ef: int | None = None) -> str:
         """Cost-based engine pick: a pinned ``index_kind`` wins; otherwise the
-        planner compares exact streaming with IVF probing at this batch size.
-        IVF is a candidate when its index is already built or the corpus is
-        past ``ann_min_rows``; measured latency EMAs override the static
-        model as they accrue, and a calibrated recall below the quality
-        profile's bar disqualifies it. The graph engine is never a candidate
-        until it is ported (ROADMAP.md, queue 7)."""
-        if self.index_kind == "ivf":
-            return "ivf"
-        have_ivf = (self.count() >= self.ann_min_rows
-                    or (self.ivf is not None and not self.ivf.dirty))
-        if not have_ivf:
+        planner compares exact streaming, IVF probing and the graph's beam
+        search at this batch size. An ANN engine is a candidate when its index
+        is already built or the corpus is past ``ann_min_rows``; measured
+        latency EMAs override the static model as they accrue, and a
+        calibrated recall below the quality profile's bar disqualifies it."""
+        if self.index_kind in ("graph", "ivf"):
+            return self.index_kind
+        big = self.count() >= self.ann_min_rows
+        have_ivf = big or (self.ivf is not None and not self.ivf.dirty)
+        have_graph = self.ann is not None and (
+            big or (self.ann.n_pad > 0 and not self.ann.dirty))
+        if not (have_ivf or have_graph):
             return "exact"
         built = self.ivf is not None and self.ivf.part_len
+        gp = self.ann.params if self.ann is not None else None
+        _, expansions = gp.beam_for_ef(128, 10) if gp is not None else (128, 64)
         choice = self.planner.choose(
             max(self.vectors.used_slots, 1), self.dim, batch,
-            have_ivf=True,
+            have_ivf=have_ivf,
             # the true serving nprobe (coverage-calibrated, spill-scaled)
             ivf_nprobe=self.ivf.nprobe_for(ef) if built else 32,
             ivf_part_len=self.ivf.part_len if built else 512,
-            have_graph=False,
+            have_graph=have_graph,
+            graph_expansions=expansions,
+            graph_degree=gp.degree if gp is not None else 48,
             min_recall=SearchQuality.parse(quality or SearchQuality.BALANCED).min_recall,
             ef=ef,
         )
         return choice.engine
+
+    def _ensure_ann(self, force: bool = False, profile: dict | None = None) -> bool:
+        """Build (or restore from ``ann.npz``) the graph index, then calibrate
+        it. Below ``ann_min_rows`` a dirty index is built only when ``force``
+        (``index_kind = "graph"``). A restored graph whose degree is under
+        ``GraphParams.auto``'s for the row count is rebuilt with the auto
+        parameters, and the rebuild is recorded in :attr:`reindex_events`.
+        The entry-scan knobs and the expansion width are raised to the auto
+        sizing first (the reference raises the entry knobs only, so a graph
+        it reopens at 1M rows expands 4 candidates a step where its build
+        expanded 16). ``profile`` collects the seconds of each stage (build
+        stages, ``ann.load`` or ``ann.save``, ``ann.calibrate``)."""
+        if self.ann is None:
+            return False
+        if not force and self.ann.dirty and self.count() < self.ann_min_rows:
+            return False
+        if self.ann.dirty:
+            self.refresh_device()
+            used = self.vectors.used_slots
+            slots = np.array(self.vectors.slot_view()[:used])
+            _, valid = self.vectors.occupancy()
+            path = os.path.join(self.path, "ann.npz")
+            version = self.vectors.version
+            want = GraphParams.auto(self.dim, used)
+            cur = self.ann.params
+            self.ann.params = dataclasses.replace(
+                cur, entry_probes=max(cur.entry_probes, want.entry_probes),
+                entry_points=max(cur.entry_points, want.entry_points),
+                expand_width=max(cur.expand_width, want.expand_width))
+            t = time.perf_counter()
+            if (self.ann.load(path, slots, valid, version=version)
+                    and self.ann.params.degree >= want.degree):
+                t = _mark(profile, "ann.load", t, self.device)
+            else:
+                old = self.ann.params
+                self.ann.params = want
+                # the resident device rows (cosine rows pre-normalized, which
+                # cosine scores do not see)
+                self.ann.build(slots, valid, corpus_dev=self._brute._full, profile=profile)
+                t = time.perf_counter()
+                self.ann.save(path, version=version)
+                t = _mark(profile, "ann.save", t, self.device)
+                self.reindex_events.append({"at": time.time(), "rows": used,
+                                            "from_degree": old.degree,
+                                            "to_degree": want.degree})
+            # a fresh build or restore covers every row: the delta drains
+            self._stale["graph"].clear()
+            self._delta_cache.pop("graph", None)
+            self._calibrate_engine("graph")
+            _mark(profile, "ann.calibrate", t, self.device)
+        return True
 
     def _ensure_ivf(self, profile: dict | None = None) -> bool:
         """Build (or restore from ``ivf.npz``) the IVF index, then calibrate
@@ -475,16 +559,17 @@ class Collection:
                 self.ivf.save(path, version=version)
                 t = self.ivf._mark(profile, "ivf.save", t)
             # a fresh build or restore covers every row: the delta drains
-            self._stale.clear()
-            self._delta_cache = None
+            self._stale["ivf"].clear()
+            self._delta_cache.pop("ivf", None)
             self._calibrate_engine("ivf")
             self.ivf._mark(profile, "ivf.calibrate", t)
         return True
 
     def _calibrate_engine(self, engine: str, sample: int = 128) -> None:
-        """Measured recall probe after an index build, recorded with the
-        planner per ef (16 to 256). Probe queries are sampled stored rows
-        perturbed by their nearest-neighbour distance; a hit is a returned
+        """Measured recall probe after an index build (``engine`` "ivf" or
+        "graph"), recorded with the planner per ef (16 to 256). Probe queries
+        are sampled stored rows perturbed by their nearest-neighbour
+        distance; a hit is a returned
         row scoring within 0.1% of the host f32 k-th best (eps-recall), or,
         past 4 GiB of rows, an id of the exact engine's top-k.
 
@@ -520,8 +605,9 @@ class Collection:
                 kth[i] = s[::-1][k - 1] if hib else s[k - 1]
         else:
             ei = self._brute.search(q, k)[1].cpu().numpy()
+        index = self.ivf if engine == "ivf" else self.ann
         for ef_probe in (16, 32, 64, 128, 256):
-            ai = self.ivf.search(q, k, ef=ef_probe)[1].cpu().numpy()
+            ai = index.search(q, k, ef=ef_probe)[1].cpu().numpy()
             hits = 0
             for i in range(take):
                 ids = ai[i][ai[i] >= 0]
@@ -653,7 +739,7 @@ class Collection:
     def search_batch(self, queries, k: int = 10, filter: dict | None = None,
                      ef: int | None = None, quality=None, _raw: bool = False):
         """Batched search: one device pass for the whole batch, on the engine
-        :meth:`_choose_engine` picks (exact or IVF).
+        :meth:`_choose_engine` picks (exact, IVF or graph).
 
         ``quality`` maps to ef through the profiles (fast 64, balanced 128,
         accurate 256, perfect exact); an explicit ``ef`` wins. Quantized
@@ -701,20 +787,23 @@ class Collection:
 
     def _run_search(self, q, k, mask, plan):
         engine, k_fetch, ef, ivf_nprobe = plan
-        if engine == "ivf":
-            return self._ann_delta_search(q, k_fetch, ef, mask, ivf_nprobe=ivf_nprobe)
+        if engine in ("ivf", "graph"):
+            return self._ann_delta_search(engine, q, k_fetch, ef, mask, ivf_nprobe=ivf_nprobe)
         return self._brute.search(q, k, mask=mask)
 
     def _plan_search(self, q, k, mask, ef=None, quality=None):
         """``(engine, k_fetch, ef, ivf_nprobe)`` of a search, with any index
         build done first (a first-call build stays out of the timing).
 
-        The honesty gate demotes an unpinned IVF engine whose calibrated
+        The honesty gate demotes an unpinned ANN engine whose calibrated
         recall misses the profile's bar to exact; a smaller calibrated ef
-        that clears the bar is served when the ef came from the profile; a
-        filter bumps nprobe so that ~nprobe*L*selectivity candidates survive
-        the in-scan mask (quantized to a multiple of 8), or falls back to
-        exact once that nears a half-corpus scan."""
+        that clears the bar is served when the ef came from the profile.
+        Under a filter (the starvation guards): IVF bumps nprobe so that
+        ~nprobe*L*selectivity candidates survive the in-scan mask (quantized
+        to a multiple of 8), or falls back to exact once that nears a
+        half-corpus scan; the graph bumps ef so that ~ef*selectivity pool
+        rows pass (capped at the beam's 512 where its entry IVF seeds the
+        beam from masked rows, else falling back to exact past it)."""
         quality = SearchQuality.parse(quality) if quality is not None else None
         ef_from_profile = ef is None
         if ef is None:
@@ -726,17 +815,34 @@ class Collection:
         k_fetch = max(min(4 * k, ef), k) if mask is not None else k
         if engine == "ivf" and not self._ensure_ivf():
             engine = "exact"
+        if engine == "graph" and not self._ensure_ann(force=self.index_kind == "graph"):
+            engine = "exact"
         bar = (quality or SearchQuality.BALANCED).min_recall
-        if engine == "ivf" and self.index_kind != "ivf":
-            r = self.planner.engine_recall("ivf", ef)
+        if engine in ("ivf", "graph") and self.index_kind != engine:
+            r = self.planner.engine_recall(engine, ef)
             if r is not None and r < bar:
                 engine = "exact"
-        if engine == "ivf" and ef_from_profile:
-            ef2 = self.planner.downshift_ef("ivf", ef, bar)
+        if engine in ("ivf", "graph") and ef_from_profile:
+            ef2 = self.planner.downshift_ef(engine, ef, bar)
             if ef2 != ef:
                 ef = ef2
                 k_fetch = max(min(4 * k, ef), k) if mask is not None else k
         ivf_nprobe = None
+        if engine == "graph" and mask is not None:
+            used = max(self.vectors.used_slots, 1)
+            sel = float(np.count_nonzero(np.asarray(mask)[:used])) / used
+            need = int(np.ceil(1.5 * k_fetch / max(sel, 1e-9)))
+            if self.ann._entry_ivf is not None:
+                # the entry IVF seeds the beam from the best masked rows and
+                # the accumulator keeps every passing row: bump ef, capped
+                if sel <= 0.0:
+                    engine = "exact"
+                elif need > ef:
+                    ef = min(((need + 7) // 8) * 8, 512)
+            elif sel <= 0.0 or need > 512:
+                engine = "exact"
+            elif need > ef:
+                ef = ((need + 7) // 8) * 8
         if engine == "ivf" and mask is not None and self.ivf.part_len:
             used = max(self.vectors.used_slots, 1)
             sel = float(np.count_nonzero(np.asarray(mask)[:used])) / used

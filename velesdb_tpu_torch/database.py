@@ -46,7 +46,12 @@ class Database:
         metric: DistanceMetric | str = DistanceMetric.COSINE,
         storage_mode: StorageMode | str = StorageMode.FULL,
         collection_type: str = CollectionType.VECTOR,
+        index_kind: str = "auto",
     ) -> Collection:
+        """Create a collection; ``index_kind`` ("auto", "exact", "ivf" or
+        "graph") pins its engine, as setting ``Collection.index_kind`` does
+        (the choice is not persisted: a reopened collection starts at
+        "auto")."""
         _validate_name(name)
         with self._lock:
             if name in self._collections:
@@ -64,6 +69,7 @@ class Database:
                 create=True,
                 device=self.device,
             )
+            col.index_kind = index_kind
             self._collections[name] = col
             return col
 

@@ -27,9 +27,15 @@ order: a k-means run there is not bit-reproducible.
 
 The ``.npz`` recipe (``kmeans_cents``, ``kmeans_c``, ``n``, ``metric``,
 ``version``, ``spill``, ``storage``) is the reference's: a file written by
-either package loads in the other. ``build_from_centroids`` (the graph's
-entry IVF) and the kNN builders (``ivf_self_knn``) wait for the graph port
-(ROADMAP.md, queue 7).
+either package loads in the other.
+
+The graph index's build half (reference ``:1130-1610``) lives here too:
+``build_from_centroids`` assembles the graph's SQ8 entry IVF from the
+approximate build's router, and ``ivf_self_knn`` is the approximate kNN
+graph: each partition scored against its ``nprobe`` nearest partitions in
+one batched matmul (the reference's ``lax.scan`` over partitions is a loop
+over blocks of partitions here), scattered to rows and merged across passes
+on the device; ``nn_descent_round`` refines it.
 """
 
 from __future__ import annotations
@@ -41,14 +47,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from velesdb_tpu_torch.index.brute import not_in_slice
 from velesdb_tpu_torch.index.params import SearchQuality
 from velesdb_tpu_torch.ops.bucket_kernel import _row_sumsq, first_topk
+from velesdb_tpu_torch.ops.chunked import _best
 from velesdb_tpu_torch.ops.distance import DistanceMetric
 from velesdb_tpu_torch.ops.ivf_kernel import ivf_probe_supported, ivf_probe_topk
 from velesdb_tpu_torch.ops.quantization import SQ8Vectors, sq8_pack_blocked
 
-__all__ = ["IvfIndex", "kmeans", "ivf_search_impl", "ivf_state_from_jax", "sq8_unpack_words"]
+__all__ = ["IvfIndex", "kmeans", "ivf_search_impl", "ivf_self_knn", "ivf_state_from_jax",
+           "merge_ranked", "nn_descent_round", "sq8_unpack_words"]
 
 _METRICS = (DistanceMetric.COSINE, DistanceMetric.EUCLIDEAN, DistanceMetric.DOT_PRODUCT)
 
@@ -58,6 +65,16 @@ _SCORE_ELEMS = 1 << 25  # [rows, k] scores per assignment step in the port
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def stage_mark(profile, stage: str, t0: float, device) -> float:
+    """Add the seconds since ``t0`` to ``profile[stage]`` (after the device's
+    queue drains) when a profile is being kept; returns the new start."""
+    if profile is not None:
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        profile[stage] = profile.get(stage, 0.0) + time.perf_counter() - t0
+    return time.perf_counter()
 
 
 def _step_rows(k: int) -> int:
@@ -364,11 +381,7 @@ class IvfIndex:
     # -- build ----------------------------------------------------------------
 
     def _mark(self, profile, stage, t0):
-        if profile is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            profile[stage] = profile.get(stage, 0.0) + time.perf_counter() - t0
-        return time.perf_counter()
+        return stage_mark(profile, stage, t0, self.device)
 
     def _live_f32(self, corpus, rows: np.ndarray):
         """The live rows as f32 on the device (one transfer from the host;
@@ -440,9 +453,27 @@ class IvfIndex:
         self._kmeans_c = c
         self._assemble_sq8(codes, scale, minv, rows, cents, c, profile=profile)
 
-    def build_from_centroids(self, sq, valid, cents, profile=None) -> None:
-        """The graph engine's entry IVF (reference ``:628``)."""
-        raise not_in_slice("IvfIndex.build_from_centroids (the graph's entry IVF)")
+    def build_from_centroids(self, sq: SQ8Vectors, valid, cents, profile: dict | None = None
+                             ) -> None:
+        """Assemble SQ8 partitions against given centroids, with no k-means
+        run (reference ``:628``): the graph's entry IVF, seeded from the
+        approximate build's router (a k-means clustering of the same
+        corpus). Writes the port's partition arrays; the probe kernel's
+        ``aux [P, 3, L]`` derives from them (:meth:`_kernel_state`)."""
+        n = sq.codes.shape[0]
+        rows = np.flatnonzero(np.asarray(valid, bool)[:n])
+        self.n = n
+        if len(rows) == 0:
+            self._dirty = False
+            return
+        self.storage = "sq8"
+        cents = torch.as_tensor(np.asarray(cents, np.float32) if not isinstance(
+            cents, torch.Tensor) else cents).to(self.device, torch.float32)
+        self._kmeans_cents = cents
+        self._kmeans_c = int(cents.shape[0])
+        self._assemble_sq8(*_sq8_parts(sq, rows, self.device), rows, cents, self._kmeans_c,
+                           profile=profile)
+        self._dirty = False
 
     def _set_parts(self, c: int, n_rows: int, assign, row_bytes: int):
         """Partition length, exact and padded counts from an assignment."""
@@ -668,14 +699,6 @@ def _dedup_topk(vals, idx, *, k: int, higher_is_better: bool):
     return v, torch.where(v == worst, -1, i)
 
 
-def _best(s: torch.Tensor, k: int, higher_is_better: bool):
-    """:func:`first_topk` in the metric's orientation."""
-    if higher_is_better:
-        return first_topk(s, k)
-    v, pos = first_topk(-s, k)
-    return -v, pos
-
-
 def ivf_search_impl(q, cents, cent_sq, parts, part_rows, part_sq, mask, *, k: int, nprobe: int,
                     metric):
     """Probing search in plain torch (reference ``:1018``): ``parts`` is
@@ -755,7 +778,7 @@ def ivf_state_from_jax(arrays: dict, device) -> IvfIndex:
         a = arrays.get(key)
         if a is None:
             return None
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+        return torch.tensor(np.asarray(a, dtype), device=device)
 
     cents = arrays["centroids"]
     metric = getattr(arrays["metric"], "value", arrays["metric"])  # the name, or an enum of it
@@ -773,7 +796,343 @@ def ivf_state_from_jax(arrays: dict, device) -> IvfIndex:
     idx._kmeans_cents = put("kmeans_cents", np.float32)
     idx._kmeans_c = 0 if idx._kmeans_cents is None else idx._kmeans_cents.shape[0]
     if arrays.get("aux") is not None:
-        aux = torch.from_numpy(np.ascontiguousarray(arrays["aux"][:, :3], np.float32)).to(device)
+        aux = torch.tensor(np.asarray(arrays["aux"][:, :3], np.float32), device=device)
         idx._kern = (aux, idx._part_rows.reshape(-1))
     idx._dirty = False
     return idx
+
+
+# -- the graph index's kNN builders (reference ``:1130-1610``) -------------------
+
+
+def _probe_parts(cents, cent_sq, *, nprobe: int, metric, chunk: int = 2048) -> torch.Tensor:
+    """Top-``nprobe`` nearest partitions of every partition ``[P, nprobe]``,
+    in row chunks of the ``[P, P]`` affinity. ``cent_sq`` is the stored
+    routing norm (padded partitions carry the sentinel)."""
+    out = []
+    for r0 in range(0, cents.shape[0], chunk):
+        aff = cents[r0 : r0 + chunk] @ cents.T
+        if metric is DistanceMetric.EUCLIDEAN:
+            aff = aff - 0.5 * cent_sq[None, :]
+        out.append(first_topk(_route_mask(aff, cent_sq), min(nprobe, cents.shape[0]))[1])
+    return torch.cat(out)
+
+
+#: scores ``[G, L, nprobe*L]`` per step of the bucketed kNN
+_KNN_STEP_ELEMS = 1 << 26
+
+
+def _knn_select(q, qrows, qsq, cand, crows, csq, *, k: int, metric):
+    """Top-``k`` neighbours of ``G`` partitions' rows ``q [G, L, D]`` among
+    their candidates ``cand [G, M, D]`` (maximize-oriented scores; the
+    query's own row and empty slots excluded): ``(vals, nbr) [G, L, k]``."""
+    g, L, _ = q.shape
+    dots = torch.bmm(q, cand.transpose(1, 2))  # [G, L, M]
+    if metric is DistanceMetric.EUCLIDEAN:
+        s = 2.0 * dots - csq[:, None, :]
+    elif metric is DistanceMetric.COSINE:
+        s = (dots * torch.rsqrt(qsq.clamp_min(1e-30))[:, :, None]
+             * torch.rsqrt(csq.clamp_min(1e-30))[:, None, :])
+    else:
+        s = dots
+    ok = (crows[:, None, :] >= 0) & (crows[:, None, :] != qrows[:, :, None])
+    s = torch.where(ok, s, -torch.inf)
+    v, i = first_topk(s.reshape(g * L, -1), k)
+    nbr = torch.gather(crows, 1, i.reshape(g, L * k)).reshape(g, L, k)
+    v = v.reshape(g, L, k)
+    return v, torch.where(v == -torch.inf, -1, nbr)
+
+
+def _bucketed_self_knn(parts, part_rows, part_sq, cents, cent_sq, *, k: int, nprobe: int,
+                       metric):
+    """Partition-bucketed approximate self-kNN (reference ``:1155``): each
+    partition's rows scored against its ``nprobe`` nearest partitions' rows,
+    so every row is read O(nprobe) times in all. Returns ``(vals, nbr)``
+    ``[P, L, k]`` (-1 = none)."""
+    P, L, D = parts.shape
+    probe = _probe_parts(cents, cent_sq, nprobe=nprobe, metric=metric,
+                         chunk=min(2048, _round_up(P, 8)))
+    step = max(1, _KNN_STEP_ELEMS // (L * probe.shape[1] * L))
+    vals, nbrs = [], []
+    for p0 in range(0, P, step):
+        pr = probe[p0 : p0 + step]
+        g = pr.shape[0]
+        v, nb = _knn_select(parts[p0 : p0 + g], part_rows[p0 : p0 + g], part_sq[p0 : p0 + g],
+                            parts[pr].reshape(g, -1, D), part_rows[pr].reshape(g, -1),
+                            part_sq[pr].reshape(g, -1), k=k, metric=metric)
+        vals.append(v)
+        nbrs.append(nb)
+    return torch.cat(vals), torch.cat(nbrs)
+
+
+def _sq8_knn_block(parts_w, pscale, pminv, part_rows, part_sq, probe, start: int, *, k: int,
+                   nprobe: int, metric, d: int, count: int):
+    """The SQ8 bucketed self-kNN of partitions ``[start, start + count)``
+    (reference ``:1200``): words unpacked and dequantized per step, padded
+    dims masked to 0 to match ``part_sq``."""
+    P, L, W = parts_w.shape
+    dmask = (torch.arange(4 * W, device=parts_w.device) < d).float()
+
+    def deq(words, sc, mn):
+        return (sq8_unpack_words(words, torch.float32) * sc[..., None] + mn[..., None]) * dmask
+
+    step = max(1, _KNN_STEP_ELEMS // (L * nprobe * L))
+    vals, nbrs = [], []
+    for p0 in range(start, start + count, step):
+        p1 = min(p0 + step, start + count)
+        pr = probe[p0:p1]
+        g = pr.shape[0]
+        q = deq(parts_w[p0:p1], pscale[p0:p1], pminv[p0:p1])
+        cand = deq(parts_w[pr].reshape(g, -1, W), pscale[pr].reshape(g, -1),
+                   pminv[pr].reshape(g, -1))
+        v, nb = _knn_select(q, part_rows[p0:p1], part_sq[p0:p1], cand,
+                            part_rows[pr].reshape(g, -1), part_sq[pr].reshape(g, -1),
+                            k=k, metric=metric)
+        vals.append(v)
+        nbrs.append(nb)
+    return torch.cat(vals), torch.cat(nbrs)
+
+
+def _bucketed_self_knn_sq8(parts_w, pscale, pminv, part_rows, part_sq, cents, cent_sq, *,
+                           k: int, nprobe: int, metric, d: int, block_parts: int = 4096):
+    """SQ8 variant of :func:`_bucketed_self_knn` (reference ``:1250``): the
+    partitions stay packed words, each step dequantizes only its working
+    set; results land on the host block by block. Returns host ``(vals,
+    nbr)`` ``[P, L, k]``."""
+    P, L, _ = parts_w.shape
+    probe = _probe_parts(cents, cent_sq, nprobe=nprobe, metric=metric,
+                         chunk=min(2048, _round_up(P, 8)))
+    count = min(block_parts, P)
+    vals_h = np.empty((P, L, k), np.float32)
+    nbr_h = np.empty((P, L, k), np.int64)
+    for s0 in range(0, P, count):
+        st = min(s0, P - count)  # the tail overlap recomputes identical rows
+        v, nb = _sq8_knn_block(parts_w, pscale, pminv, part_rows, part_sq, probe, st, k=k,
+                               nprobe=probe.shape[1], metric=metric, d=d, count=count)
+        vals_h[st : st + count] = v.cpu().numpy()
+        nbr_h[st : st + count] = nb.cpu().numpy()
+    return vals_h, nbr_h
+
+
+#: the approximate kNN build quantizes its partition copy to SQ8 from this
+#: many rows, or from this many f32 corpus bytes (reference ``:1290-1297``)
+SQ8_BUILD_MIN_ROWS = int(os.environ.get("VELESDB_SQ8_BUILD_MIN_ROWS", 4_000_000))
+SQ8_BUILD_MIN_BYTES = int(os.environ.get("VELESDB_SQ8_BUILD_MIN_BYTES", 2 << 30))
+
+
+def ivf_self_knn(corpus, k: int, metric, valid=None, nprobe: int = 8, qblock: int = 1024,
+                 n_clusters: int | None = None, passes: int = 1, return_router: bool = False,
+                 sq8: bool | None = None, profile: dict | None = None,
+                 return_device: bool = False, device="cuda"):
+    """Approximate kNN graph of a corpus against itself, ``[N, k]`` (-1 =
+    none; reference ``:1301``): k-means partitions, then each partition
+    against its ``nprobe`` nearest partitions. ``corpus`` is a tensor (built
+    on its device) or a numpy array (moved to ``device``).
+
+    ``passes`` decorrelated clusterings (k-means seeds 0, 1, ...) are unioned.
+    ``return_router`` also returns the first pass's router ``(centroids
+    [P, D], part_rows [P, L])`` as host arrays (bucket-padded partitions
+    stripped). ``sq8`` (default: from ``SQ8_BUILD_MIN_ROWS`` / ``_BYTES``)
+    builds the partitions as SQ8 words and scores dequantized blocks.
+    ``return_device`` returns an int64 tensor on the device, else an int32
+    numpy array. ``qblock`` is accepted for the reference's signature."""
+    del qblock
+    metric = DistanceMetric.parse(metric)
+    dev = corpus.device if isinstance(corpus, torch.Tensor) else torch.device(device)
+    t = time.perf_counter()
+
+    def mark(stage, t0):
+        return stage_mark(profile, stage, t0, dev)
+
+    x = corpus if isinstance(corpus, torch.Tensor) else np.asarray(corpus, np.float32)
+    n, d_true = x.shape
+    if sq8 is None:
+        sq8 = n >= SQ8_BUILD_MIN_ROWS or n * d_true * 4 >= SQ8_BUILD_MIN_BYTES
+    src = x
+    if sq8:
+        from velesdb_tpu_torch.ops.quantization import sq8_quantize
+
+        xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(x).to(dev)
+        src = sq8_quantize(xt)
+    t = mark("knn.quantize", t)
+    valid_np = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
+    router = None
+    pass_vals, pass_ids = [], []
+    for p in range(max(passes, 1)):
+        t = time.perf_counter()
+        ivf = IvfIndex(d_true, metric, n_clusters=n_clusters, kmeans_seed=p, device=dev)
+        ivf.build(src, valid_np, profile=profile)
+        t = mark("knn.partition", t)
+        if ivf._parts is None:
+            empty = np.full((n, k), -1, np.int32)
+            return (empty, None) if return_router else empty
+        if p == 0 and return_router:
+            router = (ivf._centroids[: ivf.c_real].cpu().numpy(),
+                      ivf._part_rows[: ivf.c_real].cpu().numpy().astype(np.int32))
+        nprobe_p = int(min(max(nprobe, 1), ivf.c_real or ivf.c))
+        k_eff = min(k, max(nprobe_p * ivf.part_len - 1, 1))
+        if sq8:
+            vals_h, nbr_h = _bucketed_self_knn_sq8(
+                ivf._parts, ivf._part_scale, ivf._part_minv, ivf._part_rows, ivf._part_sq,
+                ivf._centroids, ivf._cent_sq, k=k_eff, nprobe=nprobe_p, metric=metric, d=d_true)
+            t = mark("knn.score", t)
+            rows = ivf._part_rows.cpu().numpy().reshape(-1)
+            live = rows >= 0
+            out_i = np.full((n, k), -1, np.int64)
+            out_v = np.full((n, k), -np.inf, np.float32)
+            out_i[rows[live], :k_eff] = nbr_h.reshape(-1, k_eff)[live]
+            out_v[rows[live], :k_eff] = vals_h.reshape(-1, k_eff)[live]
+            pass_ids.append(out_i)
+            pass_vals.append(out_v)
+            t = mark("knn.readback", t)
+        else:
+            vals_d, nbr_d = _bucketed_self_knn(ivf._parts, ivf._part_rows, ivf._part_sq,
+                                               ivf._centroids, ivf._cent_sq, k=k_eff,
+                                               nprobe=nprobe_p, metric=metric)
+            sv, si = _scatter_knn(vals_d, nbr_d, ivf._part_rows, n=n, k=k, k_eff=k_eff)
+            t = mark("knn.score", t)
+            pass_ids.append(si)
+            pass_vals.append(sv)
+    if sq8:
+        out = pass_ids[0] if len(pass_ids) == 1 else merge_ranked(pass_vals, pass_ids, k)
+        out[~valid_np] = -1
+        mark("knn.merge", t)
+        if return_device:
+            out = torch.from_numpy(out.astype(np.int64)).to(dev)
+        else:
+            out = out.astype(np.int32)
+        return (out, router) if return_router else out
+    out_d = pass_ids[0]
+    if len(pass_ids) > 1:
+        out_d = _merge_ranked_device(torch.cat(pass_vals, dim=1), torch.cat(pass_ids, dim=1), k=k)
+    out_d = torch.where(torch.tensor(valid_np, device=dev)[:, None], out_d, -1)
+    mark("knn.merge", t)
+    out = out_d if return_device else out_d.cpu().numpy().astype(np.int32)
+    return (out, router) if return_router else out
+
+
+def _scatter_knn(vals_d, nbr_d, part_rows, *, n: int, k: int, k_eff: int):
+    """Partition-shaped kNN ``[P, L, k_eff]`` to row-shaped ``[n, k]`` on the
+    device, dead slots dropped (reference ``:1455``)."""
+    rows = part_rows.reshape(-1)
+    live = rows >= 0
+    out_v = torch.full((n, k), -torch.inf, dtype=torch.float32, device=vals_d.device)
+    out_i = torch.full((n, k), -1, dtype=torch.int64, device=vals_d.device)
+    dest = rows[live].long()
+    out_v[dest, :k_eff] = vals_d.reshape(-1, k_eff)[live].float()
+    out_i[dest, :k_eff] = nbr_d.reshape(-1, k_eff)[live].long()
+    return out_v, out_i
+
+
+def _merge_ranked_device(allv, alli, *, k: int):
+    """Device counterpart of :func:`merge_ranked` (reference ``:1471``):
+    order by (value descending, id) with two stable sorts, blank adjacent
+    repeats, keep the best ``k`` (ties to the smallest position)."""
+    o1 = torch.sort(alli, dim=1, stable=True).indices
+    o2 = torch.sort(-torch.gather(allv, 1, o1), dim=1, stable=True).indices
+    order = torch.gather(o1, 1, o2)
+    sv = torch.gather(allv, 1, order)
+    si = torch.gather(alli, 1, order)
+    dup = torch.zeros_like(si, dtype=torch.bool)
+    dup[:, 1:] = (si[:, 1:] == si[:, :-1]) & (si[:, 1:] >= 0)
+    sv = torch.where(dup | (si < 0), -torch.inf, sv)
+    vals, pos = first_topk(sv, k)
+    return torch.where(vals == -torch.inf, -1, torch.gather(si, 1, pos))
+
+
+def merge_ranked(vals_list, ids_list, k: int) -> np.ndarray:
+    """Union-merge ranked candidate lists per row (host numpy, reference
+    ``:1490``): scores are maximize-oriented and equal for equal (row, id)
+    pairs, so a lexsort (value descending, id) makes duplicates adjacent.
+    Returns ``[N, k]`` ids (-1 = none)."""
+    allv = np.concatenate(vals_list, axis=1)
+    alli = np.concatenate(ids_list, axis=1)
+    order = np.lexsort((alli, -allv), axis=1)
+    sv = np.take_along_axis(allv, order, axis=1)
+    si = np.take_along_axis(alli, order, axis=1)
+    dup = np.zeros_like(si, bool)
+    dup[:, 1:] = (si[:, 1:] == si[:, :-1]) & (si[:, 1:] >= 0)
+    sv[dup | (si < 0)] = -np.inf
+    keep = np.argsort(-sv, axis=1, kind="stable")[:, :k]
+    out = np.take_along_axis(si, keep, axis=1)
+    out[np.take_along_axis(sv, keep, axis=1) == -np.inf] = -1
+    return out
+
+
+def _nn_descent_scan(corpus, cnorm, knn, valid, *, k: int, sample: int, block: int, metric,
+                     out_k: int):
+    """One NN-descent round (reference ``:1512``): per node, rescore its
+    neighbours and sampled neighbours of neighbours exactly, first
+    occurrence only, keep the best ``out_k``. ``([N, out_k] vals, ids)``."""
+    from velesdb_tpu_torch.index.graph_index import _first_occurrence
+
+    n = knn.shape[0]
+    vals, ids = [], []
+    for base in range(0, n, block):
+        q = corpus[base : base + block]
+        nb = knn[base : base + block]
+        bs = nb.shape[0]
+        ids_s = nb[:, :sample]
+        nn2 = knn[ids_s.clamp_min(0)][:, :, :sample]
+        nn2 = torch.where(ids_s[:, :, None] >= 0, nn2, -1)
+        cand = torch.cat([nb, nn2.reshape(bs, -1)], dim=1)
+        self_id = torch.arange(base, base + bs, device=cand.device)[:, None]
+        ok = (cand >= 0) & (cand != self_id) & valid[cand.clamp_min(0)]
+        # first occurrence among the candidates that pass
+        big = 1 << 40
+        pos = torch.arange(cand.shape[1], device=cand.device)
+        ok = ok & _first_occurrence(torch.where(ok, cand, big + pos))
+        vecs = corpus[cand.clamp_min(0)]
+        dots = torch.bmm(vecs, q[:, :, None])[:, :, 0]
+        cc = cnorm[cand.clamp_min(0)]
+        if metric is DistanceMetric.EUCLIDEAN:
+            s = 2.0 * dots - cc
+        elif metric is DistanceMetric.COSINE:
+            qs = torch.rsqrt(torch.sum(q * q, dim=1, keepdim=True).clamp_min(1e-30))
+            s = dots * qs * torch.rsqrt(cc.clamp_min(1e-30))
+        else:
+            s = dots
+        s = torch.where(ok, s, -torch.inf)
+        v, p = first_topk(s, out_k)
+        vals.append(v)
+        ids.append(torch.where(v == -torch.inf, -1, torch.gather(cand, 1, p)))
+    return torch.cat(vals), torch.cat(ids)
+
+
+def _reverse_knn(knn: np.ndarray, n: int, k: int) -> np.ndarray:
+    """First-k reverse edges per node: ``[N, k]`` (-1 padded)."""
+    src = np.repeat(np.arange(n, dtype=np.int64), knn.shape[1])
+    dst = knn.reshape(-1)
+    ok = dst >= 0
+    src, dst = src[ok], dst[ok]
+    order = np.argsort(dst, kind="stable")
+    dst_s, src_s = dst[order], src[order]
+    start = np.searchsorted(dst_s, np.arange(n))
+    pos = np.arange(len(dst_s)) - start[dst_s]
+    keep = pos < k
+    out = np.full((n, k), -1, np.int64)
+    out[dst_s[keep], pos[keep]] = src_s[keep]
+    return out
+
+
+def nn_descent_round(corpus, knn, metric, valid=None, sample: int = 16, block: int = 512,
+                     device="cuda") -> np.ndarray:
+    """Refine a kNN graph by one NN-descent round (neighbours of neighbours
+    rescored, both edge directions joined; reference ``:1571``). ``knn`` is
+    numpy or a tensor; returns ``[N, k]`` numpy int64."""
+    metric = DistanceMetric.parse(metric)
+    x = corpus if isinstance(corpus, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(corpus, np.float32)).to(device)
+    x = x.float()
+    knn = knn.cpu().numpy() if isinstance(knn, torch.Tensor) else np.asarray(knn)
+    n, k = knn.shape
+    sample = min(sample, k)
+    both = np.concatenate([knn.astype(np.int64), _reverse_knn(knn.astype(np.int64), n, k)], 1)
+    valid_np = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
+    vals, ids = _nn_descent_scan(
+        x, torch.sum(x * x, dim=1), torch.from_numpy(both).to(x.device),
+        torch.tensor(valid_np, device=x.device), k=2 * k, sample=sample, block=block,
+        metric=metric, out_k=min(2 * k, k + sample * sample))
+    out = merge_ranked([vals.cpu().numpy()], [ids.cpu().numpy()], k)
+    out[~valid_np] = -1
+    return out

@@ -446,10 +446,11 @@ def _score_keys(s: torch.Tensor) -> torch.Tensor:
     """One int64 key per score of ``s [B, M]``: the f32's order-preserving
     bits (-0.0 as +0.0) above the reversed column, so keys are unique and a
     larger key is a better score, then a smaller column."""
-    bits = (s + 0.0).view(torch.int32)
-    hi = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
-    rev = (1 << 32) - 1 - torch.arange(s.shape[1], device=s.device)
-    return hi * (1 << 32) + rev
+    key = (s + 0.0).view(torch.int32).to(torch.int64)  # sign-extended bits
+    key ^= (key >> 32) & 0x7FFFFFFF  # negative floats: flip the magnitude
+    key <<= 32
+    key |= (1 << 32) - 1 - torch.arange(s.shape[1], device=s.device)
+    return key
 
 
 def first_topk(s: torch.Tensor, k: int):

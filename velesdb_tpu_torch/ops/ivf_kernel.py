@@ -28,7 +28,8 @@ Selection is exact, with equal scores going to the smallest position on
 every device (the reference selects with ``approx_max_k`` at ``nprobe * L >=
 16,384``, exact on its CPU path). ``SMEM_PROBE_BYTES`` and
 ``probe_table_fits`` model the TPU's scalar memory for the graph's entry IVF
-and are not carried over (ROADMAP.md).
+and are not carried over: the graph probes its entry IVF with #10 on every
+unmasked search (``index/graph_index.py``, ROADMAP.md).
 """
 
 from __future__ import annotations
