@@ -171,7 +171,13 @@ Phases, in order; any failure exits nonzero:
    counterparts launched, and each is timed at the script's shape against
    its bound, its plain version and a library yardstick (``torch._int_mm``
    with the variant's epilogue and the bucket ``amax``; ``q @ rows.T``;
-   ``q @ corpus[idx].T`` over distinct id sets for #11). The scripts' own
+   ``q @ corpus[idx].T`` over distinct id sets for #11). #11 is also
+   timed at the graph beam's rows a step at b 256 (R 262,144, each launch
+   held bit for bit), on CUDA events and by its device time a call
+   (``torch.profiler``; the kernels line carries the device time, since the
+   events time the host's enqueue at R 8,192), with the GB/s of the gathered
+   rows; each depth must beat its first design's recorded time
+   (``FIRST_GATHER_MS``) and the library. The scripts' own
    recall and agreement lines are checked: v1 = v0, the reranked engines at
    recall@10 >= 0.95, #5's distances equal #4's, the exact scans and #8 at
    1.0.
@@ -291,6 +297,14 @@ FIRST_INT8_MS = {"sq8i_bucket": 1.1773, "sq8i_bucket_v1": 1.1634, "sq8i_v2_bucke
 # section 5: chip_smoke.py runs of slices 5 and 3 on an NVIDIA H100 80GB
 # HBM3, 700 W)
 FIRST_TOPK_MS = {10: 0.5733, 320: 0.5741}
+# #11's device time a launch (torch.profiler) in its first design (16-byte
+# cp.async, 64 rows a block) at R 8,192 and 262,144 of 1,000,000 x 128, group
+# 16, the fastest of four runs of tools/int8_tc_timing.py --gather on that
+# design's checkout (PERF.md row #11; NVIDIA H100 80GB HBM3, 700 W). Its CUDA
+# events time at R 8,192, 0.0345 / 0.0252 ms, is the host's enqueue.
+FIRST_GATHER_MS = {("row_gather", 8192): 0.0108, ("row_gather_db", 8192): 0.0090,
+                   ("row_gather", 262_144): 0.0862, ("row_gather_db", 262_144): 0.0865}
+GATHER_BEAM_R, GATHER_BEAM_SETS = 262_144, 8  # the beam's rows a step at b 256
 TOPK_M = 320  # 100k-binary's raw pass: the storage gate's oversample 32 x k 10
 T_START = time.perf_counter()
 
@@ -662,13 +676,14 @@ def bound(ops_ms: float, bytes_: float) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def check_beats(name, ms, first_ms, lib_ms, first="the first (fp32-core) design") -> None:
+def check_beats(name, ms, first_ms, lib_ms, first="the first (fp32-core) design",
+                shape="B_pad 256") -> None:
     """Print a redesigned kernel's time beside its first design's recorded
     time and the library yardstick, and fail unless it beats both."""
-    say(f"{name} B_pad 256: {first} {first_ms:.4f} ms (recorded, {first_ms / ms:.2f}x), "
+    say(f"{name} {shape}: {first} {first_ms:.4f} ms (recorded, {first_ms / ms:.2f}x), "
         f"library yardstick {lib_ms:.4f} ms ({lib_ms / ms:.2f}x)")
     check(ms < first_ms and ms < lib_ms,
-          f"{name} B_pad 256: {ms:.4f} ms, not faster than its first design ({first_ms:.4f}) "
+          f"{name} {shape}: {ms:.4f} ms, not faster than its first design ({first_ms:.4f}) "
           f"and the library ({lib_ms:.4f})")
 
 
@@ -755,6 +770,89 @@ def time_cycle(torch, fn, args_list):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / len(args_list)
+
+
+def gather_phase(torch, first, held, rows, kernel_row) -> None:
+    """#11 at both depths, timed at the experiment's shape (R 8,192 of
+    1,000,000 x 128, group 16, the id sets of its held run) and at the graph
+    beam's rows a step at b 256 (R 262,144, fresh id sets, each launch held
+    bit for bit): CUDA events over back-to-back calls (the host's enqueue
+    included), then the device time a call from torch.profiler (each
+    kernel's mean over the launches the trace kept), beside the
+    library yardstick q @ corpus[idx.long()].T on both clocks. Each depth's
+    device time at both shapes must beat its first design's
+    (``FIRST_GATHER_MS``) and the library's."""
+    from velesdb_tpu_torch.experiments import kernels as xk
+
+    calls = first["exp_gather_kernel", "row_gather"]
+    (q, corpus, _), kw = calls[0]
+    group = kw.get("group", 16)
+    n, d = corpus.shape
+    sets_8k = [(a[2],) for a, _ in calls[1:]] or [(calls[0][0][2],)]
+    rng = np.random.default_rng(1)
+    sets_256k = [(torch.from_numpy(rng.integers(0, n, GATHER_BEAM_R, dtype=np.int32)).to(
+        q.device),) for _ in range(GATHER_BEAM_SETS)]
+
+    def lib(ix):
+        return q @ corpus[ix.long()].T
+
+    def device_ms(fn, sets):
+        """Device ms a call from torch.profiler over ``sets``, and the
+        launches the trace kept of the call's most frequent kernel: the sum,
+        over the kernels the trace holds at least once every other call, of
+        each one's mean time. Late in this script the profiler can drop
+        events, so the mean over the launches it kept stands for all."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for args in sets:
+                    fn(*args)
+                torch.cuda.synchronize()
+            per = {}
+            for e in prof.events():
+                if str(e.device_type).endswith("CUDA"):
+                    per.setdefault(e.name, []).append(e.time_range.elapsed_us())
+            kept = [t for t in per.values() if len(t) >= len(sets) // 2]
+            if kept:
+                return sum(sum(t) / len(t) for t in kept) / 1e3, max(map(len, kept))
+        fail(f"#11: three profiled passes of {len(sets)} calls kept under half of every kernel")
+
+    for sets in (sets_8k, sets_256k):
+        r = sets[0][0].shape[0]
+        # what this run's data needs: each distinct row once, the ids, the
+        # queries and the scores
+        bytes_ = (int(torch.unique(sets[0][0]).numel()) * d * 4 + r * 4 + 8 * d * 4
+                  + 8 * r * 4)
+        ops_ms = 2 * 8 * r * d / PEAK_F32 * 1e3
+        lib_ev, (lib_dev, _) = time_cycle(torch, lib, sets), device_ms(lib, sets)
+        for name, stages in (("row_gather", 1), ("row_gather_db", 2)):
+            def fn(ix, s=stages):
+                return xk.row_gather_scores(q, corpus, ix, group=group, stages=s)
+
+            if r == GATHER_BEAM_R:
+                for ix, in sets[:2]:
+                    hold(f"{name} R {r}", fn(ix), xk.row_gather_scores_ref(q, corpus, ix))
+            ev, (dev_ms, traced) = time_cycle(torch, fn, sets), device_ms(fn, sets)
+            if r != GATHER_BEAM_R:  # the experiment's shape: the kernels line's row
+                kernel_row(name, "row_gather.cu", rows[name][3], dev_ms,
+                           time_cycle(torch, lambda ix: xk.row_gather_scores_ref(q, corpus, ix),
+                                      sets[:8]),
+                           ops_ms, bytes_, held["exp_gather_kernel", name], library_ms=lib_dev)
+            b_ms, b_by = bound(ops_ms, bytes_)
+            say(f"{name} R {r}, D {d}, group {group}: device {dev_ms:.4f} ms a call (torch.profiler, "
+                f"{traced} of {len(sets)} launches in the trace), "
+                f"{r * d * 4 / dev_ms / 1e6:.1f} GB/s of gathered rows, bound {b_ms:.4f} ms "
+                f"({b_by}; {b_ms / dev_ms:.4f} of it); CUDA events {ev:.4f} ms a call; library "
+                f"device {lib_dev:.4f} ms ({r * d * 4 / lib_dev / 1e6:.1f} GB/s), events "
+                f"{lib_ev:.4f} ms")
+            check_beats(name, dev_ms, FIRST_GATHER_MS[name, r], lib_dev,
+                        first="the first (16-byte cp.async) design", shape=f"R {r}")
+    say(f"#11 at R {sets_8k[0][0].shape[0]} ({len(sets_8k)} distinct id sets of the held run) "
+        f"and R {GATHER_BEAM_R} ({GATHER_BEAM_SETS} fresh sets), D {d}, N {n}, group {group}: "
+        "kernel ms in the kernels line is the profiler's device time a launch (CUDA events over "
+        "back-to-back calls time the host's enqueue); library yardstick q @ corpus[idx.long()].T "
+        "(its device time)")
 
 
 def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) -> None:
@@ -1023,22 +1121,7 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
         f"doubled queries; library yardstick q @ rows.T (bf16: {MM_F32['how']}) - |c|^2, then "
         "the bucket amax")
 
-    calls = first["exp_gather_kernel", "row_gather"]
-    (q, corpus, _), kw = calls[0]
-    idx_sets = [(a[2],) for a, _ in calls[1:]] or [(calls[0][0][2],)]
-    r, d = idx_sets[0][0].shape[0], q.shape[1]
-    for name, stages in (("row_gather", 1), ("row_gather_db", 2)):
-        kernel_row(name, "row_gather.cu", rows[name][3],
-                   time_cycle(torch, lambda ix, s=stages: xk.row_gather_scores(
-                       q, corpus, ix, group=kw.get("group", 16), stages=s), idx_sets),
-                   time_cycle(torch, lambda ix: xk.row_gather_scores_ref(q, corpus, ix),
-                              idx_sets[:8]),
-                   2 * 8 * r * d / PEAK_F32 * 1e3, r * d * 4 + r * 4 + 8 * r * 4 + 8 * d * 4,
-                   held["exp_gather_kernel", name],
-                   library_ms=time_cycle(torch, lambda ix: q @ corpus[ix.long()].T, idx_sets))
-    say(f"#11 at R {r}, D {d}, N {corpus.shape[0]}, group {kw.get('group', 16)}, timed over "
-        f"{len(idx_sets)} distinct id sets (cold rows, as the experiment times): a launch of a "
-        "few us is most of it; library yardstick q @ corpus[idx.long()].T")
+    gather_phase(torch, first, held, rows, kernel_row)
     for name in rows:
         errs[name] = held.get((rows[name][0], rows[name][1]), errs.get(name, 0.0))
 

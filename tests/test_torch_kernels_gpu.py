@@ -1053,13 +1053,37 @@ def test_sq8i_v2_refuses_bad_input(cuda):
         xk.sq8i_v2_bucket_gm(qi, rows.cpu(), None, None, 512, "v3")
 
 
+def _gather_tile_rows() -> int:
+    """``kTileRows`` of ``csrc/row_gather.cu``: the ids dealt to a block at a
+    time."""
+    import os
+    import re
+
+    from velesdb_tpu_torch.ops import _cuda
+
+    with open(os.path.join(_cuda._CSRC, "row_gather.cu")) as f:
+        return int(re.search(r"constexpr int kTileRows = (\d+);", f.read()).group(1))
+
+
+# (R, group, D): R 8,192 (the experiment's), a ragged R, R below one tile and
+# one over a tile boundary ("tile-3", "tile+1", kTileRows read from the
+# source), R 262,144 (the beam's rows a step at b 256: blocks walk several
+# tiles), D 4, 132 (no row padding) and 960 (a GIST width), group 1 and 64
+_GATHER_CASES = [(8192, 16, 128), (1000, 64, 128), (77, 7, 128), (1, 16, 128),
+                 ("tile-3", 16, 128), ("tile+1", 16, 128), ("tile+1", 1, 132),
+                 (262_144, 16, 128), (4096, 16, 4), (4096, 64, 4), (4096, 16, 132),
+                 (3000, 64, 132), (8192, 16, 960), (5000, 1, 128), (5000, 64, 128)]
+
+
 @pytest.mark.parametrize("stages", [1, 2])
-@pytest.mark.parametrize("r,group", [(8192, 16), (1000, 64), (77, 7), (1, 16)])
-def test_row_gather_equals_plain(cuda, stages, r, group):
-    """R not a multiple of the kernel's 64-row tile, repeated ids and the
-    last row, bit for bit against the fixed-order plain version."""
-    rng = np.random.default_rng(r)
-    n, d = 100_000, 128
+@pytest.mark.parametrize("r,group,d", _GATHER_CASES)
+def test_row_gather_equals_plain(cuda, stages, r, group, d):
+    """Ragged R, tile edges, repeated ids and the last row, bit for bit
+    against the fixed-order plain version."""
+    if isinstance(r, str):
+        r = _gather_tile_rows() + (1 if r == "tile+1" else -3)
+    rng = np.random.default_rng(r + d)
+    n = 100_000
     corpus = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
     q = torch.from_numpy(rng.standard_normal((8, d)).astype(np.float32)).to(cuda)
     idx = torch.from_numpy(rng.integers(0, n, r, dtype=np.int32)).to(cuda)
@@ -1071,6 +1095,47 @@ def test_row_gather_equals_plain(cuda, stages, r, group):
     torch.cuda.synchronize()
     assert xk.LAUNCHES[counter] == before + 1
     assert torch.equal(out, xk.row_gather_scores_ref(q, corpus, idx))
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+def test_row_gather_out_of_range_ids_score_nan_at_both_depths(cuda, stages):
+    """Ids below 0 and at or past N, spread over several tiles and groups,
+    score NaN and read nothing; the rows in range around them stay exact."""
+    rng = np.random.default_rng(stages)
+    n, d, r = 5000, 132, 300
+    corpus = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((8, d)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, r, dtype=np.int32)).to(cuda)
+    bad = torch.from_numpy(rng.random(r) < 0.2).to(cuda)
+    bad[[0, 17, r - 1]] = True
+    idx = torch.where(bad, torch.where(torch.arange(r, device=cuda) % 2 == 0, -1 - idx, n + idx),
+                      idx).to(torch.int32)
+    out = xk.row_gather_scores(q, corpus, idx, group=5, stages=stages)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(out), bad[None, :].expand(8, r))
+    good = ~bad
+    want = xk.row_gather_scores_ref(q, corpus, idx[good])
+    assert torch.equal(out[:, good], want)
+
+
+def test_row_gather_refuses_misaligned_corpus(cuda):
+    """A corpus view off a 16-byte boundary, or not contiguous, raises before
+    any launch: a bulk copy needs both ends 16-byte aligned."""
+    corpus = torch.zeros(1000 * 32 + 1, device=cuda)[1:].view(1000, 32)
+    assert corpus.data_ptr() % 16 == 4
+    q = torch.ones((8, 32), device=cuda)
+    idx = torch.arange(10, dtype=torch.int32, device=cuda)
+    before = dict(xk.LAUNCHES)
+    for stages in (1, 2):
+        with pytest.raises(ValueError):
+            xk.row_gather_scores(q, corpus, idx, stages=stages)
+        with pytest.raises(ValueError):
+            xk.row_gather_scores(q, torch.ones((1000, 64), device=cuda)[:, ::2], idx,
+                                 stages=stages)
+    with pytest.raises(ValueError):  # stages over the shared memory
+        xk.row_gather_scores(torch.ones((8, 960), device=cuda),
+                             torch.ones((1000, 960), device=cuda), idx, group=64, stages=2)
+    assert xk.LAUNCHES == before
 
 
 def test_row_gather_out_of_range_ids_score_nan(cuda):

@@ -20,6 +20,17 @@ Data: numpy seed 0: a standard normal corpus ``[N, D]``, 8 queries, and
 rate of the gathered rows' bytes (best of 3 samples of ``--iters`` steps);
 then the script's correctness spot check, each kernel's max |err| against
 the baseline. ``main()`` returns the results.
+
+The answer on an NVIDIA H100 80GB HBM3 (700 W; device times from
+``velesdb_tpu_torch/tools/int8_tc_timing.py --gather``, PERF.md row #11):
+scattered 512-byte rows are not transaction-bound at a few GB/s there. At
+R 262,144 the kernel's bulk row copies alone move 2.4 TB/s of gathered rows
+(0.68 of the HBM rate), the whole kernel 2.1 TB/s (0.063 ms), the baseline
+0.53 TB/s (0.25 ms: the gather writes the rows out and the product reads
+them again). At this script's R 8,192 a step is one DRAM round trip and a
+launch: 0.0067 ms of device time for the kernel at either depth, 0.016 for
+the baseline; the lines below time the host's enqueue as well (~0.02-0.03
+ms a call for each).
 """
 
 from __future__ import annotations

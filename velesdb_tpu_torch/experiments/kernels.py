@@ -14,9 +14,9 @@ has a kernel for, and the experiments call those (``_k_v1`` is #7,
   corrections summed first), ``v2h`` (the same, every step rounded to bf16)
   or ``v3`` (the raw dot). :func:`sq8i_v2_bucket_ref` is its plain version.
 - :func:`row_gather_scores` launches ``csrc/row_gather.cu``: ``q [8, D] .
-  corpus[idx]^T`` with the rows copied to shared memory ``group`` at a time,
-  one or two groups in flight (``stages``). :func:`row_gather_scores_ref` is
-  its plain version.
+  corpus[idx]^T`` with each row brought to shared memory by one bulk copy,
+  ``group`` rows a stage, one or two stages in flight (``stages``).
+  :func:`row_gather_scores_ref` is its plain version.
 
 Every kernel is bit for bit against its plain version on the card. A wrapper
 takes the plain version only for CPU tensors; on CUDA tensors it launches its
@@ -58,7 +58,10 @@ LAUNCHES = {"sq8i_v2_bucket": 0, "sq8i_v2h_bucket": 0, "sq8i_v3_bucket": 0,
 
 SQ8I_VARIANTS = {"v2": 0, "v2h": 1, "v3": 2}
 _V2_MAX_DPAD = 1024  # |doti| <= 127^2 * 1024 < 2^24: v3's f32 scores are exact
-_GATHER_ROWS_PER_BLOCK = 64  # csrc/row_gather.cu: a group never spans two blocks
+# csrc/row_gather.cu: rows a stage holds at most (kMaxGroup), and the dynamic
+# shared memory a block may take (kSmemMax)
+_GATHER_MAX_GROUP = 64
+_GATHER_SMEM_MAX = 232_448
 
 
 def _check_sq8i_v2(qi, rows8, aux, qaux, chunk: int, variant: str) -> None:
@@ -132,7 +135,18 @@ def sq8i_v2_bucket_gm(qi, rows8, aux, qaux, chunk: int, variant: str):
     return gm, gi
 
 
+def _gather_smem_bytes(stages: int, group: int, d: int) -> int:
+    """Shared memory of a ``csrc/row_gather.cu`` block (its ``smem_bytes``):
+    32 bytes of barriers, ``stages * group`` ids rounded up to 16 bytes, then
+    the 8 queries and ``stages * group`` rows, each ``D`` floats padded to an
+    odd number of 16-byte units."""
+    rs = d + 4 if d % 8 == 0 else d
+    return 32 + (4 * stages * group + 15) // 16 * 16 + 4 * rs * (8 + stages * group)
+
+
 def _check_gather(q, corpus, idx, group: int, stages: int) -> None:
+    """The kernel's contract, checked alike for CPU and CUDA tensors, before
+    any launch."""
     if q.dtype != torch.float32 or corpus.dtype != torch.float32 or idx.dtype != torch.int32:
         raise TypeError(f"expected q, corpus float32 and idx int32, got {q.dtype}, "
                         f"{corpus.dtype}, {idx.dtype}")
@@ -143,9 +157,17 @@ def _check_gather(q, corpus, idx, group: int, stages: int) -> None:
         raise ValueError(f"idx must be [R], R >= 1, got {tuple(idx.shape)}")
     if q.shape[1] % 4:
         raise ValueError(f"D={q.shape[1]} must be a multiple of 4 (16-byte row copies)")
-    if not 1 <= group <= _GATHER_ROWS_PER_BLOCK or stages not in (1, 2):
-        raise ValueError(f"group={group} must be in [1, {_GATHER_ROWS_PER_BLOCK}], "
+    if not 1 <= group <= _GATHER_MAX_GROUP or stages not in (1, 2):
+        raise ValueError(f"group={group} must be in [1, {_GATHER_MAX_GROUP}], "
                          f"stages={stages} 1 or 2")
+    if not (q.is_contiguous() and corpus.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("q, corpus and idx must be contiguous")
+    if q.data_ptr() % 16 or corpus.data_ptr() % 16:
+        raise ValueError("q and corpus must start on a 16-byte boundary (one bulk copy a row)")
+    smem = _gather_smem_bytes(stages, group, q.shape[1])
+    if smem > _GATHER_SMEM_MAX:
+        raise ValueError(f"{stages} x {group} rows of D={q.shape[1]} take {smem} bytes of "
+                         f"shared memory, over the {_GATHER_SMEM_MAX} a block has")
 
 
 def row_gather_scores_ref(q, corpus, idx):
@@ -156,13 +178,14 @@ def row_gather_scores_ref(q, corpus, idx):
 
 def row_gather_scores(q, corpus, idx, *, group: int = 16, stages: int = 1):
     """Scores of 8 queries against gathered corpus rows, ``out [8, R] f32``:
-    ``q [8, D] f32``, ``corpus [N, D] f32``, ``idx [R] int32`` in ``[0, N)``.
-    On the card each row is copied to shared memory on its own, ``group``
-    rows at a time, and ``stages`` groups in flight (1: wait for each group
-    before the next is issued; 2: issue the next before waiting). CUDA
-    tensors launch ``csrc/row_gather.cu``; CPU tensors take
-    :func:`row_gather_scores_ref`. On the card an id outside ``[0, N)``
-    scores NaN (no row is read); on the CPU it raises."""
+    ``q [8, D] f32``, ``corpus [N, D] f32``, ``idx [R] int32`` in ``[0, N)``,
+    all contiguous, ``q`` and ``corpus`` 16-byte aligned. On the card each
+    row is brought to shared memory by one bulk copy, ``group`` rows a stage,
+    and ``stages`` stages in flight (1: wait for each group before the next
+    is issued; 2: issue the next before waiting). CUDA tensors launch
+    ``csrc/row_gather.cu``; CPU tensors take :func:`row_gather_scores_ref`.
+    On the card an id outside ``[0, N)`` scores NaN (no row is read); on the
+    CPU it raises."""
     _check_gather(q, corpus, idx, group, stages)
     if _kernel_route(q, corpus, idx):
         return row_gather_scores_ref(q, corpus, idx)
