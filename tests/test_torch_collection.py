@@ -148,6 +148,21 @@ def test_port_never_imports_jax(tmp_path):
         assert g._entry_ivf is not None and g.search(y[5:6], 1)[1].item() == 5
         knn = ivf_self_knn(x, 4, "euclidean", device="cpu")
         assert nn_descent_round(x, knn, "euclidean", device="cpu").shape == (3000, 4)
+        import velesdb_tpu_torch.text, velesdb_tpu_torch.fusion, velesdb_tpu_torch.cache
+        import velesdb_tpu_torch.ops.fused_rrf
+        t = db.create_collection("t", 16, metric="cosine")
+        t.upsert_bulk(range(3000), x, [{{"text": "alpha" if i % 2 else "beta gamma",
+                                        "price": float(i % 100)}} for i in range(3000)])
+        assert t.text_search("gamma", k=3)[0].id % 2 == 0
+        assert t.hybrid_search(x[8], "beta", k=3)[0].id == 8 and t.like_mask("%alph%").any()
+        assert t.multi_query_search([x[4], x[6]], k=2, strategy="average")
+        t.enable_result_cache()
+        assert t.search(x[3], k=1) == t.search(x[3], k=1) and t.cache_stats()["hits"] == 1
+        t.delete(5)
+        assert t.vacuum()["reclaimed_slots"] == 1
+        h = db.create_collection("h", 16, metric="hamming")
+        h.upsert_bulk(range(3000), x)
+        assert h.search(x[11], k=1)[0].id == 11
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert not [m for m in sys.modules if m.split(".")[0] == "velesdb_tpu"]
         print("no-jax-ok")
@@ -171,9 +186,6 @@ def test_default_device_is_cuda(tmp_path):
     [
         "index_graph",
         "index_ivf",
-        "text_search_batch",
-        "text_search",
-        "hybrid_search",
         "add_edge",
         "velesql",
     ],
@@ -187,9 +199,6 @@ def test_unported_surfaces_raise(tmp_path, action):
         # knowledge graph (MATCH, the collection's graph methods) waits
         "index_graph": lambda: db.match_query("c", "MATCH (a)-[:R]->(b) RETURN b"),
         "index_ivf": lambda: col.ensure_graph(),
-        "text_search_batch": lambda: col.text_search_batch(["shoes"]),
-        "text_search": lambda: col.text_search("shoes"),
-        "hybrid_search": lambda: col.hybrid_search(np.ones(4), "shoes"),
         "add_edge": lambda: col.add_edge(1, 1, "self"),
         "velesql": lambda: db.query("SELECT * FROM c LIMIT 1"),
     }

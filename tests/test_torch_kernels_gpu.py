@@ -1362,3 +1362,138 @@ def test_graph_collection_on_the_card(cuda, tmp_path):
     assert ik.LAUNCHES["ivf_probe"] == before + 2
     assert ids[0][0] not in {h.id for r in again for h in r}
     db.close()
+
+
+# -- text and hybrid search ------------------------------------------------------
+
+_WORDS = ["coffee", "espresso", "latte", "laptop", "screen", "guitar", "amp", "novel", "poem",
+          "wool", "boot", "scarf"]
+
+
+def _bm25_pair(cuda, n, seed):
+    from velesdb_tpu_torch.text.bm25 import Bm25Index
+
+    rng = np.random.default_rng(seed)
+    on_card, on_cpu = Bm25Index(cuda), Bm25Index("cpu")
+    for slot in range(n):
+        text = " ".join(_WORDS[i] for i in rng.integers(0, len(_WORDS), rng.integers(1, 5)))
+        on_card.add_document(slot, text)
+        on_cpu.add_document(slot, text)
+    return on_card, on_cpu
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_bm25_scorer_card_equals_cpu(cuda, monkeypatch, masked):
+    """The term-ordered scatter-add has no two updates to one element in a
+    step, so the card's scores and slots equal the CPU's bit for bit, ties
+    included, also across query slices of the dense scores."""
+    import velesdb_tpu_torch.text.bm25 as tb
+
+    n = 150_000
+    on_card, on_cpu = _bm25_pair(cuda, n, 3)
+    monkeypatch.setattr(tb, "DENSE_ELEMS", 1 << 20)  # 4 queries a slice at n_pad 2^18
+    queries = [" ".join(_WORDS[i] for i in np.random.default_rng(q).integers(0, 12, q % 5 + 1))
+               for q in range(40)] + ["nothing here"]
+    mask = np.random.default_rng(4).random(n) > 0.5 if masked else None
+    cv, cs = on_card.search_batch_dev(queries, 100, n, mask=mask)
+    hv, hs = on_cpu.search_batch_dev(queries, 100, n, mask=mask)
+    assert cv.device.type == torch.device(cuda).type
+    assert torch.equal(cv.cpu().view(torch.int32), hv.view(torch.int32))
+    assert torch.equal(cs.cpu(), hs)
+    assert torch.equal(on_card._block_scores.cpu(), on_cpu._block_scores)
+
+
+def test_rrf_fuse_topk_card_equals_cpu(cuda):
+    """Branch lists whose slots repeat within and across lists (a slot's
+    total then adds three or more contributions), with empties at -1: the
+    fixed summation tree gives the card's fused values and slots the CPU's
+    bits."""
+    from velesdb_tpu_torch.ops.fused_rrf import rrf_fuse_topk
+
+    rng = np.random.default_rng(5)
+    b, f = 256, 20
+
+    def branch():
+        ids = rng.integers(0, 24, (b, f))
+        ids[rng.random((b, f)) < 0.1] = -1
+        return torch.from_numpy(ids)
+
+    v_idx, t_idx = branch(), branch()
+    v_vals = torch.from_numpy(rng.standard_normal((b, f)).astype(np.float32))
+    t_vals = torch.from_numpy(np.abs(rng.standard_normal((b, f))).astype(np.float32))
+    v_vals[torch.from_numpy(rng.random((b, f)) < 0.1)] = torch.inf
+    for w, rk in ((0.5, None), (0.3, None), (1.0, 20.0)):
+        args = (v_vals, v_idx, t_vals, t_idx, np.float32(w), None, rk)
+        hv, hi = rrf_fuse_topk(*args, k=10)
+        cv, ci = rrf_fuse_topk(*(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                                 for a in args), k=10)
+        assert torch.equal(ci.cpu(), hi) and torch.equal(cv.cpu(), hv)
+
+
+def test_hybrid_on_a_pd_collection_on_the_card(cuda, tmp_path, monkeypatch):
+    """A 140,000-row FULL cosine collection on the card: every hybrid batch's
+    vector branch launches #1 (``int8-assist-pd``), each launch equals
+    its plain version, the batches take the device-fused form, and the BM25
+    branch equals the same index scored on the CPU."""
+    import velesdb_tpu_torch
+    import velesdb_tpu_torch.collection as tcol
+
+    rng = np.random.default_rng(12)
+    n = 140_000
+    x = _clustered(rng, n + 64, 64)
+    base, q = x[:n], x[n:]
+    payloads = [{"text": f"{_WORDS[i % 12]} {_WORDS[(i // 12) % 12]}", "price": float(i % 100)}
+                for i in range(n)]
+    db = velesdb_tpu_torch.Database.open(str(tmp_path), device=cuda)
+    col = db.create_collection("h", 64, metric="cosine")
+    col.upsert_bulk(range(n), base, payloads)
+    col.refresh_device()
+    assert col._brute.serve_engine(20) == "int8-assist-pd"
+    calls = []
+    kernel = bk.sq8pd_bucket_gm
+    monkeypatch.setattr(bk, "sq8pd_bucket_gm",
+                        lambda *a, **kw: calls.append((a, kw, kernel(*a, **kw))) or calls[-1][2])
+    fused = []
+    orig = tcol.rrf_fuse_topk
+    monkeypatch.setattr(tcol, "rrf_fuse_topk", lambda *a, **kw: fused.append(1) or orig(*a, **kw))
+    texts = [_WORDS[i % 12] for i in range(64)]
+    filt = {"type": "lt", "field": "price", "value": 50.0}
+    before = bk.LAUNCHES["sq8pd_bucket_gm"]
+    got = col.hybrid_search_batch(q, texts, k=10, filter=filt)
+    got16 = col.hybrid_search_batch(q[:16], texts[:16], k=10)
+    launched = bk.LAUNCHES["sq8pd_bucket_gm"] - before
+    assert launched >= 2 and len(calls) == launched and len(fused) == 2
+    for args, kw, out in calls:
+        assert torch.equal(out, bk.sq8pd_bucket_gm_ref(*args, **kw))
+    assert all(h.payload["price"] < 50.0 for row in got for h in row)
+    assert all(len(row) == 10 for row in got16)
+    from velesdb_tpu_torch.text.bm25 import Bm25Index
+
+    cpu = Bm25Index("cpu")
+    for slot, p in enumerate(payloads):
+        cpu.add_document(slot, p["text"])
+    mask = col._raw_filter_mask(filt)
+    cv, cs = col.text_index.search_batch_dev(texts, 20, n, mask=mask)
+    hv, hs = cpu.search_batch_dev(texts, 20, n, mask=mask)
+    assert torch.equal(cs.cpu(), hs) and torch.equal(cv.cpu().view(torch.int32),
+                                                     hv.view(torch.int32))
+    db.close()
+
+
+@pytest.mark.parametrize("metric", ["hamming", "jaccard"])
+def test_set_metric_search_card_equals_cpu(cuda, metric):
+    """``fused-xla``: integer counts in f32, so the card's top-k equals the
+    CPU's bit for bit, ties to the lowest slot on both."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((100_000, 128)).astype(np.float32)
+    q = rng.standard_normal((40, 128)).astype(np.float32)
+    valid = rng.random(100_000) > 0.05
+    on_card = BruteForceIndex(128, metric, device=cuda)
+    on_cpu = BruteForceIndex(128, metric, device="cpu")
+    for idx in (on_card, on_cpu):
+        idx.rebuild(x, valid)
+    mask = rng.random(100_000) > 0.5
+    for m in (None, mask):
+        cv, ci = on_card.search(q, 50, mask=m)
+        hv, hi = on_cpu.search(q, 50, mask=m)
+        assert torch.equal(ci.cpu(), hi) and torch.equal(cv.cpu(), hv)

@@ -27,8 +27,17 @@ records each engine's recall per ef with the planner: an unpinned engine
 below the quality profile's bar demotes to exact, and a smaller calibrated ef
 that clears it is served instead. Mutations after a build land in a
 per-engine delta that is searched exactly beside the index, until it
-outgrows ``delta_rebuild_fraction`` of the rows. Text, hybrid, VelesQL and
-the knowledge-graph methods raise ``NotImplementedError`` (ROADMAP.md).
+outgrows ``delta_rebuild_fraction`` of the rows.
+
+Text search builds a BM25 index (:class:`~velesdb_tpu_torch.text.bm25.Bm25Index`,
+its blocks on the collection's device) from the payloads' strings at the
+first text query, and keeps it in step with mutations; the trigram LIKE
+index builds at the first :meth:`Collection.like_mask`. Hybrid search fuses
+the vector branch (the engine a search would take) and BM25 with weighted
+RRF on the device (:func:`~velesdb_tpu_torch.ops.fused_rrf.rrf_fuse_topk`),
+except on quantized collections with the auto-rerank, which fuse the two
+reranked host lists. VelesQL and the
+knowledge-graph methods raise ``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,17 +52,24 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from velesdb_tpu_torch.cache import SearchResultCache
 from velesdb_tpu_torch.column.store import ColumnStore
+from velesdb_tpu_torch.fusion import FusionStrategy, weighted_rrf
 from velesdb_tpu_torch.index.brute import BruteForceIndex, not_in_slice
 from velesdb_tpu_torch.index.graph_index import GraphIndex
 from velesdb_tpu_torch.index.ivf import IvfIndex
 from velesdb_tpu_torch.index.ivf import stage_mark as _mark
 from velesdb_tpu_torch.index.params import GraphParams, SearchQuality
 from velesdb_tpu_torch.ops.distance import DistanceMetric
+from velesdb_tpu_torch.ops.fused_rrf import rrf_fuse_topk
 from velesdb_tpu_torch.ops.quantization import SQ8Vectors, StorageMode
 from velesdb_tpu_torch.ops.streamed import streamed_topk
+from velesdb_tpu_torch.ops.topk import pad_mask
 from velesdb_tpu_torch.storage.payload_log import PayloadLog
 from velesdb_tpu_torch.storage.vector_store import VectorStore
+from velesdb_tpu_torch.text.bm25 import Bm25Index
+from velesdb_tpu_torch.text.tokenizer import extract_text
+from velesdb_tpu_torch.text.trigram import TrigramIndex
 from velesdb_tpu_torch.velesql.planner import QueryPlanner
 
 __all__ = ["Collection", "SearchResult", "CollectionType"]
@@ -162,11 +178,19 @@ class Collection:
         self.columns = ColumnStore()
         self.columns.set_id_source(self.vectors.occupancy)
         self._columns_built = False
+        # text indexes build lazily from the payload log: BM25 at the first
+        # text or hybrid query, the trigram index at the first like_mask
+        self.text_index: Bm25Index | None = None
+        self.trigram_index: TrigramIndex | None = None
+        self._text_built = False
+        self._result_cache: SearchResultCache | None = None  # when enabled
         # TTL rows, durable in ttl.json; writes are batched behind a dirty
         # flag and flushed once per bulk op / flush() / close()
         self._ttl: dict[int, float] = self._load_ttl()  # vid -> unix expiry
         self._ttl_dirty = False
         self._last_ttl_flush = 0.0
+        self._auto_vacuum: dict | None = None
+        self._last_auto_vacuum = 0.0
 
     @property
     def index_kind(self) -> str:
@@ -259,6 +283,8 @@ class Collection:
                 self.payloads.store(int(vid), payload)
             if self._columns_built:
                 self.columns.upsert_row(slot, payload)
+            if self._text_built:
+                self._index_text(slot, payload)
             if ttl is not None:
                 self._ttl[int(vid)] = time.time() + ttl
                 self._ttl_dirty = True
@@ -295,6 +321,9 @@ class Collection:
                     self.columns.upsert_row(
                         slot, payloads[i] if payloads is not None else None
                     )
+            if self._text_built:
+                for i, slot in enumerate(slots):
+                    self._index_text(slot, payloads[i] if payloads is not None else None)
             if ttl is not None:
                 expiry = time.time() + ttl
                 for vid in ids:
@@ -321,6 +350,10 @@ class Collection:
             if existed:
                 if self._columns_built and slot is not None:
                     self.columns.remove_row(slot)
+                if self._text_built and slot is not None:
+                    self.text_index.remove_document(slot)
+                    if self.trigram_index is not None:
+                        self.trigram_index.remove_document(slot)
                 self._on_mutation([int(vid)], slots=[slot])
             return existed
 
@@ -334,6 +367,10 @@ class Collection:
         self._device_dirty = True
         self._mut_counter += 1
         self.columns.invalidate(ids)
+        if self.text_index is not None:
+            self.text_index.invalidate(ids)
+        if self._result_cache is not None:
+            self._result_cache.invalidate()
         # live ANN indexes absorb mutations through their deltas; before the
         # first build (or once dirty) the coming full build covers every row
         track = {"graph": self.ann is not None and not self.ann.dirty and self.ann.n_pad > 0,
@@ -395,7 +432,7 @@ class Collection:
         if engine == "graph":
             vals, idx = self.ann.search(
                 q, k_fetch, ef=ef, exclude=stale,
-                mask=None if base_mask is None else _pad_mask(base_mask, self.ann.n_pad))
+                mask=None if base_mask is None else pad_mask(base_mask, self.ann.n_pad, "cpu"))
         else:
             vals, idx = self.ivf.search(q, k_fetch, ef=ef, mask=base_mask, nprobe=ivf_nprobe,
                                         exclude=stale)
@@ -418,7 +455,9 @@ class Collection:
     # -- device state ------------------------------------------------------
 
     def refresh_device(self) -> None:
-        """Upload the current host slot array as padded device state."""
+        """Upload the current host slot array as padded device state (after
+        the auto-vacuum, when one is configured and due)."""
+        self._maybe_auto_vacuum()
         with self._lock:
             if not self._device_dirty:
                 return
@@ -623,8 +662,18 @@ class Collection:
 
     def search(self, query, k: int = 10, filter: dict | None = None,
                ef: int | None = None, quality=None):
-        """Single-query search; returns hydrated results best-first."""
-        return self.search_batch([query], k, filter=filter, ef=ef, quality=quality)[0]
+        """Single-query search; returns hydrated results best-first. With the
+        result cache on, a repeated (query, k, filter, ef, quality) is served
+        from it until the next mutation."""
+        if self._result_cache is None:
+            return self.search_batch([query], k, filter=filter, ef=ef, quality=quality)[0]
+        key = self._result_cache.key(np.asarray(query, np.float32), k, filter, ef, quality)
+        hit = self._result_cache.get(key)
+        if hit is not None:
+            return hit
+        res = self.search_batch([query], k, filter=filter, ef=ef, quality=quality)[0]
+        self._result_cache.put(key, res)
+        return res
 
     def search_with_rerank(self, query, k: int = 10, oversample: float = 4.0,
                            filter: dict | None = None, ef: int | None = None):
@@ -781,6 +830,36 @@ class Collection:
             self._timed_sigs.add(sig)  # warm-up call: untimed
         return out
 
+    def search_batch_with_filters(self, queries, k: int = 10, filters=None,
+                                  ef: int | None = None, quality=None):
+        """Batched search with a filter per query: queries that share a
+        filter run as one device batch, each distinct filter as its own."""
+        q = np.atleast_2d(np.asarray(queries, np.float32))
+        if filters is None:
+            return self.search_batch(q, k, ef=ef, quality=quality)
+        if len(filters) != q.shape[0]:
+            raise ValueError("filters/queries length mismatch")
+        groups: dict[str, list[int]] = {}
+        for i, f in enumerate(filters):
+            groups.setdefault(json.dumps(f, sort_keys=True, default=str), []).append(i)
+        out: list = [None] * q.shape[0]
+        for idxs in groups.values():
+            res = self.search_batch(q[idxs], k, filter=filters[idxs[0]], ef=ef, quality=quality)
+            for i, row in zip(idxs, res):
+                out[i] = row
+        return out
+
+    def multi_query_search(self, queries, k: int = 10, strategy="rrf", weights=None,
+                           filter: dict | None = None, ef: int | None = None):
+        """Fuse several query vectors into one result list: ``2k`` hits a
+        query from one batched search, then ``FusionStrategy.fuse``."""
+        strategy = FusionStrategy.parse(strategy)
+        per_query = self.search_batch(queries, max(2 * k, k), filter=filter, ef=ef)
+        fused = strategy.fuse([[(r.id, r.score) for r in row] for row in per_query], k,
+                              weights=weights)
+        return [SearchResult(id=vid, score=score, payload=self.payloads.retrieve(vid))
+                for vid, score in fused]
+
     def _search_device(self, q, k, mask, ef=None, quality=None):
         """Device ``(vals, slot ids)`` of the engine a search would take."""
         return self._run_search(q, k, mask, self._plan_search(q, k, mask, ef, quality))
@@ -875,7 +954,7 @@ class Collection:
         if mask is None:
             return None
         used = max(self.vectors.used_slots, 1)
-        return _pad_mask(mask, self._brute.n_pad or used)
+        return pad_mask(mask, self._brute.n_pad or used, "cpu")
 
     def _raw_filter_mask(self, filt):
         """``[used_slots] bool`` mask for a filter dict (unpadded)."""
@@ -910,13 +989,229 @@ class Collection:
             out.append(row)
         return out
 
+    # -- result cache ----------------------------------------------------------
+
+    def enable_result_cache(self, capacity: int = 512) -> None:
+        """Cache :meth:`search` results (LRU, cleared by every mutation)."""
+        self._result_cache = SearchResultCache(capacity)
+
+    def cache_stats(self) -> dict | None:
+        return self._result_cache.stats() if self._result_cache else None
+
+    # -- maintenance ---------------------------------------------------------
+
+    def expire_rows(self, now: float | None = None) -> int:
+        """Delete the rows whose TTL has passed; returns how many."""
+        now = time.time() if now is None else now
+        dead = [vid for vid, exp in self._ttl.items() if exp <= now]
+        for vid in dead:
+            self._ttl.pop(vid, None)
+            self.delete(vid)
+        if dead:
+            self._ttl_dirty = True
+        self._flush_ttl()
+        return len(dead)
+
+    def configure_auto_vacuum(self, interval_s: float = 60.0,
+                              fragmentation_threshold: float = 0.3,
+                              enabled: bool = True) -> None:
+        """Auto-vacuum policy: at a device refresh, at most every
+        ``interval_s``, expire TTL rows and compact once the free-slot share
+        passes ``fragmentation_threshold``."""
+        self._auto_vacuum = (
+            {"interval_s": interval_s, "threshold": fragmentation_threshold}
+            if enabled else None
+        )
+
+    def _maybe_auto_vacuum(self) -> None:
+        if self._auto_vacuum is None:
+            return
+        now = time.time()
+        if now - self._last_auto_vacuum < self._auto_vacuum["interval_s"]:
+            return
+        self._last_auto_vacuum = now
+        self.expire_rows(now)
+        if self.vectors.fragmentation_ratio > self._auto_vacuum["threshold"]:
+            self.vacuum()
+
+    def vacuum(self) -> dict:
+        """Compact tombstoned slots. Slot numbers change, so every slot-keyed
+        structure restarts: the columns, the text and trigram indexes, the
+        ANN deltas, and the IVF and graph indexes (rebuilt at their next
+        use)."""
+        with self._lock:
+            reclaimed = self.vectors.vacuum()
+            if reclaimed:
+                self.columns = ColumnStore()
+                self.columns.set_id_source(self.vectors.occupancy)
+                self._columns_built = False
+                self.text_index = None
+                self.trigram_index = None
+                self._text_built = False
+                for stale in self._stale.values():
+                    stale.clear()
+                self._delta_cache.clear()
+                if self.ann is not None:
+                    self.ann.invalidate()
+                if self.ivf is not None:
+                    self.ivf.invalidate()
+                self._on_mutation([])
+            return {"reclaimed_slots": reclaimed,
+                    "fragmentation": self.vectors.fragmentation_ratio}
+
+    # -- text and hybrid search ------------------------------------------------
+
+    def _index_text(self, slot: int, payload) -> None:
+        text = extract_text(payload) if payload is not None else ""
+        if text:
+            self.text_index.add_document(slot, text)
+            if self.trigram_index is not None:
+                self.trigram_index.add_document(slot, text)
+        else:
+            self.text_index.remove_document(slot)
+            if self.trigram_index is not None:
+                self.trigram_index.remove_document(slot)
+
+    def _ensure_text(self) -> None:
+        """Build the BM25 index from the payload log at the first text query;
+        mutations keep it in step from then on."""
+        if self._text_built:
+            return
+        self.text_index = Bm25Index(self.device)
+        self._text_built = True
+        for vid, payload in self.payloads.payloads.items():
+            slot = self.vectors.id_to_slot.get(vid)
+            if slot is not None:
+                self._index_text(slot, payload)
+
+    def _ensure_trigram(self) -> None:
+        """Build the trigram index at the first :meth:`like_mask` (the
+        reference builds it beside BM25; at 1M rows it costs more than the
+        BM25 build, and only LIKE reads it)."""
+        self._ensure_text()
+        if self.trigram_index is not None:
+            return
+        self.trigram_index = TrigramIndex()
+        for vid, payload in self.payloads.payloads.items():
+            slot = self.vectors.id_to_slot.get(vid)
+            text = extract_text(payload) if payload is not None else ""
+            if slot is not None and text:
+                self.trigram_index.add_document(slot, text)
+
+    def text_search(self, query: str, k: int = 10, filter: dict | None = None):
+        """BM25 full-text search."""
+        return self.text_search_batch([query], k, filter=filter)[0]
+
+    def text_search_batch(self, queries, k: int = 10, filter: dict | None = None):
+        """Batched BM25 search, the filter pushed down as a slot mask."""
+        self._ensure_text()
+        used = max(self.vectors.used_slots, 1)
+        mask = self._raw_filter_mask(filter)
+        vals, slots = self.text_index.search_batch(list(queries), k, used, mask=mask)
+        slot_ids, _ = self.vectors.occupancy()
+        out = []
+        for b in range(vals.shape[0]):
+            row = []
+            for v, s in zip(vals[b], slots[b]):
+                if s < 0 or v <= 0 or s >= slot_ids.shape[0]:
+                    continue
+                vid = int(slot_ids[s])
+                if vid < 0:
+                    continue
+                row.append(SearchResult(id=vid, score=float(v),
+                                        payload=self.payloads.retrieve(vid)))
+            out.append(row)
+        return out
+
+    def hybrid_search(self, query_vector, query_text: str, k: int = 10,
+                      vector_weight: float = 0.5, filter: dict | None = None):
+        """Vector + BM25 fusion by weighted RRF (k = 60), ``2k`` fetched from
+        each branch."""
+        return self.hybrid_search_batch([query_vector], [query_text], k,
+                                        vector_weight=vector_weight, filter=filter)[0]
+
+    def hybrid_search_batch(self, query_vectors, query_texts, k: int = 10,
+                            vector_weight: float = 0.5, filter: dict | None = None):
+        """Batched hybrid search. Both branches and the fusion stay on the
+        device and the batch reads back once; quantized collections with
+        :attr:`auto_rerank` fuse on the host instead (their vector branch is
+        the host f32 rerank)."""
+        if not self._hybrid_fused_ok:
+            return self._hybrid_host_fused(query_vectors, query_texts, k, vector_weight,
+                                           filter)
+        return self._hybrid_fused_batch(query_vectors, query_texts, k, w_vec=vector_weight,
+                                        w_txt=1.0 - vector_weight, filter=filter)
+
+    @property
+    def _hybrid_fused_ok(self) -> bool:
+        return not (self.auto_rerank
+                    and self.storage_mode in (StorageMode.SQ8, StorageMode.BINARY))
+
+    def _hybrid_fused_batch(self, query_vectors, query_texts, k, *, w_vec, w_txt, filter,
+                            ef=None, quality=None, rrf_k=None, fetch=None):
+        """The device-fused hybrid (:meth:`_hybrid_device`), read back once
+        and hydrated. ``rrf_k=None`` is the reference's 60."""
+        if fetch is None:
+            fetch = max(2 * k, k)
+        self.refresh_device()
+        self._ensure_text()
+        q = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
+        if q.shape[1] != self.dim:
+            raise ValueError(f"dimension mismatch: expected {self.dim}, got {q.shape[1]}")
+        vals, slots = self._hybrid_device(q, query_texts, k, max(fetch, k),
+                                          self._raw_filter_mask(filter), w_vec=w_vec,
+                                          w_txt=w_txt, rrf_k=rrf_k, ef=ef, quality=quality)
+        slot_ids, _ = self.vectors.occupancy()
+        self._slot_ids = slot_ids
+        return self._hydrate(vals.cpu().numpy(), slots.cpu().numpy(), k)
+
+    def _hybrid_device(self, q, query_texts, k, fetch, raw_mask, *, w_vec, w_txt, rrf_k=None,
+                       ef=None, quality=None):
+        """Device ``(fused [B, k], slots [B, k])`` of a hybrid batch: the
+        vector branch from the engine :meth:`_search_device` picks (on the
+        exact FULL serve the filter reaches each core as the reference's
+        mono program applies it), the BM25 branch from
+        :meth:`Bm25Index.search_batch_dev`, both ``fetch`` deep and fused by
+        :func:`rrf_fuse_topk`. Nothing is read back. A failure raises."""
+        mask = None
+        if raw_mask is not None:
+            mask = pad_mask(raw_mask, self._brute.n_pad or max(self.vectors.used_slots, 1),
+                            "cpu")
+        v_vals, v_idx = self._search_device(q, fetch, mask, ef, quality)
+        txt = self.text_index.search_batch_dev(list(query_texts), fetch,
+                                               max(self.vectors.used_slots, 1), mask=raw_mask)
+        if txt is None:  # no query term in the vocabulary: the vector ranks alone
+            t_vals = torch.zeros((q.shape[0], fetch), dtype=torch.float32, device=self.device)
+            t_idx = torch.full((q.shape[0], fetch), -1, dtype=torch.int64, device=self.device)
+        else:
+            t_vals, t_idx = txt
+        return rrf_fuse_topk(v_vals, v_idx, t_vals, t_idx, np.float32(w_vec),
+                             None if w_txt is None else np.float32(w_txt), rrf_k, k=k)
+
+    def _hybrid_host_fused(self, query_vectors, query_texts, k, vector_weight, filter):
+        """Two-branch host-fused hybrid, for quantized collections whose
+        vector branch is the host rerank pass."""
+        fetch = max(2 * k, k)
+        vec_rows = self.search_batch(query_vectors, fetch, filter=filter)
+        txt_rows = self.text_search_batch(list(query_texts), fetch, filter=filter)
+        out = []
+        for vec_hits, txt_hits in zip(vec_rows, txt_rows):
+            fused = weighted_rrf([(r.id, r.score) for r in vec_hits],
+                                 [(r.id, r.score) for r in txt_hits], k,
+                                 vector_weight=vector_weight)
+            out.append([SearchResult(id=vid, score=score, payload=self.payloads.retrieve(vid))
+                        for vid, score in fused])
+        return out
+
+    def like_mask(self, pattern: str, case_insensitive: bool = False):
+        """``[used_slots] bool`` mask of the slots whose payload text matches
+        the LIKE ``pattern`` (trigram-pruned, then verified)."""
+        self._ensure_trigram()
+        used = max(self.vectors.used_slots, 1)
+        return self.trigram_index.match_mask(pattern, used, case_insensitive=case_insensitive)
+
     # -- not in this slice (ROADMAP.md) -------------------------------------
 
-    text_search = _later("text_search", "text search")
-    text_search_batch = _later("text_search_batch", "text search")
-    hybrid_search = _later("hybrid_search", "hybrid search")
-    hybrid_search_batch = _later("hybrid_search_batch", "hybrid search")
-    like_mask = _later("like_mask", "text search")
     ensure_graph = _later("ensure_graph", "knowledge graph")
     add_node = _later("add_node", "knowledge graph")
     add_edge = _later("add_edge", "knowledge graph")
@@ -997,9 +1292,3 @@ def _host_scores(q: np.ndarray, vecs: np.ndarray, metric: DistanceMetric):
         denom = np.linalg.norm(vecs, axis=1) * max(np.linalg.norm(q), 1e-30)
         return np.where(denom > 1e-30, dots / np.maximum(denom, 1e-30), 0.0)
     return np.linalg.norm(vecs - q[None, :], axis=1)
-
-
-def _pad_mask(mask: np.ndarray, n_pad: int) -> np.ndarray:
-    if mask.shape[0] >= n_pad:
-        return mask[:n_pad]
-    return np.pad(mask, (0, n_pad - mask.shape[0]))

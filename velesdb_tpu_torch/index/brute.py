@@ -23,6 +23,10 @@ does:
      rows as they are, f32 rows split into bf16 pairs in the kernel);
   5. ``streamed-scan`` — everything else: chunked fp32 matmul + exact top-k
      (half corpora upcast one chunk at a time).
+- FULL, F16, BF16 with the hamming or jaccard metric: ``fused-xla``, the
+  reference's name for its fused XLA program (``_fused_search``): the rows
+  binarized once a rebuild (``v > 0.5``), one f32 product of 0/1 rows, then
+  ``first_topk`` (ties to the lowest slot, as ``lax.top_k``). Plain torch.
 - SQ8 (uint8 codes + per-row affine): ``sq8-int8`` (``csrc/sq8i_bucket.cu``)
   where the bucket collision guard holds and D < ``_SQ8I_MAX_DIM``,
   ``sq8-bucket`` (the SQ8 mode of ``csrc/dense_bucket_tc.cu``, block-packed
@@ -56,6 +60,7 @@ from velesdb_tpu_torch.ops.bucket_kernel import (
     bucket_chunk,
     bucket_topk_entry,
     bucket_topk_hl,
+    first_topk,
     hamming_bits_rows,
     hamming_bucket_topk,
     hamming_mxu_topk,
@@ -68,7 +73,7 @@ from velesdb_tpu_torch.ops.bucket_kernel import (
     sq8pd_ptile,
     sq8pd_rerank_topk,
 )
-from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
+from velesdb_tpu_torch.ops.distance import DistanceMetric, binarize, normalize, set_scores
 from velesdb_tpu_torch.ops.pallas_kernels import hamming_topk
 from velesdb_tpu_torch.ops.quantization import (
     STORAGE_DTYPE,
@@ -80,10 +85,12 @@ from velesdb_tpu_torch.ops.quantization import (
     sq8_quantize,
 )
 from velesdb_tpu_torch.ops.streamed import sq8_streamed_topk, streamed_topk
+from velesdb_tpu_torch.ops.topk import DENSE_ELEMS, pad_mask
 
 __all__ = ["BruteForceIndex", "pad_rows", "state_from_jax"]
 
 _METRICS = (DistanceMetric.COSINE, DistanceMetric.EUCLIDEAN, DistanceMetric.DOT_PRODUCT)
+_SET_METRICS = (DistanceMetric.HAMMING, DistanceMetric.JACCARD)
 _FLOAT_MODES = (StorageMode.FULL, StorageMode.F16, StorageMode.BF16)
 _MODES = (*_FLOAT_MODES, StorageMode.SQ8, StorageMode.BINARY)
 
@@ -174,8 +181,13 @@ class BruteForceIndex:
         self.storage_mode = StorageMode.parse(storage_mode)
         if self.storage_mode not in _MODES:
             raise not_in_slice(f"storage_mode={self.storage_mode.value!r}")
-        if self.metric not in _METRICS:
-            raise not_in_slice(f"exact search with metric={self.metric.value!r}")
+        if self.metric not in _METRICS and not (
+            self.metric in _SET_METRICS and self.storage_mode in _FLOAT_MODES
+        ):
+            raise not_in_slice(
+                f"exact search with metric={self.metric.value!r} on "
+                f"storage_mode={self.storage_mode.value!r}"
+            )
         self.device = torch.device(device)
         self.n_pad = 0
         self._chunk = 0  # bucket_chunk(n_pad): the one chunk rule of #1/#7/#5
@@ -197,6 +209,9 @@ class BruteForceIndex:
         self._sq8_scale = None  # [N_pad] f32 (cosine: scale/|deq| folded)
         self._sq8_minv = None  # [N_pad] f32 (cosine: minv/|deq| folded)
         self._sq8_pen = None  # [N_pad] f32 additive penalty, +inf knocked out
+        # hamming / jaccard on float storage
+        self._set_bits = None  # [N_pad, D] f32 0/1 of the stored rows
+        self._set_count = None  # [N_pad] f32 ones a row
         # BINARY
         self._packed = None  # [N_pad, W] int32 words (uint32 bits)
         self._ham_bits = None  # [N_pad, D_pad] int8 0/1, while the budget allows
@@ -215,7 +230,12 @@ class BruteForceIndex:
         vmask[:used] = torch.from_numpy(np.array(valid, dtype=bool)).to(self.device)
         self._reset(n_pad, vmask)
         mode = self.storage_mode
-        if mode in _FLOAT_MODES:
+        if self.metric in _SET_METRICS:
+            # membership of the stored (possibly half-rounded) values, once;
+            # no search of these metrics reads the float rows
+            self._set_bits = binarize(x.to(STORAGE_DTYPE[mode]))
+            self._set_count = torch.sum(self._set_bits, dim=1)
+        elif mode in _FLOAT_MODES:
             if self.metric is DistanceMetric.COSINE:
                 # cosine is normalization-invariant: store rows pre-normalized
                 x = normalize(x)
@@ -257,8 +277,8 @@ class BruteForceIndex:
     def _reset(self, n_pad: int, valid: torch.Tensor) -> None:
         for name in ("_full_w", "_full", "_full_sqnorm", "_bucket_pen", "_full_hl", "_assist_pd",
                      "_pd_ptile", "_assist", "_sq8", "_sq_norm", "_sq8_rows8", "_sq8_words",
-                     "_sq8_scale", "_sq8_minv", "_sq8_pen", "_packed", "_ham_bits",
-                     "_ham_aux"):
+                     "_sq8_scale", "_sq8_minv", "_sq8_pen", "_set_bits", "_set_count",
+                     "_packed", "_ham_bits", "_ham_aux"):
             setattr(self, name, None)
         self.n_pad = n_pad
         self._chunk = bucket_chunk(n_pad)
@@ -295,6 +315,8 @@ class BruteForceIndex:
         an assist core). The single source of the dispatch rule for
         :meth:`search` and :meth:`serve_engine`."""
         mode, n_pad = self.storage_mode, self.n_pad
+        if self.metric in _SET_METRICS:
+            return "fused-xla", 0
         if mode in _FLOAT_MODES:  # reference ``:373-400``
             if self.dim >= 512:
                 return "streamed-scan", 0
@@ -330,17 +352,15 @@ class BruteForceIndex:
             torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         )
         k_eff = min(k, self.n_pad)
-        mask_dev = None
-        if mask is not None:
-            if not isinstance(mask, torch.Tensor):
-                mask = torch.from_numpy(np.asarray(mask, bool))
-            mask_dev = _pad_to(mask.to(self.device, torch.bool), self.n_pad)
+        mask_dev = pad_mask(mask, self.n_pad, self.device)
         engine, m = self._plan(k_eff)
         valid = self._valid if mask_dev is None else self._valid & mask_dev
 
         def knock(t, value):
             return t if mask_dev is None else torch.where(mask_dev, t, value)
 
+        if engine == "fused-xla":
+            return self._set_search(q, k_eff, valid)
         if engine == "int8-assist-pd":
             rows_pd, _, _, sdim, _, qu = self._assist_pd
             ptile = knock(self._pd_ptile, -64 * _pd_invalid_pen(self.dim))
@@ -402,10 +422,19 @@ class BruteForceIndex:
         return dist, idx
 
 
-def _pad_to(mask: torch.Tensor, n_pad: int) -> torch.Tensor:
-    if mask.shape[0] < n_pad:
-        mask = torch.cat([mask, mask.new_zeros(n_pad - mask.shape[0])])
-    return mask[:n_pad]
+    def _set_search(self, q: torch.Tensor, k: int, valid: torch.Tensor):
+        """``fused-xla``: exact hamming / jaccard top-k over the binarized
+        rows, in query slices of ``DENSE_ELEMS`` scores."""
+        hib = self.metric.higher_is_better
+        rows = max(1, DENSE_ELEMS // self.n_pad)
+        vals_out, idx_out = [], []
+        for r0 in range(0, q.shape[0], rows):
+            s = set_scores(q[r0 : r0 + rows], self._set_bits, self._set_count, self.metric)
+            s = torch.where(valid[None, :], s if hib else -s, -torch.inf)
+            vals, idx = first_topk(s, k)
+            vals_out.append(vals if hib else -vals)
+            idx_out.append(torch.where(vals == -torch.inf, -1, idx))
+        return torch.cat(vals_out), torch.cat(idx_out)
 
 
 def state_from_jax(arrays: dict, device) -> dict:

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-__all__ = ["DistanceMetric", "pairwise_scores", "normalize"]
+__all__ = ["DistanceMetric", "pairwise_scores", "normalize", "binarize", "set_scores"]
 
 
 class DistanceMetric(str, enum.Enum):
@@ -89,10 +89,23 @@ def pairwise_scores(
         cc = torch.sum(c * c, dim=-1)
         d2 = qq + cc[None, :] - 2.0 * (q @ c.T)
         return torch.sqrt(d2.clamp_min(0.0))
-    qa = (q > 0.5).float()
-    cb = (c > 0.5).float()
+    cb = binarize(c)
+    return set_scores(q, cb, torch.sum(cb, dim=-1), metric)
+
+
+def binarize(x: torch.Tensor) -> torch.Tensor:
+    """The 0/1 f32 rows of the set metrics: ``v > 0.5`` is membership."""
+    return (x.float() > 0.5).float()
+
+
+def set_scores(queries: torch.Tensor, cb: torch.Tensor, nb: torch.Tensor,
+               metric: DistanceMetric) -> torch.Tensor:
+    """Hamming distances or Jaccard similarities ``[B, N]`` of ``queries``
+    against binarized rows ``cb [N, D]`` (:func:`binarize`) with their
+    counts ``nb [N]``. Every count and product is an integer below 2^24, so
+    the f32 values are exact on every device."""
+    qa = binarize(queries)
     na = torch.sum(qa, dim=-1, keepdim=True)
-    nb = torch.sum(cb, dim=-1)
     inter = qa @ cb.T
     if metric is DistanceMetric.HAMMING:
         return na + nb[None, :] - 2.0 * inter

@@ -7,9 +7,28 @@ id ``-1`` with value ``-inf`` (similarity) or ``+inf`` (distance).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["top_k", "merge_top_k", "mask_scores"]
+__all__ = ["top_k", "merge_top_k", "mask_scores", "pad_mask", "DENSE_ELEMS"]
+
+# A dense [queries, slots] score matrix and its int64 select keys are built
+# for this many elements at a time; a larger batch runs in query slices (the
+# BM25 scores at b 256 x 2^20 slots would take 1 GiB, their keys 2 GiB).
+DENSE_ELEMS = 1 << 26
+
+
+def pad_mask(mask, n_pad: int, device):
+    """A host or device bool mask as a ``[n_pad]`` bool tensor on ``device``
+    (zero-padded or cut), or ``None``."""
+    if mask is None:
+        return None
+    if not isinstance(mask, torch.Tensor):
+        mask = torch.from_numpy(np.asarray(mask, bool))
+    mask = mask.to(device, torch.bool)[:n_pad]
+    if mask.shape[0] < n_pad:
+        mask = torch.cat([mask, mask.new_zeros(n_pad - mask.shape[0])])
+    return mask
 
 
 def mask_scores(scores: torch.Tensor, mask, higher_is_better: bool) -> torch.Tensor:
