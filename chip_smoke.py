@@ -210,6 +210,33 @@ Phases, in order; any failure exits nonzero:
    Host-clock times (p50 / p99, the
    device path, host share; ``text_search_batch`` at b 256) come before the
    phase's profiles (busy, idle share, the top six device operations).
+12. VelesQL and the knowledge graph (``velesql_kg_phase``, run inside phase
+   11 on its collections before the SQ8 one is deleted).
+   ``velesql-1m-128d`` (``hybrid-1m-128d``) through ``Database.query``, one
+   query a call: (a) ``vector NEAR $v LIMIT 10``, (b) the same ``AND price
+   < 50``, (c) (b) ``AND text MATCH`` the query's topic, (d) ``NEAR_FUSED
+   [$v, $w] USING FUSION rrf(k = 60)``, (e) ``text MATCH`` alone, (f)
+   ``SELECT text, COUNT(*), AVG(price) ... WHERE price < 2 GROUP BY text
+   ORDER BY n DESC``. (a) to (e) equal the direct ``Collection`` calls
+   (``search``, ``search_batch`` with the filter, ``hybrid_search`` at k 32
+   with half the fused score, ``multi_query_search`` at k 5, ``text_search``:
+   the same ids, scores within 1e-6), (f) a host count over the payloads;
+   (a) to (c) each launch #1 and every launch equals its plain version bit
+   for bit; EXPLAIN names the vector engine. (a) and (b) on
+   ``hybrid-sq8-262k`` launch #7 (held bit for bit) and equal ``search``
+   after the host rerank. ``kg-amazon0302-262k``: the SQ8 collection's
+   262,144 rows as nodes, ``KG_EDGES`` (1,234,877, SNAP amazon0302's edge
+   count) seeded ``also_bought`` edges (out-degrees Poisson(4.7) made to
+   sum to it, destinations 80% in the source's cluster); ``traverse`` to
+   depth 3 from 16 starts equals a host numpy BFS; a MATCH of 1..2 hops
+   with ``similarity(b, $v) > 0.5 ORDER BY s DESC LIMIT 10`` equals a
+   float64 host oracle over the reachable set (paths counted);
+   ``Database.match_query`` equals ``execute_match``; after flush, close
+   and reopen ``edges.npz`` gives the same rows; then 100 nodes are
+   deleted and their edges are gone. Host-clock p50 / p99 over 30 calls
+   (beside the direct call's p50), parse-cache hit and miss, the graph's
+   build, edge load, save / load, traverse and MATCH p50 and the 100
+   deletes come first; one profile of (a) and (c) (busy, idle share) last.
 Each configuration ends with its timing (CUDA events): QPS at b=256 and
 b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
 device path alone, the host share, then the profiler last: the device's
@@ -345,6 +372,11 @@ HYB_SQ8_N = 262_144
 HYB_QUERIES = 8_192
 SET_N = 100_000
 HYB_FILTER = {"type": "lt", "field": "price", "value": 50.0}
+# phase 12: kg-amazon0302-262k takes SNAP amazon0302's edge count (262,111
+# nodes, 1,234,877 edges) over hybrid-sq8-262k's 262,144 rows
+KG_EDGES = 1_234_877
+KG_MEAN_DEGREE = 4.7
+VQL_CALLS = 30  # host-clock calls a timed VelesQL query
 # exp_hybrid.py's VOCAB, copied: this script imports nothing from benchmarks/
 HYB_VOCAB = [
     "coffee", "espresso", "latte", "grinder", "roast", "bean", "cup",
@@ -1723,8 +1755,13 @@ def hybrid_phase(torch, dev, counters, launches, errs) -> None:
                 say(f"    {t:.4f} ms/call  {op[:100]}")
         del cells["hybrid-100k-768d"], cells["hybrid-sq8-262k"]
         db.delete_collection("hybrid-100k-768d")
-        db.delete_collection("hybrid-sq8-262k")
-        del col768, colsq
+        del col768
+        # phase 12 runs on this phase's 1M and SQ8 collections, then deletes
+        # the SQ8 one
+        phase("12. velesql-kg")
+        t_phase += velesql_kg_phase(torch, dev, counters, launches, errs, db, col, qv, qt,
+                                    colsq, qsq)
+        del colsq
 
         # -- the rest of the collection's surface on hybrid-1m-128d ----------
         name = "hybrid-1m-128d"
@@ -1850,6 +1887,329 @@ def hybrid_phase(torch, dev, counters, launches, errs) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     say(f"phase 11 hybrid: {time.perf_counter() - t_phase:.1f} s")
+
+
+def kg_edges(n, d):
+    """``kg-amazon0302-262k``'s edges over ``hybrid_data``'s rows: out-degrees
+    Poisson(KG_MEAN_DEGREE), made to sum to exactly KG_EDGES; each
+    destination in the source's cluster with probability 0.8, else uniform.
+    Returns ``(src, dst)``, sorted by source."""
+    rng0 = np.random.default_rng(42)
+    rng0.standard_normal((64, d))  # hybrid_data's draws up to its assignment
+    assign = rng0.integers(0, 64, n)
+    rng = np.random.default_rng(302)
+    deg = rng.poisson(KG_MEAN_DEGREE, n)
+    diff = KG_EDGES - int(deg.sum())
+    if diff > 0:
+        np.add.at(deg, rng.integers(0, n, diff), 1)
+    elif diff < 0:
+        np.subtract.at(deg, rng.choice(np.repeat(np.arange(n), deg), -diff, replace=False), 1)
+    src = np.repeat(np.arange(n), deg)
+    members = np.argsort(assign, kind="stable")
+    counts = np.bincount(assign, minlength=64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    c = assign[src]
+    local = members[starts[c] + (rng.random(src.size) * counts[c]).astype(np.int64)]
+    dst = np.where(rng.random(src.size) < 0.8, local, rng.integers(0, n, src.size))
+    return src, dst, np.concatenate([[0], np.cumsum(deg)])
+
+
+def host_bfs(indptr, nbr, start, depth):
+    """``{(node, depth)}`` of a breadth-first search over CSR arrays."""
+    seen = {int(start): 0}
+    frontier = np.array([start], np.int64)
+    for level in range(1, depth + 1):
+        if frontier.size == 0:
+            break
+        nxt = np.unique(np.concatenate([nbr[indptr[f]:indptr[f + 1]] for f in frontier]))
+        fresh = np.array([x for x in nxt.tolist() if x not in seen], np.int64)
+        for x in fresh.tolist():
+            seen[x] = level
+        frontier = fresh
+    return set(seen.items())
+
+
+def p50_p99(fn, calls):
+    """Host-clock milliseconds of ``fn(i)`` for ``i`` in ``calls`` (each
+    call reads its result back): ``(p50, p99)``."""
+    ms = []
+    for i in calls:
+        t0 = time.perf_counter()
+        fn(i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def velesql_kg_phase(torch, dev, counters, launches, errs, db, col, qv, qt, colsq, qsq) -> float:
+    """Phase 12, VelesQL and the knowledge graph, on phase 11's collections:
+    ``velesql-1m-128d`` (``hybrid-1m-128d``) and ``kg-amazon0302-262k``
+    (``hybrid-sq8-262k``'s rows as nodes). Deletes the SQ8 collection at
+    its end; returns the phase's seconds."""
+    from velesdb_tpu_torch import Database
+    from velesdb_tpu_torch.graph import EdgeStore
+    from velesdb_tpu_torch.ops import bucket_kernel as bk
+    from velesdb_tpu_torch.velesql import parse
+
+    t_phase = time.perf_counter()
+    k = K
+    big, sq8 = f'"{col.name}"', f'"{colsq.name}"'
+    sql = {
+        "a": f"SELECT * FROM {big} WHERE vector NEAR $v LIMIT 10",
+        "b": f"SELECT * FROM {big} WHERE vector NEAR $v AND price < 50 LIMIT 10",
+        "c": f"SELECT * FROM {big} WHERE vector NEAR $v AND price < 50 AND text MATCH $t LIMIT 10",
+        "d": f"SELECT * FROM {big} WHERE vector NEAR_FUSED [$v, $w] USING FUSION rrf(k = 60) "
+             f"LIMIT 10",
+        "e": f"SELECT * FROM {big} WHERE text MATCH $t LIMIT 10",
+        "f": f"SELECT text, COUNT(*) AS n, AVG(price) AS p FROM {big} WHERE price < 2 "
+             f"GROUP BY text ORDER BY n DESC",
+    }
+    params = lambda i: {"v": qv[i], "w": qv[i + 1], "t": qt[i]}  # noqa: E731
+
+    def same(rows, hits, scale=1.0, tol=1e-6):
+        return ([r["id"] for r in rows] == [h.id for h in hits]
+                and all(abs(r["score"] - scale * h.score) <= tol for r, h in zip(rows, hits)))
+
+    # the direct Collection call each of (a) to (e) must equal
+    direct = {
+        "a": lambda i: col.search(qv[i], k=k),
+        "b": lambda i: col.search_batch([qv[i]], k, filter=HYB_FILTER)[0],
+        # the executor fuses a 64-deep fetch with both RRF weights 1:
+        # hybrid_search at k 32 fetches 64 and weighs 0.5, half the score
+        "c": lambda i: col.hybrid_search(qv[i], qt[i], k=32, vector_weight=0.5,
+                                         filter=HYB_FILTER)[:k],
+        # NEAR_FUSED fetches 10 a vector and fuses to 10; multi_query_search
+        # at k 5 fetches the same 10 and keeps the first 5 of one fusion
+        "d": lambda i: col.multi_query_search([qv[i], qv[i + 1]], k=5),
+        "e": lambda i: col.text_search(qt[i], k=k),
+    }
+    scale = {"c": 2.0}
+
+    # -- velesql-1m-128d: each of (a) to (c) on #1, every launch held ----------
+    name = "velesql-1m-128d"
+    check(col._brute.serve_engine(k) == "int8-assist-pd", f"{name}: serve_engine")
+    got = {}
+    with MainPath(counters, bk, "sq8pd_bucket_gm", "sq8pd_bucket_gm") as run:
+        for q in "abcdef":
+            got[q] = [db.query(sql[q], params(i)) for i in range(4)]
+            if q in "abc":
+                run.launched(f"{name} ({q}) through Database.query")
+    launches["sq8pd_bucket"] += run.launches()
+    errs["sq8pd_bucket"] = max(errs["sq8pd_bucket"], run.hold_all(
+        lambda qi, rows, pt, ch: bk.sq8pd_bucket_gm_ref(qi, rows, pt, ch),
+        lambda qi, rows, pt, ch: (f"sq8pd_bucket B_pad {qi.shape[0]}, N {rows.shape[0]}, "
+                                  f"D_pad {rows.shape[1]}, chunk {ch} ({name})")))
+    print(f"{name}: {run.launches()} #1 launches over (a)-(f), 4 queries each, every one "
+          f"equal to its plain version", flush=True)
+    for q in "abcde":
+        for i, rows in enumerate(got[q]):
+            check(len(rows) == k, f"{name} ({q}): {len(rows)} rows")
+            want = direct[q](i)
+            rows = rows[: len(want)]
+            check(same(rows, want, scale.get(q, 1.0)),
+                  f"{name} ({q}) query {i}: rows differ from the direct Collection call")
+            check(q not in "bc" or all(r["payload"]["price"] < 50 for r in rows),
+                  f"{name} ({q}): the filter let a row through")
+    print(f"{name}: (a)-(e) through Database.query equal search, search_batch with the "
+          f"filter, hybrid_search, multi_query_search and text_search (ids; scores within "
+          f"1e-6)", flush=True)
+    groups = {}
+    for vid in range(col.count()):
+        p = col.payloads.retrieve(vid)
+        if p["price"] < 2:
+            groups.setdefault(p["text"], []).append(p["price"])
+    want = sorted(({"text": t, "n": len(v), "p": sum(v) / len(v)} for t, v in groups.items()),
+                  key=lambda r: -r["n"])
+    check(all(r == got["f"][0][j] for j, r in enumerate(want)) and len(want) == len(got["f"][0]),
+          f"{name} (f): GROUP BY differs from the host count over the payloads")
+    print(f"{name} (f): {len(want)} groups over {sum(r['n'] for r in want)} rows equal the "
+          f"host count over the payloads", flush=True)
+    plan = db.explain_query(sql["c"]).render()
+    check("VectorSearch" in plan and "engine=" in plan and "TextSearch" in plan,
+          f"{name}: EXPLAIN names no vector engine:\n{plan}")
+    print(f"{name} EXPLAIN (c):\n{plan}", flush=True)
+
+    # -- the SQ8 collection: NEAR on #7, then the host rerank -------------------
+    sq8_sql = {"a": f"SELECT * FROM {sq8} WHERE vector NEAR $v LIMIT 10",
+               "b": f"SELECT * FROM {sq8} WHERE vector NEAR $v AND price < 50 LIMIT 10"}
+    with MainPath(counters, bk, "sq8i_bucket_gm", "sq8i_bucket_gm") as run:
+        sq_rows = {}
+        for q in "ab":
+            sq_rows[q] = [db.query(sq8_sql[q], {"v": qsq[i]}) for i in range(4)]
+            run.launched(f"{colsq.name} ({q}) through Database.query")
+    n_sq8 = run.launches()
+    launches["sq8i_bucket"] += n_sq8
+    errs["sq8i_bucket"] = max(errs["sq8i_bucket"], run.hold_all(
+        bk.sq8i_bucket_ref,
+        lambda qi, rows, *rest: (f"sq8i_bucket B_pad {qi.shape[0]}, N {rows.shape[0]}, "
+                                 f"D_pad {rows.shape[1]}, chunk {rest[-1]} ({colsq.name})")))
+    for i in range(4):
+        check(same(sq_rows["a"][i], colsq.search(qsq[i], k=k)),
+              f"{colsq.name} (a): rows differ from search")
+        check(same(sq_rows["b"][i], colsq.search_batch([qsq[i]], k, filter=HYB_FILTER)[0]),
+              f"{colsq.name} (b): rows differ from search_batch with the filter")
+    print(f"{colsq.name}: (a) and (b) through Database.query launch #7 ({n_sq8} "
+          f"launches, each equal to its plain version) and equal search after the rerank",
+          flush=True)
+
+    # -- host-clock times, before any profile of this phase --------------------
+    calls = range(VQL_CALLS)
+    for q in "abcdef":
+        p50, p99 = p50_p99(lambda i: db.query(sql[q], params(i)), calls)
+        line = f"{name} ({q}) Database.query: p50 {p50:.3f} ms, p99 {p99:.3f} ms"
+        if q in direct:
+            d50, _ = p50_p99(direct[q], calls)
+            line += (f"; the direct Collection call p50 {d50:.3f} ms (parser and executor "
+                     f"{p50 - d50:.3f} ms)")
+        say(line + f" over {VQL_CALLS} calls, one query a call")
+    for q in "ab":
+        p50, p99 = p50_p99(lambda i: db.query(sq8_sql[q], {"v": qsq[i]}), calls)
+        d50, _ = p50_p99(lambda i: colsq.search(qsq[i], k=k) if q == "a" else
+                         colsq.search_batch([qsq[i]], k, filter=HYB_FILTER), calls)
+        say(f"{colsq.name} ({q}) Database.query: p50 {p50:.3f} ms, p99 {p99:.3f} ms; direct "
+            f"p50 {d50:.3f} ms over {VQL_CALLS} calls")
+    n_parse = 2000
+    t0 = time.perf_counter()
+    for _ in range(n_parse):
+        parse(sql["c"])
+    miss = (time.perf_counter() - t0) / n_parse * 1e3
+    t0 = time.perf_counter()
+    for _ in range(n_parse):
+        db.query_cache.parse(sql["c"])
+    hit = (time.perf_counter() - t0) / n_parse * 1e3
+    say(f"VelesQL parse of (c): cache miss (the parser) {miss:.4f} ms, cache hit {hit:.4f} ms "
+        f"(mean of {n_parse})")
+
+    # -- kg-amazon0302-262k -----------------------------------------------------
+    name = "kg-amazon0302-262k"
+    n = colsq.count()
+    t0 = time.perf_counter()
+    graph = colsq.ensure_graph()
+    say(f"{name}: ensure_graph over {n:,} payloads {time.perf_counter() - t0:.2f} s")
+    src, dst, indptr = kg_edges(n, HYB_D)
+    t0 = time.perf_counter()
+    for s, t in zip(src.tolist(), dst.tolist()):
+        colsq.add_edge(s, t, "also_bought")
+    say(f"{name}: add_edge x {src.size:,} (SNAP amazon0302's edge count, mean out-degree "
+        f"{src.size / n:.4f}) {time.perf_counter() - t0:.2f} s")
+    check(len(graph.edges) == KG_EDGES, f"{name}: {len(graph.edges)} edges")
+    rng = np.random.default_rng(12)
+    starts = rng.integers(0, n, 32)
+    for s in starts[:16].tolist():
+        got_t = {(node, depth) for node, depth, _ in colsq.traverse(s, max_depth=3)}
+        check(got_t == host_bfs(indptr, dst, s, 3),
+              f"{name}: traverse from {s} differs from the host BFS")
+    print(f"{name}: traverse to depth 3 from 16 starts = a host numpy BFS over the same "
+          f"edge arrays", flush=True)
+    texts = {vid: p["text"] for vid, p in colsq.payloads.payloads.items()}
+    vecs = colsq.vectors
+    match = ("MATCH (a {text: $t})-[:also_bought*1..2]->(b) WHERE similarity(b, $v) > 0.5 "
+             "RETURN b.id AS id, similarity(b, $v) AS s ORDER BY s DESC LIMIT 10")
+
+    def match_oracle(s0):
+        t = texts[s0]
+        paths = {}
+        for a in (vid for vid, tx in texts.items() if tx == t):
+            for x in dst[indptr[a]:indptr[a + 1]].tolist():
+                paths[x] = paths.get(x, 0) + 1
+                for y in dst[indptr[x]:indptr[x + 1]].tolist():
+                    paths[y] = paths.get(y, 0) + 1
+        ids = sorted(paths)
+        v64 = vecs.retrieve(s0).astype(np.float64)
+        m64 = np.stack([vecs.retrieve(b) for b in ids]).astype(np.float64)
+        s64 = m64 @ v64 / (np.linalg.norm(m64, axis=1) * np.linalg.norm(v64))
+        rows = sorted(((b, s) for b, s in zip(ids, s64.tolist()) if s > 0.5),
+                      key=lambda r: -r[1])
+        return [r for r in rows for _ in range(paths[r[0]])][:k], dict(zip(ids, s64.tolist()))
+
+    s0 = int(starts[0])
+    mp = {"t": texts[s0], "v": vecs.retrieve(s0)}
+    rows = colsq.execute_match(match, mp)
+    want, s64 = match_oracle(s0)
+    check(len(rows) == len(want) == k, f"{name}: MATCH {len(rows)} rows, oracle {len(want)}")
+    check(all(abs(r["s"] - s64[r["id"]]) <= 1e-5 and s64[r["id"]] > 0.5 - 1e-5
+              and (r["id"] == w[0] or abs(r["s"] - w[1]) <= 1e-5)
+              for r, w in zip(rows, want)),
+          f"{name}: MATCH rows differ from the float64 host oracle:\n{rows}\n{want}")
+    check(db.match_query(colsq.name, match, mp) == rows,
+          f"{name}: Database.match_query differs from execute_match")
+    print(f"{name}: MATCH 1..2 hops from {sum(t == mp['t'] for t in texts.values())} starts "
+          f"with similarity > 0.5 = the float64 host oracle over the reachable set; "
+          f"Database.match_query = execute_match", flush=True)
+    p50, p99 = p50_p99(lambda i: colsq.traverse(int(starts[i]), max_depth=3), range(32))
+    say(f"{name}: traverse depth 3 p50 {p50:.3f} ms, p99 {p99:.3f} ms over 32 starts")
+    p50, p99 = p50_p99(lambda i: colsq.execute_match(match, {"t": texts[int(starts[i])],
+                                                             "v": vecs.retrieve(int(starts[i]))}),
+                       range(VQL_CALLS))
+    say(f"{name}: MATCH p50 {p50:.3f} ms, p99 {p99:.3f} ms over {VQL_CALLS} calls")
+
+    # -- flush, close, reopen: the same rows from edges.npz --------------------
+    scratch = os.path.join(db.path, "edges_timing.npz")
+    t0 = time.perf_counter()
+    graph.edges.save(scratch)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    EdgeStore.load(scratch)
+    t_load = time.perf_counter() - t0
+    say(f"{name}: edges.npz save {t_save:.2f} s ({os.path.getsize(scratch) / 2**20:.1f} MiB), "
+        f"load {t_load:.2f} s")
+    os.remove(scratch)
+    reach = {s: colsq.traverse(s, max_depth=3) for s in starts[:4].tolist()}
+    sq_name = colsq.name
+    t0 = time.perf_counter()
+    colsq.flush()
+    colsq.close()
+    db._collections.pop(sq_name)  # closed: the reopened copy below owns the files
+    db2 = Database(db.path, device=DEVICE)
+    col2 = db2.get_collection(sq_name)
+    col2.ensure_graph()
+    say(f"{name}: flush + close + reopen + ensure_graph {time.perf_counter() - t0:.2f} s")
+    check(col2.execute_match(match, mp) == rows, f"{name}: MATCH after reopen differs")
+    check(all(col2.traverse(s, max_depth=3) == r for s, r in reach.items()),
+          f"{name}: traverse after reopen differs")
+    print(f"{name}: after flush, close and reopen, edges.npz gives the same MATCH rows and "
+          f"traversals", flush=True)
+
+    # -- delete 100 nodes with edges -------------------------------------------
+    gone = rng.choice(n, 100, replace=False)
+    touch = np.isin(src, gone) | np.isin(dst, gone)
+    walk = [0.0]
+    remove = col2.graph.edges.remove_node_edges
+
+    def timed_remove(node, _remove=remove):
+        t = time.perf_counter()
+        out = _remove(node)
+        walk[0] += time.perf_counter() - t
+        return out
+
+    col2.graph.edges.remove_node_edges = timed_remove
+    t0 = time.perf_counter()
+    for vid in gone.tolist():
+        col2.delete(vid)
+    t_del = time.perf_counter() - t0
+    del col2.graph.edges.remove_node_edges
+    check(len(col2.graph.edges) == KG_EDGES - int(touch.sum())
+          and all(col2.degree(int(v), "out") + col2.degree(int(v), "in") == 0 for v in gone),
+          f"{name}: deleting 100 nodes left {len(col2.graph.edges)} edges")
+    say(f"{name}: delete of 100 nodes ({int(touch.sum())} edges) {t_del * 1e3:.1f} ms, "
+        f"remove_node_edges {walk[0] * 1e3:.1f} ms of it")
+    db2.delete_collection(sq_name)
+
+    # -- profiles last: busy and idle share of (a) and (c) ---------------------
+    for q in "ac":
+        p50, _ = p50_p99(lambda i: db.query(sql[q], params(i)), range(8, 8 + VQL_CALLS))
+        busy, top = device_profile(torch, lambda i: db.query(sql[q], params(i)),
+                                   list(range(40, 48)), top=4)
+        if busy <= 0.0:
+            print(f"velesql-1m-128d ({q}): device busy not measured (no device events)",
+                  flush=True)
+            continue
+        say(f"velesql-1m-128d ({q}) Database.query: device busy {busy:.4f} ms/call, idle share "
+            f"{1.0 - busy / p50:.3f} against its p50 {p50:.3f} ms (torch.profiler over 8 calls)")
+        for op, t in top:
+            say(f"    {t:.4f} ms/call  {op[:100]}")
+    seconds = time.perf_counter() - t_phase
+    say(f"phase 12 velesql-kg: {seconds:.1f} s")
+    return seconds
 
 
 def unit64(torch, x, dev):

@@ -36,8 +36,15 @@ index builds at the first :meth:`Collection.like_mask`. Hybrid search fuses
 the vector branch (the engine a search would take) and BM25 with weighted
 RRF on the device (:func:`~velesdb_tpu_torch.ops.fused_rrf.rrf_fuse_topk`),
 except on quantized collections with the auto-rerank, which fuse the two
-reranked host lists. VelesQL and the
-knowledge-graph methods raise ``NotImplementedError`` (ROADMAP.md).
+reranked host lists. VelesQL (:mod:`velesdb_tpu_torch.velesql`) runs
+on these searches.
+
+The knowledge graph (:attr:`Collection.graph`, a
+:class:`~velesdb_tpu_torch.graph.CollectionGraph`) is separate from the ANN
+graph (:attr:`Collection.ann`): typed edges between row ids and label and
+property indexes over the payloads, built at the first graph call from the
+payload log and ``edges.npz`` and kept in step with every upsert and delete
+from then on; MATCH queries and BFS traversals run on it.
 """
 
 from __future__ import annotations
@@ -52,10 +59,11 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from velesdb_tpu_torch import graph as kg
 from velesdb_tpu_torch.cache import SearchResultCache
 from velesdb_tpu_torch.column.store import ColumnStore
 from velesdb_tpu_torch.fusion import FusionStrategy, weighted_rrf
-from velesdb_tpu_torch.index.brute import BruteForceIndex, not_in_slice
+from velesdb_tpu_torch.index.brute import BruteForceIndex
 from velesdb_tpu_torch.index.graph_index import GraphIndex
 from velesdb_tpu_torch.index.ivf import IvfIndex
 from velesdb_tpu_torch.index.ivf import stage_mark as _mark
@@ -103,16 +111,6 @@ class SearchResult(dict):
     @property
     def payload(self):
         return self["payload"]
-
-
-def _later(name: str, area: str):
-    """A method of the reference that this package does not serve yet."""
-
-    def method(self, *args, **kwargs):
-        raise not_in_slice(f"Collection.{name} ({area})")
-
-    method.__name__ = name
-    return method
 
 
 class Collection:
@@ -191,6 +189,8 @@ class Collection:
         self._last_ttl_flush = 0.0
         self._auto_vacuum: dict | None = None
         self._last_auto_vacuum = 0.0
+        # the knowledge graph, built at the first graph call (ensure_graph)
+        self.graph = None
 
     @property
     def index_kind(self) -> str:
@@ -285,6 +285,8 @@ class Collection:
                 self.columns.upsert_row(slot, payload)
             if self._text_built:
                 self._index_text(slot, payload)
+            if self.graph is not None:
+                self.graph.index_node(int(vid), payload)
             if ttl is not None:
                 self._ttl[int(vid)] = time.time() + ttl
                 self._ttl_dirty = True
@@ -324,6 +326,9 @@ class Collection:
             if self._text_built:
                 for i, slot in enumerate(slots):
                     self._index_text(slot, payloads[i] if payloads is not None else None)
+            if self.graph is not None:
+                for i, vid in enumerate(ids):
+                    self.graph.index_node(vid, payloads[i] if payloads is not None else None)
             if ttl is not None:
                 expiry = time.time() + ttl
                 for vid in ids:
@@ -354,6 +359,8 @@ class Collection:
                     self.text_index.remove_document(slot)
                     if self.trigram_index is not None:
                         self.trigram_index.remove_document(slot)
+                if self.graph is not None:
+                    self.graph.remove_node(int(vid))
                 self._on_mutation([int(vid)], slots=[slot])
             return existed
 
@@ -1210,16 +1217,55 @@ class Collection:
         used = max(self.vectors.used_slots, 1)
         return self.trigram_index.match_mask(pattern, used, case_insensitive=case_insensitive)
 
-    # -- not in this slice (ROADMAP.md) -------------------------------------
+    # -- knowledge graph ---------------------------------------------------------
 
-    ensure_graph = _later("ensure_graph", "knowledge graph")
-    add_node = _later("add_node", "knowledge graph")
-    add_edge = _later("add_edge", "knowledge graph")
-    get_edges = _later("get_edges", "knowledge graph")
-    neighbors = _later("neighbors", "knowledge graph")
-    degree = _later("degree", "knowledge graph")
-    traverse = _later("traverse", "knowledge graph")
-    execute_match = _later("execute_match", "knowledge graph")
+    def ensure_graph(self):
+        """The knowledge graph, built at the first call: node indexes from the
+        payloads of the live rows, edges from ``edges.npz``."""
+        if self.graph is None:
+            g = kg.CollectionGraph()
+            g.load_edges(self.path)
+            for vid, payload in self.payloads.payloads.items():
+                if vid in self.vectors.id_to_slot:
+                    g.index_node(vid, payload)
+            self.graph = g
+        return self.graph
+
+    def add_node(self, node_id: int, labels=(), properties: dict | None = None,
+                 vector=None) -> None:
+        """Insert a graph node: payload = properties + reserved ``_labels``;
+        the vector defaults to zeros (graph-only nodes still hold a slot)."""
+        payload = dict(properties or {})
+        payload[kg.LABELS_KEY] = list(labels)
+        vec = np.zeros(self.dim, np.float32) if vector is None else np.asarray(vector, np.float32)
+        self.upsert(node_id, vec, payload)
+
+    def add_edge(self, src: int, dst: int, label: str, properties: dict | None = None) -> int:
+        g = self.ensure_graph()
+        for node in (src, dst):
+            if int(node) not in self.vectors.id_to_slot:
+                raise KeyError(f"node {node} not found")
+        return g.edges.add_edge(src, dst, label, properties)
+
+    def get_edges(self, node: int, direction: str = "out", label: str | None = None):
+        return self.ensure_graph().edges.edges_of(node, direction, label)
+
+    def neighbors(self, node: int, direction: str = "out", label: str | None = None):
+        return self.ensure_graph().edges.neighbors(node, direction, label)
+
+    def degree(self, node: int, direction: str = "out") -> int:
+        return self.ensure_graph().edges.degree(node, direction)
+
+    def traverse(self, start: int, max_depth: int = 3, direction: str = "out",
+                 label: str | None = None):
+        """BFS from ``start``: ``[(node, depth, path_edge_ids)]`` in BFS order,
+        within the traversal guardrails."""
+        return kg.traverse(self.ensure_graph().edges, start, direction=direction, label=label,
+                         max_depth=max_depth)
+
+    def execute_match(self, match_text: str, params: dict | None = None):
+        """Cypher-ish MATCH over this collection."""
+        return kg.execute_match(self, match_text, params)
 
     # -- durability --------------------------------------------------------
 
@@ -1228,10 +1274,14 @@ class Collection:
             self.vectors.flush()
             self.payloads.flush()
             self._flush_ttl()
+            if self.graph is not None:
+                self.graph.save(self.path)
 
     def close(self) -> None:
         with self._lock:
             self._flush_ttl()
+            if self.graph is not None:
+                self.graph.save(self.path)
             self.vectors.close()
             self.payloads.close()
 

@@ -5,7 +5,8 @@ create_collection / get_collection / list_collections / delete_collection /
 load_collections``). Each collection is a subdirectory with its own
 ``config.json`` and storage files, in the reference package's format, so a
 directory written by either package opens in the other. Every collection of
-a database lives on the database's ``device``.
+a database lives on the database's ``device``. VelesQL (``query``,
+``explain_query``) and MATCH (``match_query``) run on its collections.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ import shutil
 import threading
 
 from velesdb_tpu_torch.collection import Collection, CollectionType
-from velesdb_tpu_torch.index.brute import not_in_slice
 from velesdb_tpu_torch.ops.distance import DistanceMetric
 from velesdb_tpu_torch.ops.quantization import StorageMode
+from velesdb_tpu_torch.velesql import QueryCache, execute, explain
 
 __all__ = ["Database"]
 
@@ -31,6 +32,7 @@ class Database:
         os.makedirs(self.path, exist_ok=True)
         self._collections: dict[str, Collection] = {}
         self._lock = threading.RLock()
+        self._query_cache = None  # VelesQL parse cache, made at the first query
 
     @classmethod
     def open(cls, path: str, device="cuda") -> "Database":
@@ -128,14 +130,26 @@ class Database:
             loaded.append(name)
         return loaded
 
-    def query(self, velesql: str, params: dict | None = None):
-        raise not_in_slice("Database.query (VelesQL)")
+    # -- VelesQL and MATCH --------------------------------------------------------
 
-    def match_query(self, collection: str, match_text: str, params: dict | None = None):
-        raise not_in_slice("Database.match_query (knowledge graph)")
+    @property
+    def query_cache(self) -> QueryCache:
+        if self._query_cache is None:
+            self._query_cache = QueryCache()
+        return self._query_cache
+
+    def query(self, velesql: str, params: dict | None = None) -> list[dict]:
+        """Parse (cached) and execute a VelesQL query; rows as dicts."""
+        return execute(self, self.query_cache.parse(velesql), params)
+
+    def match_query(self, collection: str, match_text: str,
+                    params: dict | None = None) -> list[dict]:
+        """MATCH graph query against one collection."""
+        return self.get_collection(collection).execute_match(match_text, params)
 
     def explain_query(self, velesql: str):
-        raise not_in_slice("Database.explain_query (VelesQL)")
+        """Query plan tree (:func:`~velesdb_tpu_torch.velesql.explain`)."""
+        return explain(self.query_cache.parse(velesql), db=self)
 
     def close(self) -> None:
         with self._lock:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import enum
 import math
 
+import numpy as np
 import torch
 
 __all__ = ["DistanceMetric", "pairwise_scores", "normalize", "binarize", "set_scores"]
@@ -91,6 +92,15 @@ def pairwise_scores(
         return torch.sqrt(d2.clamp_min(0.0))
     cb = binarize(c)
     return set_scores(q, cb, torch.sum(cb, dim=-1), metric)
+
+
+def pairwise_scores_np(queries: np.ndarray, corpus: np.ndarray, metric: DistanceMetric,
+                       device) -> np.ndarray:
+    """:func:`pairwise_scores` of host rows, computed on ``device`` and read
+    back once as a ``[B, N]`` f32 array."""
+    q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(device)
+    c = torch.from_numpy(np.ascontiguousarray(corpus, np.float32)).to(device)
+    return pairwise_scores(q, c, metric).cpu().numpy()
 
 
 def binarize(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,25 @@
-"""VelesQL: so far only the query planner (``planner.py``).
+"""VelesQL: SQL dialect over vectors + text + columns (+ graph MATCH).
 
-The parser, AST, executor, cache and EXPLAIN modules of
-``velesdb_tpu/velesql/`` are not ported yet (ROADMAP.md, queue 5), so this
-package imports nothing on its own.
+Parser, AST, executor, cache, EXPLAIN and the query planner
+(``planner.py``): the counterpart of ``velesdb_tpu/velesql/``. The parsers
+are recursive descent over the reference's grammars and need no parser
+library.
 """
+
+from velesdb_tpu_torch.velesql.ast import Query, SelectStatement, SetOp
+from velesdb_tpu_torch.velesql.cache import QueryCache
+from velesdb_tpu_torch.velesql.executor import QueryError, execute
+from velesdb_tpu_torch.velesql.explain import explain
+from velesdb_tpu_torch.velesql.parser import ParseError, parse
+
+__all__ = [
+    "parse",
+    "execute",
+    "explain",
+    "Query",
+    "SelectStatement",
+    "SetOp",
+    "QueryCache",
+    "ParseError",
+    "QueryError",
+]
