@@ -237,6 +237,33 @@ Phases, in order; any failure exits nonzero:
    (beside the direct call's p50), parse-cache hit and miss, the graph's
    build, edge load, save / load, traverse and MATCH p50 and the 100
    deletes come first; one profile of (a) and (c) (busy, idle share) last.
+13. The serving surfaces, ``serve-1m-128d`` (``serve_phase``, run at the end
+   of phase 11, after its ``db.close()``): phase 11's hybrid-1m-128d
+   directory (after its TTL rows and ``vacuum``) reopened through the REST
+   server's ``make_server`` on the default device, with
+   ``VELESDB_BATCH_WINDOW_MS`` = 2. A burst of 26 mixed requests at the
+   freshly reopened collection, every lazy build still ahead (the device
+   refresh, BM25, the columns), equals the same calls made directly on
+   ``httpd.app.db`` afterwards. Then a child process that uses only the
+   standard library sends 1,024 held-out single-query ``/search`` requests
+   (k 10) from 256 threads, 4 each on one warmed persistent connection, once
+   through the micro-batcher (window 2 ms) and once with the window at 0:
+   every answer 200 and equal to the direct ``search_batch`` (ids; scores
+   within 1e-6; near-tie swaps counted), the batcher coalescing (``batches <
+   requests``), recall@10 >= 0.95 against the float64 oracle. ``/search/batch``
+   (b 256, 16), ``/query`` (NEAR, and with ``price < 50``) and
+   ``/search/hybrid`` equal ``search_batch``, ``Database.query`` and
+   ``hybrid_search``; ``GET /collections/{n}`` reports a CUDA device;
+   ``/metrics`` holds ``http_requests_total`` and the ``microbatch_*``
+   gauges. Every #1 launch of these steps equals its plain version bit for
+   bit. ``python -m velesdb_tpu_torch.cli`` create / import (10,000 rows) /
+   query / migrate and ``python -m velesdb_tpu_torch.server`` run as child
+   processes on their default device (CUDA, checked) and answer as the
+   in-process search does. Host-clock numbers (HTTP ``/search`` p50 / p99 and
+   the request rate at both windows against the direct ``search``;
+   ``/search/batch`` p50 at b 256 and 16 against ``search_batch``; the JSON
+   encode share; the reopen and the first hybrid request) come before the
+   phase's one profile: a coalesced dispatch's busy time and idle share.
 Each configuration ends with its timing (CUDA events): QPS at b=256 and
 b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
 device path alone, the host share, then the profiler last: the device's
@@ -377,6 +404,14 @@ HYB_FILTER = {"type": "lt", "field": "price", "value": 50.0}
 KG_EDGES = 1_234_877
 KG_MEAN_DEGREE = 4.7
 VQL_CALLS = 30  # host-clock calls a timed VelesQL query
+# phase 13, serve-1m-128d: 256 client threads x 4 single-query /search requests
+# over the held-out queries qv[SERVE_Q0:SERVE_Q0 + 1024] (no earlier phase reads
+# them), the micro-batcher's window; the entry points' directory
+SERVE_THREADS, SERVE_PER_THREAD = 256, 4
+SERVE_Q0 = 4096
+SERVE_WINDOW_MS = "2"
+CLI_ROWS = 10_000
+HTTP_TIMEOUT = 120
 # exp_hybrid.py's VOCAB, copied: this script imports nothing from benchmarks/
 HYB_VOCAB = [
     "coffee", "espresso", "latte", "grinder", "roast", "bean", "cup",
@@ -1849,9 +1884,12 @@ def hybrid_phase(torch, dev, counters, launches, errs) -> None:
                   for a, b in zip(res, before)),
               f"{name}: the search after vacuum differs from the search before the TTL rows")
         check(rec >= 0.95, f"{name}: recall@10 after vacuum {rec:.4f} < 0.95")
-        del corpus, corpus64
-        db.delete_collection("hybrid-1m-128d")
-        del col, cells
+        # phase 13 serves this directory: the float64 oracle of its held-out
+        # queries over the survivors, before the corpus goes
+        n_serve = SERVE_THREADS * SERVE_PER_THREAD
+        serve_oi = oracle_topk(torch, corpus64, qv[SERVE_Q0 : SERVE_Q0 + n_serve], "cosine",
+                               k)[1]
+        del corpus, corpus64, col, cells
 
         # -- exact hamming and jaccard at 100,000 x 128 ----------------------
         x = make_clustered(np.random.default_rng(7), SET_N + 64, 128)
@@ -1882,6 +1920,12 @@ def hybrid_phase(torch, dev, counters, launches, errs) -> None:
                   f"with tied scores in their top 10)", flush=True)
             db.delete_collection(f"set_{metric}")
         db.close()
+        cm.rrf_fuse_topk = rrf
+        torch.cuda.empty_cache()
+
+        # -- 13. the serving surfaces on this phase's directory ----------------
+        phase("13. serve")
+        t_phase += serve_phase(torch, counters, launches, errs, tmp, qv, qt, serve_oi)
     finally:
         cm.rrf_fuse_topk = rrf
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2209,6 +2253,504 @@ def velesql_kg_phase(torch, dev, counters, launches, errs, db, col, qv, qt, cols
             say(f"    {t:.4f} ms/call  {op[:100]}")
     seconds = time.perf_counter() - t_phase
     say(f"phase 12 velesql-kg: {seconds:.1f} s")
+    return seconds
+
+
+# phase 13's load client, written beside the data and run in a child process:
+# the standard library only, one persistent connection a thread, every
+# connection opened and warmed before the timed window
+SEARCH_CLIENT = r'''
+import http.client, json, sys, threading, time
+
+host, port, path, qfile, n_threads, per, k, out = sys.argv[1:9]
+port, n_threads, per, k = int(port), int(n_threads), int(per), int(k)
+with open(qfile) as f:
+    bodies = [json.dumps({"vector": q, "k": k}).encode() for q in json.load(f)]
+results, errors = [None] * (n_threads * per), []
+go = threading.Barrier(n_threads + 1)
+
+
+def worker(t, conn):
+    go.wait(timeout=300)
+    try:
+        for j in range(per):
+            i = t * per + j
+            t0 = time.perf_counter()
+            conn.request("POST", path, body=bodies[i],
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            results[i] = (resp.status, time.perf_counter() - t0, data.decode())
+    except Exception as e:
+        errors.append(f"thread {t}: {e!r}")
+    finally:
+        conn.close()
+
+
+# connect and warm one connection at a time: the server's listen backlog is 5,
+# and connects faster than its accept loop would wait on dropped SYNs (a
+# 1 s retransmit each); a round trip per connection proves it accepted
+t_warm = time.perf_counter()
+conns = []
+for t in range(n_threads):
+    conn = http.client.HTTPConnection(host, port, timeout=120)
+    conn.request("GET", "/health")
+    resp = conn.getresponse()
+    resp.read()
+    if resp.status != 200:
+        errors.append(f"connection {t} warm-up answered {resp.status}")
+    conns.append(conn)
+t_warm = time.perf_counter() - t_warm
+threads = [threading.Thread(target=worker, args=(t, conns[t])) for t in range(n_threads)]
+for t in threads:
+    t.start()
+go.wait(timeout=300)
+t0 = time.perf_counter()
+for t in threads:
+    t.join(timeout=300)
+wall = time.perf_counter() - t0
+with open(out, "w") as f:
+    json.dump({"warm_s": t_warm, "wall_s": wall, "errors": errors,
+               "alive": sum(t.is_alive() for t in threads), "results": results}, f)
+'''
+
+
+def tie_agree(got, want, tol=1e-6):
+    """``got`` against ``want``, two ranked ``[(id, score)]`` lists: None if
+    they disagree, 0 if the ids are equal (scores within ``tol``), 1 for a
+    near-tie swap: the scores agree position by position and ids differ only
+    inside runs of scores within ``tol`` of each other (the last run may
+    reach past k)."""
+    if len(got) != len(want) or any(abs(g[1] - w[1]) > tol for g, w in zip(got, want)):
+        return None
+    if [g[0] for g in got] == [w[0] for w in want]:
+        return 0
+    start = 0
+    for end in range(1, len(want) + 1):
+        if end == len(want) or abs(want[end][1] - want[end - 1][1]) > tol:
+            if end != len(want) and ({g[0] for g in got[start:end]}
+                                     != {w[0] for w in want[start:end]}):
+                return None
+            start = end
+    return 1
+
+
+def pairs(rows):
+    """``[(id, score)]`` of hits, hydrated or decoded from JSON."""
+    return [(int(h["id"]), float(h["score"])) for h in rows]
+
+
+def serve_phase(torch, counters, launches, errs, tmp, qv, qt, o_ids) -> float:
+    """Phase 13, ``serve-1m-128d``: phase 11's hybrid-1m-128d directory
+    (1,000,000 x 128 cosine FULL, after its TTL rows and ``vacuum``) reopened
+    through ``make_server`` on the default device, driven over HTTP; then the
+    CLI and the server as child processes on a 10,000-row directory.
+    ``o_ids`` are the float64 oracle's top-10 ids of the 1,024 held-out
+    queries ``qv[SERVE_Q0:]``. Host-clock numbers come before the phase's one
+    profile; returns the phase's seconds."""
+    import http.client
+    import socket
+    import threading
+
+    from velesdb_tpu_torch import Database
+    from velesdb_tpu_torch.ops import bucket_kernel as bk
+    from velesdb_tpu_torch.server.app import _json_default, make_server
+
+    t_phase = time.perf_counter()
+    name, cname, k = "serve-1m-128d", "hybrid-1m-128d", K
+    n_req = SERVE_THREADS * SERVE_PER_THREAD
+    Q, T = qv[SERVE_Q0 : SERVE_Q0 + n_req], qt[SERVE_Q0 : SERVE_Q0 + n_req]
+    here = os.path.dirname(os.path.abspath(__file__))
+    table = f'"{cname}"'
+    sql = {"a": f"SELECT * FROM {table} WHERE vector NEAR $v LIMIT 10",
+           "b": f"SELECT * FROM {table} WHERE vector NEAR $v AND price < 50 LIMIT 10"}
+    route = f"/collections/{cname}"
+    n_swaps = {}
+
+    def held(run, what):
+        """Every recorded #1 launch against its plain version, bit for bit
+        (one summary line, not a line a launch)."""
+        def quiet(label, qi, rows, pt, ch, out):
+            ref = bk.sq8pd_bucket_gm_ref(qi, rows, pt, ch)
+            check(out.shape == ref.shape and out.dtype == ref.dtype and torch.equal(out, ref),
+                  f"{label}: kernel != plain version (max |err| {max_err(out, ref)})")
+            return 0.0
+
+        n = run.launches()
+        launches["sq8pd_bucket"] += n
+        errs["sq8pd_bucket"] = max(errs["sq8pd_bucket"], run.hold_all(
+            None, lambda qi, rows, pt, ch: (f"sq8pd_bucket B_pad {qi.shape[0]}, "
+                                            f"N {rows.shape[0]} ({name} {what})"), quiet))
+        print(f"{name} {what}: {n} #1 launches, each equal to its plain version bit for bit",
+              flush=True)
+
+    def agree(got, want, what):
+        """Each returned row against its direct call's (ids; scores within
+        1e-6); near-tie swaps are counted under ``what`` and printed."""
+        check(len(got) == len(want), f"{name} {what}: {len(got)} rows, {len(want)} expected")
+        for i, (g, w) in enumerate(zip(got, want)):
+            r = tie_agree(pairs(g), pairs(w))
+            check(r is not None, f"{name} {what} row {i}: {pairs(g)} != {pairs(w)}")
+            n_swaps[what] = n_swaps.get(what, 0) + r
+
+    def request(conn, method, path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json"} if data else {})
+        resp = conn.getresponse()
+        raw = resp.read()
+        out = (json.loads(raw) if "json" in (resp.getheader("Content-Type") or "")
+               else raw.decode())
+        return resp.status, out
+
+    def ok(got, what):
+        status, body = got
+        check(status == 200, f"{name} {what}: HTTP {status}: {str(body)[:300]}")
+        return body
+
+    old_window = os.environ.get("VELESDB_BATCH_WINDOW_MS")
+    os.environ["VELESDB_BATCH_WINDOW_MS"] = SERVE_WINDOW_MS
+    t0 = time.perf_counter()
+    httpd = make_server(tmp, host="127.0.0.1", port=0)
+    t_reopen = time.perf_counter() - t0
+    if old_window is None:
+        del os.environ["VELESDB_BATCH_WINDOW_MS"]
+    else:
+        os.environ["VELESDB_BATCH_WINDOW_MS"] = old_window
+    app = httpd.app
+    host, port = httpd.server_address[:2]
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    opened = []
+    try:
+        col = app.db.get_collection(cname)
+        info = col.info()
+        check(info["device"].startswith("cuda") and info["count"] == HYB_N,
+              f"{name}: reopened collection {info}")
+        check(app.batch_window_ms == float(SERVE_WINDOW_MS), f"{name}: window {app.batch_window_ms}")
+        say(f"{name}: make_server reopened {cname} ({info['count']:,} rows, device "
+            f"{info['device']}; the payload log's replay and the vector store) in "
+            f"{t_reopen:.2f} s; batch window {app.batch_window_ms} ms, listen backlog "
+            f"{httpd.request_queue_size}")
+
+        # -- a mixed burst at the freshly reopened collection ----------------
+        # every lazy build is still ahead: the device refresh (rows and the pd
+        # shadow), the BM25 index and its blocks, the column store
+        fq = {"type": "lt", "field": "price", "value": 50.0}
+        jobs = ([("search", i, "POST", f"{route}/search", {"vector": Q[i].tolist(), "k": k})
+                 for i in range(8)]
+                + [("batch", j, "POST", f"{route}/search/batch",
+                    {"vectors": Q[16 * j : 16 * j + 16].tolist(), "k": k}) for j in range(2)]
+                + [(f"query {q}", i, "POST", "/query",
+                    {"query": sql[q], "params": {"v": Q[i].tolist()}})
+                   for q in "ab" for i in range(4)]
+                + [("hybrid", i, "POST", f"{route}/search/hybrid",
+                    {"vector": Q[i].tolist(), "query": T[i], "k": k}) for i in range(4)]
+                + [("text", i, "POST", f"{route}/search/text", {"query": T[i], "k": k})
+                   for i in range(2)]
+                + [("filtered", i, "POST", f"{route}/search",
+                    {"vector": Q[i].tolist(), "k": k, "filter": fq}) for i in range(2)])
+        burst, seconds = {}, {}
+        gate = threading.Barrier(len(jobs))
+
+        def fire(job, conn):
+            kind, i, method, path, body = job
+            try:
+                gate.wait(timeout=HTTP_TIMEOUT)
+                t = time.perf_counter()
+                burst[kind, i] = request(conn, method, path, body)
+                seconds[kind, i] = time.perf_counter() - t
+            except Exception as e:  # reported by the check below
+                burst[kind, i] = (0, repr(e))
+            finally:
+                conn.close()
+
+        # connected and warmed one at a time (the listen backlog is 5), then
+        # fired at once
+        conns = []
+        for _ in jobs:
+            conns.append(http.client.HTTPConnection(host, port, timeout=HTTP_TIMEOUT))
+            ok(request(conns[-1], "GET", "/health"), "warm-up")
+        with MainPath(counters, bk, "sq8pd_bucket_gm", "sq8pd_bucket_gm") as run:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=fire, args=(job, c)) for job, c in zip(jobs, conns)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            t_burst = time.perf_counter() - t0
+            check(not any(t.is_alive() for t in threads), f"{name}: the burst did not finish")
+            run.launched(f"{name} burst")
+        held(run, "mixed burst at the reopened collection")
+        rows = {key: ok(got, f"burst {key}") for key, got in burst.items()}
+        say(f"{name}: a burst of {len(jobs)} mixed requests (/search through the batcher, "
+            f"/search/batch, /query NEAR with and without the filter, /search/hybrid, "
+            f"/search/text, filtered /search) at the reopened collection: {t_burst:.2f} s; "
+            f"the first /search/hybrid answered in "
+            f"{min(seconds['hybrid', i] for i in range(4)):.2f} s (the BM25 build inside), "
+            f"the first /search in {min(seconds['search', i] for i in range(8)):.2f} s (the "
+            f"device refresh inside)")
+        direct = {
+            "search": lambda i: col.search_batch(Q[:8], k)[i],
+            "batch": lambda j: col.search_batch(Q[16 * j : 16 * j + 16], k),
+            "query a": lambda i: app.db.query(sql["a"], {"v": Q[i]}),
+            "query b": lambda i: app.db.query(sql["b"], {"v": Q[i]}),
+            "hybrid": lambda i: col.hybrid_search(Q[i], T[i], k=k),
+            "text": lambda i: col.text_search(T[i], k=k),
+            "filtered": lambda i: col.search_batch([Q[i]], k, filter=fq)[0],
+        }
+        for (kind, i), body in sorted(rows.items()):
+            got = body["rows"] if kind.startswith("query") else body["results"]
+            want = direct[kind](i)
+            if kind == "batch":
+                agree(got, want, f"burst {kind}")
+            else:
+                agree([got], [want], f"burst {kind}")
+            if kind in ("query b", "filtered"):
+                check(all(h["payload"]["price"] < 50 for h in got),
+                      f"{name} burst {kind}: the filter let a row through")
+        print(f"{name}: every burst answer equals its direct call on httpd.app.db (ids; "
+              f"scores within 1e-6; near-tie swaps {sum(n_swaps.values())})", flush=True)
+        t0 = time.perf_counter()
+        col._device_dirty = True
+        col.refresh_device()
+        torch.cuda.synchronize()
+        say(f"{name}: the device refresh alone (rows and the pd shadow, rebuilt again to "
+            f"time it) {time.perf_counter() - t0:.2f} s; serve_engine "
+            f"{col._brute.serve_engine(k)!r}")
+        check(col._brute.serve_engine(k) == "int8-assist-pd", f"{name}: serve engine")
+
+        # -- 1,024 single-query /search requests from 256 client threads -------
+        qfile = os.path.join(tmp, "serve_queries.json")
+        with open(qfile, "w") as f:
+            json.dump(Q.tolist(), f)
+        client = os.path.join(tmp, "serve_client.py")
+        with open(client, "w") as f:
+            f.write(SEARCH_CLIENT)
+        want = [row for s in range(0, n_req, 256) for row in col.search_batch(Q[s : s + 256], k)]
+
+        def coalesced(window):
+            app.batch_window_ms = window
+            out = os.path.join(tmp, f"serve_client_{window}.json")
+            bt = app._batchers.get(cname)
+            before = (bt.batches, bt.coalesced) if bt is not None else (0, 0)
+            with MainPath(counters, bk, "sq8pd_bucket_gm", "sq8pd_bucket_gm") as run:
+                proc = subprocess.run(
+                    [sys.executable, client, host, str(port), f"{route}/search", qfile,
+                     str(SERVE_THREADS), str(SERVE_PER_THREAD), str(k), out],
+                    capture_output=True, text=True, timeout=600)
+                run.launched(f"{name} /search at window {window} ms")
+            check(proc.returncode == 0,
+                  f"{name} client (window {window}): rc {proc.returncode} {proc.stderr[-2000:]}")
+            with open(out) as f:
+                rep = json.load(f)
+            check(not rep["errors"] and not rep["alive"],
+                  f"{name} client (window {window}): {rep['errors'][:5]}")
+            statuses = [r[0] for r in rep["results"]]
+            check(all(s == 200 for s in statuses),
+                  f"{name} window {window}: statuses {sorted(set(statuses))}: "
+                  f"{[r[2][:200] for r in rep['results'] if r[0] != 200][:3]}")
+            got = [json.loads(r[2])["results"] for r in rep["results"]]
+            agree(got, want, f"/search window {window}")
+            ids = np.array([[h["id"] for h in row] for row in got])
+            recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids, o_ids)]))
+            check(recall >= 0.95, f"{name} window {window}: recall@10 {recall:.4f} < 0.95")
+            bt = app._batchers.get(cname)
+            after = (bt.batches, bt.coalesced) if bt is not None else (0, 0)
+            lat = np.array([r[1] for r in rep["results"]]) * 1e3
+            held(run, f"/search at window {window} ms")
+            return rep, lat, recall, after[0] - before[0], after[1] - before[1]
+
+        rep2, lat2, rec2, batches2, coal2 = coalesced(float(SERVE_WINDOW_MS))
+        check(0 < batches2 < n_req, f"{name}: {batches2} batcher dispatches for {n_req} requests")
+        rep0, lat0, rec0, batches0, _ = coalesced(0.0)
+        check(batches0 == 0, f"{name}: the batcher served {batches0} dispatches at window 0")
+        app.batch_window_ms = float(SERVE_WINDOW_MS)
+        print(f"{name}: {n_req} /search answers at window 2 ms and at 0 equal the direct "
+              f"search_batch on httpd.app.db (ids; scores within 1e-6; near-tie swaps "
+              f"{n_swaps.get('/search window 2.0', 0)} and {n_swaps.get('/search window 0.0', 0)}"
+              f"); recall@10 vs the float64 oracle {rec2:.4f} / {rec0:.4f}", flush=True)
+
+        # -- the other routes against their direct calls -----------------------
+        conn = http.client.HTTPConnection(host, port, timeout=HTTP_TIMEOUT)
+        opened.append(conn)
+        with MainPath(counters, bk, "sq8pd_bucket_gm", "sq8pd_bucket_gm") as run:
+            for b, s in ((256, 0), (16, 256)):
+                got = ok(request(conn, "POST", f"{route}/search/batch",
+                                 {"vectors": Q[s : s + b].tolist(), "k": k}), f"batch {b}")
+                agree(got["results"], col.search_batch(Q[s : s + b], k), f"/search/batch b {b}")
+                run.launched(f"{name} /search/batch b={b}")
+            for q in "ab":
+                for i in range(4):
+                    got = ok(request(conn, "POST", "/query",
+                                     {"query": sql[q], "params": {"v": Q[i].tolist()}}),
+                             f"query {q}")
+                    agree([got["rows"]], [app.db.query(sql[q], {"v": Q[i]})], f"/query {q}")
+                run.launched(f"{name} /query ({q})")
+            for i in range(4):
+                got = ok(request(conn, "POST", f"{route}/search/hybrid",
+                                 {"vector": Q[i].tolist(), "query": T[i], "k": k}), "hybrid")
+                agree([got["results"]], [col.hybrid_search(Q[i], T[i], k=k)], "/search/hybrid")
+            run.launched(f"{name} /search/hybrid")
+        held(run, "/search/batch, /query, /search/hybrid")
+        ginfo = ok(request(conn, "GET", route), "info")
+        check(ginfo["device"].startswith("cuda") and ginfo["count"] == HYB_N
+              and ginfo["serve_engine"] == "int8-assist-pd", f"{name}: info {ginfo}")
+        got = ok(request(conn, "GET", f"{route}/index"), "index")
+        check(got["index_kind"] == "auto" and got["graph_built"] is False, f"{name}: {got}")
+        prom = ok(request(conn, "GET", "/metrics"), "metrics")
+        check("velesdb_http_requests_total" in prom and "velesdb_microbatch_batches" in prom
+              and "velesdb_microbatch_coalesced" in prom, f"{name}: /metrics lacks a gauge")
+        ok(request(conn, "GET", "/health"), "health")
+        print(f"{name}: /search/batch (b 256, 16), /query (NEAR, NEAR + price < 50), "
+              f"/search/hybrid equal search_batch, Database.query and hybrid_search; "
+              f"{route} reports {ginfo['device']}; /metrics holds "
+              f"http_requests_total and the microbatch gauges", flush=True)
+
+        # -- the entry points as child processes, on a small directory ---------
+        t0 = time.perf_counter()
+        small, small2 = os.path.join(tmp, "cli_db"), os.path.join(tmp, "cli_db2")
+        jsonl = os.path.join(tmp, "cli.jsonl")
+        xs = np.random.default_rng(13).standard_normal((CLI_ROWS, HYB_D)).astype(np.float32)
+        with open(jsonl, "w") as f:
+            for i in range(CLI_ROWS):
+                f.write(json.dumps({"id": i, "vector": xs[i].tolist(), "payload": {"n": i}})
+                        + "\n")
+
+        def cli(path, *argv):
+            return [sys.executable, "-m", "velesdb_tpu_torch.cli", "--path", path, *argv]
+
+        def run_cli(argv):
+            proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=300)
+            check(proc.returncode == 0, f"{name}: {' '.join(argv[2:5])}: rc "
+                                        f"{proc.returncode} {proc.stderr[-2000:]}")
+            return proc.stdout
+
+        made = json.loads(run_cli(cli(small, "create", "c", "--dim", str(HYB_D))))
+        check(made["device"].startswith("cuda"), f"{name}: the CLI's create on {made['device']}")
+        check(f"imported {CLI_ROWS} points" in run_cli(cli(small, "import", "c", jsonl)),
+              f"{name}: the CLI's import")
+        mig = subprocess.Popen(cli(small2, "migrate", "--source", "jsonl", "--location", jsonl,
+                                   "--collection", "m", "--dim", str(HYB_D)),
+                               cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True)
+        opened.append(mig)
+        rows_cli = json.loads(run_cli(cli(small, "query", "SELECT * FROM c WHERE vector NEAR "
+                                          "$v LIMIT 10", "--params",
+                                          json.dumps({"v": xs[17].tolist()}), "--json")))
+        m_out, m_err = mig.communicate(timeout=300)
+        check(mig.returncode == 0, f"{name}: the CLI's migrate: rc {mig.returncode} {m_err[-2000:]}")
+        report = json.loads(m_out.strip().splitlines()[-1])
+        check(report["migrated"] == CLI_ROWS and report["failed"] == 0,
+              f"{name}: the CLI's migrate: {report}")
+        db_small = Database.open(small)
+        mine = db_small.get_collection("c").search(xs[17], k=k)
+        db_small.close()
+        check(tie_agree(pairs(rows_cli), pairs(mine)) is not None and rows_cli[0]["id"] == 17,
+              f"{name}: the CLI's NEAR query differs from the in-process search")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            free = s.getsockname()[1]
+        srv = subprocess.Popen([sys.executable, "-m", "velesdb_tpu_torch.server", small,
+                                "--host", "127.0.0.1", "--port", str(free)],
+                               cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True)
+        opened.append(srv)
+        deadline = time.time() + 180
+        up = None
+        while up is None and time.time() < deadline and srv.poll() is None:
+            try:
+                c2 = http.client.HTTPConnection("127.0.0.1", free, timeout=5)
+                up = request(c2, "GET", "/health")
+                c2.close()
+            except OSError:
+                time.sleep(0.2)
+        check(up is not None and up[0] == 200,
+              f"{name}: python -m velesdb_tpu_torch.server did not answer /health "
+              f"(rc {srv.poll()})")
+        c2 = http.client.HTTPConnection("127.0.0.1", free, timeout=HTTP_TIMEOUT)
+        sinfo = ok(request(c2, "GET", "/collections/c"), "child server info")
+        sres = ok(request(c2, "POST", "/collections/c/search",
+                          {"vector": xs[17].tolist(), "k": k}), "child server /search")
+        c2.close()
+        check(sinfo["device"].startswith("cuda") and sinfo["count"] == CLI_ROWS,
+              f"{name}: the child server's collection {sinfo}")
+        check(tie_agree(pairs(sres["results"]), pairs(mine)) is not None,
+              f"{name}: the child server's /search differs from the in-process search")
+        say(f"{name}: python -m velesdb_tpu_torch.cli create / import ({CLI_ROWS:,} rows) / "
+            f"query / migrate and python -m velesdb_tpu_torch.server, each a child process "
+            f"on the default device ({made['device']}, {sinfo['device']}): the same ids as "
+            f"in-process, {time.perf_counter() - t0:.2f} s")
+
+        # -- numbers, before the phase's profile --------------------------------
+        d50, d99 = p50_p99(lambda i: col.search(Q[i], k=k), range(100))
+        for window, lat, rep, rec in ((0.0, lat0, rep0, rec0),
+                                      (float(SERVE_WINDOW_MS), lat2, rep2, rec2)):
+            say(f"{name} HTTP /search, {SERVE_THREADS} client threads x {SERVE_PER_THREAD}, "
+                f"window {window} ms: p50 {np.percentile(lat, 50):.3f} ms, p99 "
+                f"{np.percentile(lat, 99):.3f} ms; {n_req / rep['wall_s']:.1f} requests/s "
+                f"({n_req} in {rep['wall_s']:.3f} s wall; connections opened and warmed in "
+                f"{rep['warm_s']:.2f} s before)")
+        say(f"{name} window {SERVE_WINDOW_MS} ms: {batches2} batcher dispatches for {n_req} "
+            f"requests, mean coalesced batch {n_req / batches2:.1f} ({coal2} requests in shared "
+            f"dispatches); direct col.search p50 {d50:.3f} ms, p99 {d99:.3f} ms (100 calls, "
+            f"one thread)")
+        for b, s in ((256, 0), (16, 256)):
+            body = {"vectors": Q[s : s + b].tolist(), "k": k}
+            h50, h99 = p50_p99(lambda i: ok(request(conn, "POST", f"{route}/search/batch",
+                                                    body), "batch"), range(TIMED_CALLS))
+            b50, _ = p50_p99(lambda i: col.search_batch(Q[s : s + b], k), range(TIMED_CALLS))
+            res = col.search_batch(Q[s : s + b], k)
+            enc, _ = p50_p99(lambda i: json.dumps(
+                {"results": [[dict(h) for h in row] for row in res]},
+                default=_json_default).encode(), range(10))
+            raw = json.dumps(body).encode()
+            dec, _ = p50_p99(lambda i: json.loads(raw), range(10))
+            say(f"{name} HTTP /search/batch b={b}: p50 {h50:.3f} ms (p99 {h99:.3f}), direct "
+                f"search_batch p50 {b50:.3f} ms; the response's JSON encode {enc:.3f} ms "
+                f"(share {enc / h50:.3f}), the request's JSON decode {dec:.3f} ms "
+                f"({TIMED_CALLS} calls, one connection)")
+        one = col.search(Q[0], k=k)
+        enc1, _ = p50_p99(lambda i: json.dumps({"results": [dict(h) for h in one]},
+                                                default=_json_default).encode(), range(50))
+        say(f"{name} HTTP /search: the response's JSON encode {enc1:.4f} ms (share "
+            f"{enc1 / np.percentile(lat0, 50):.2e} of the window-0 p50, "
+            f"{enc1 / np.percentile(lat2, 50):.2e} of the window-2 p50)")
+
+        # -- one profile of a coalesced dispatch ---------------------------------
+        b_pad = 1 << max(3, (max(round(n_req / batches2), 1) - 1).bit_length())
+        batches = [Q[(i * b_pad) % n_req : (i * b_pad) % n_req + b_pad] for i in range(9)]
+        p50, _ = p50_p99(lambda i: col.search_batch(batches[i], k), range(1, 9))
+        busy, top = device_profile(torch, lambda qb: col.search_batch(qb, k), batches[1:9],
+                                   top=4)
+        if busy <= 0.0:
+            print(f"{name}: device busy not measured (no device events)", flush=True)
+        else:
+            say(f"{name} coalesced dispatch (search_batch at the padded b {b_pad}): device "
+                f"busy {busy:.4f} ms/call, idle share {1.0 - busy / p50:.3f} against its p50 "
+                f"{p50:.3f} ms (torch.profiler over 8 calls)")
+            for op, t in top:
+                say(f"    {t:.4f} ms/call  {op[:100]}")
+    finally:
+        for child in opened:
+            if isinstance(child, subprocess.Popen):
+                if child.poll() is None:
+                    child.terminate()
+                    try:
+                        child.wait(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        child.kill()
+                        child.wait(timeout=30)
+            else:
+                child.close()
+        httpd.shutdown()
+        httpd.server_close()
+        for bt in app._batchers.values():
+            bt.stop()
+        app.db.close()
+        serving.join(timeout=60)
+    seconds = time.perf_counter() - t_phase
+    say(f"phase 13 serve: {seconds:.1f} s")
     return seconds
 
 

@@ -174,6 +174,26 @@ def test_port_never_imports_jax(tmp_path):
         assert rows[0]["id"] == 8 and all(r["payload"]["price"] < 50 for r in rows)
         t.add_edge(8, 9, "rel")
         assert db.match_query("t", "MATCH (a)-[:rel]->(b) RETURN b")[0]["b"]["id"] == 9
+        db.close()
+        import json, threading, urllib.request
+        import velesdb_tpu_torch.server.app, velesdb_tpu_torch.server.__main__
+        import velesdb_tpu_torch.cli, velesdb_tpu_torch.aio, velesdb_tpu_torch.agent
+        import velesdb_tpu_torch.migrate, velesdb_tpu_torch.utils.batcher
+        import velesdb_tpu_torch.utils.guardrails, velesdb_tpu_torch.utils.tracing
+        httpd = velesdb_tpu_torch.server.app.make_server({str(tmp_path)!r}, host="127.0.0.1",
+                                                         port=0, device="cpu")
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{{httpd.server_address[1]}}/collections/c/search",
+                data=json.dumps({{"vector": np.eye(1, 8)[0].tolist(), "k": 1}}).encode(),
+                method="POST", headers={{"Content-Type": "application/json"}})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                assert json.loads(resp.read())["results"][0]["id"] == 0
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            httpd.app.db.close()
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "lark" not in sys.modules
         assert not [m for m in sys.modules if m.split(".")[0] == "velesdb_tpu"]

@@ -1,7 +1,8 @@
 """The rest of ``Collection``'s vector surface in the port, beside the JAX
 package's on the same data: per-query filters, multi-query fusion, the result
 cache, vacuum, TTL expiry and auto-vacuum, exact hamming / jaccard search,
-and the host copies ``compression.py`` and ``storage/payload_log.py``.
+the host copies ``compression.py`` and ``storage/payload_log.py``, and the
+asyncio facade ``aio.py``.
 
 Tolerances: exact float searches agree id for id except at score ties, with
 scores to rtol 1e-5 (fp32, different summation order); hamming and jaccard
@@ -9,6 +10,7 @@ scores are integer counts and their ratios, so ids and scores are equal, ties
 included (both select the lowest slot); host code gives equal results.
 """
 
+import asyncio
 import os
 import time
 
@@ -267,3 +269,33 @@ def test_payload_snapshot_v2_roundtrip_both_ways(tmp_path):
     assert len(back) == 51 and back.retrieve(61) == {"from": "reference"}
     assert back.retrieve(49) == {"name": "item 49", "tags": ["a", "b"], "n": 49}
     back.close()
+
+
+def test_async_ops(tmp_path):
+    from velesdb_tpu.aio import AsyncCollection as RefAsyncCollection
+    from velesdb_tpu.aio import AsyncDatabase as RefAsyncDatabase
+    from velesdb_tpu_torch.aio import AsyncCollection, AsyncDatabase
+
+    vecs = np.random.default_rng(0).standard_normal((10, 8)).astype(np.float32)
+    got = {}
+    for tag, db, acol, adb in (
+        ("ref", velesdb_tpu.Database.open(str(tmp_path / "ref")), RefAsyncCollection,
+         RefAsyncDatabase),
+        ("port", velesdb_tpu_torch.Database.open(str(tmp_path / "port"), device="cpu"),
+         AsyncCollection, AsyncDatabase),
+    ):
+        c = db.create_collection("aio", dim=8)
+
+        async def drive():
+            ac = acol(c)
+            await ac.upsert_bulk(range(10), vecs, [{"i": i} for i in range(10)])
+            hits = await ac.search(vecs[4], 2)
+            assert hits[0].id == 4
+            rows = await adb(db).query("SELECT i FROM aio WHERE i = 7")
+            assert rows == [{"i": 7}]
+            await ac.flush()
+            return hits
+
+        got[tag] = asyncio.run(drive())
+        db.close()
+    _same([got["port"]], [got["ref"]])

@@ -1,8 +1,7 @@
 """The JAX package's end-to-end workflow (``tests/test_e2e_complete.py``) on
 the port: create -> bulk ingest -> every search modality -> graph ->
-VelesQL -> persistence/reopen -> TTL/vacuum -> delete, under the reference's
-test name, the database on the CPU. The reference's agent-memory block is
-left out: agent memory is not ported yet (ROADMAP.md, module queue item 8).
+VelesQL -> agent memory -> persistence/reopen -> TTL/vacuum -> delete, under
+the reference's test name, the database on the CPU.
 """
 
 import numpy as np
@@ -96,8 +95,17 @@ def test_complete_workflow(tmp_db_dir, rng):
     plan = db.explain_query("SELECT * FROM shop WHERE v NEAR $q LIMIT 2")
     assert "VectorSearch" in plan.render()
 
-    # -- agent memory: not ported yet (ROADMAP.md, module queue item 8), so
-    # the reference's block is left out here
+    # -- agent memory -----------------------------------------------------------
+    from velesdb_tpu_torch.agent import AgentMemory, MemoryKind
+
+    mem = AgentMemory(db, dim=32, agent_id="clerk")
+    fid = mem.remember_fact(vecs[1], "customer prefers boots", importance=0.9)
+    recalled = mem.recall(MemoryKind.SEMANTIC, vecs[1], k=1)
+    assert recalled[0]["id"] == fid
+    snap = mem.snapshot("v1")
+    mem.forget(MemoryKind.SEMANTIC, fid)
+    mem.rollback(snap)
+    assert mem.recall(MemoryKind.SEMANTIC, vecs[1], k=1)[0]["id"] == fid
 
     # -- persistence: flush, close, reopen --------------------------------------
     shop.flush()

@@ -463,8 +463,12 @@ class Collection:
 
     def refresh_device(self) -> None:
         """Upload the current host slot array as padded device state (after
-        the auto-vacuum, when one is configured and due)."""
+        the auto-vacuum, when one is configured and due). A clean state is
+        read without the lock (the flag clears only after a whole rebuild), so
+        a search does not wait behind another thread's lazy build."""
         self._maybe_auto_vacuum()
+        if not self._device_dirty:
+            return
         with self._lock:
             if not self._device_dirty:
                 return
@@ -535,39 +539,42 @@ class Collection:
         if not force and self.ann.dirty and self.count() < self.ann_min_rows:
             return False
         if self.ann.dirty:
-            self.refresh_device()
-            used = self.vectors.used_slots
-            slots = np.array(self.vectors.slot_view()[:used])
-            _, valid = self.vectors.occupancy()
-            path = os.path.join(self.path, "ann.npz")
-            version = self.vectors.version
-            want = GraphParams.auto(self.dim, used)
-            cur = self.ann.params
-            self.ann.params = dataclasses.replace(
-                cur, entry_probes=max(cur.entry_probes, want.entry_probes),
-                entry_points=max(cur.entry_points, want.entry_points),
-                expand_width=max(cur.expand_width, want.expand_width))
-            t = time.perf_counter()
-            if (self.ann.load(path, slots, valid, version=version)
-                    and self.ann.params.degree >= want.degree):
-                t = _mark(profile, "ann.load", t, self.device)
-            else:
-                old = self.ann.params
-                self.ann.params = want
-                # the resident device rows (cosine rows pre-normalized, which
-                # cosine scores do not see)
-                self.ann.build(slots, valid, corpus_dev=self._brute._full, profile=profile)
-                t = time.perf_counter()
-                self.ann.save(path, version=version)
-                t = _mark(profile, "ann.save", t, self.device)
-                self.reindex_events.append({"at": time.time(), "rows": used,
-                                            "from_degree": old.degree,
-                                            "to_degree": want.degree})
-            # a fresh build or restore covers every row: the delta drains
-            self._stale["graph"].clear()
-            self._delta_cache.pop("graph", None)
-            self._calibrate_engine("graph")
-            _mark(profile, "ann.calibrate", t, self.device)
+            # one build; a concurrent search waits for it
+            with self._lock:
+                if self.ann.dirty:
+                    self.refresh_device()
+                    used = self.vectors.used_slots
+                    slots = np.array(self.vectors.slot_view()[:used])
+                    _, valid = self.vectors.occupancy()
+                    path = os.path.join(self.path, "ann.npz")
+                    version = self.vectors.version
+                    want = GraphParams.auto(self.dim, used)
+                    cur = self.ann.params
+                    self.ann.params = dataclasses.replace(
+                        cur, entry_probes=max(cur.entry_probes, want.entry_probes),
+                        entry_points=max(cur.entry_points, want.entry_points),
+                        expand_width=max(cur.expand_width, want.expand_width))
+                    t = time.perf_counter()
+                    if (self.ann.load(path, slots, valid, version=version)
+                            and self.ann.params.degree >= want.degree):
+                        t = _mark(profile, "ann.load", t, self.device)
+                    else:
+                        old = self.ann.params
+                        self.ann.params = want
+                        # the resident device rows (cosine rows pre-normalized, which
+                        # cosine scores do not see)
+                        self.ann.build(slots, valid, corpus_dev=self._brute._full, profile=profile)
+                        t = time.perf_counter()
+                        self.ann.save(path, version=version)
+                        t = _mark(profile, "ann.save", t, self.device)
+                        self.reindex_events.append({"at": time.time(), "rows": used,
+                                                    "from_degree": old.degree,
+                                                    "to_degree": want.degree})
+                    # a fresh build or restore covers every row: the delta drains
+                    self._stale["graph"].clear()
+                    self._delta_cache.pop("graph", None)
+                    self._calibrate_engine("graph")
+                    _mark(profile, "ann.calibrate", t, self.device)
         return True
 
     def _ensure_ivf(self, profile: dict | None = None) -> bool:
@@ -578,37 +585,38 @@ class Collection:
         or ``ivf.save``, ``ivf.calibrate``)."""
         if self.metric not in _ANN_METRICS:
             return False
-        if self.ivf is None:
-            used = max(self.vectors.used_slots, 1)
-            spill = 2 if used * self.dim * 4 * 2 < 8 << 30 else 1
-            self.ivf = IvfIndex(self.dim, self.metric, spill=spill, device=self.device)
-        if self.ivf.dirty:
-            self.refresh_device()
-            used = self.vectors.used_slots
-            _, valid = self.vectors.occupancy()
-            path = os.path.join(self.path, "ivf.npz")
-            version = self.vectors.version
-            brute = self._brute
-            if self.storage_mode in _ANN_MODES:
-                src = brute._full[:used]  # the resident device rows
-            elif self.storage_mode is StorageMode.SQ8:
-                # quantized-storage IVF: partitions stay one byte a dim
-                src = SQ8Vectors(*(a[:used] for a in brute._sq8))
-            else:
-                src = np.asarray(self.vectors.slot_view()[:used], np.float32)
-            t = time.perf_counter()
-            if self.ivf.load(path, src, valid, version=version):
-                t = self.ivf._mark(profile, "ivf.load", t)
-            else:
-                self.ivf.build(src, valid, profile=profile)
+        with self._lock:  # one build; a concurrent search waits for it
+            if self.ivf is None:
+                used = max(self.vectors.used_slots, 1)
+                spill = 2 if used * self.dim * 4 * 2 < 8 << 30 else 1
+                self.ivf = IvfIndex(self.dim, self.metric, spill=spill, device=self.device)
+            if self.ivf.dirty:
+                self.refresh_device()
+                used = self.vectors.used_slots
+                _, valid = self.vectors.occupancy()
+                path = os.path.join(self.path, "ivf.npz")
+                version = self.vectors.version
+                brute = self._brute
+                if self.storage_mode in _ANN_MODES:
+                    src = brute._full[:used]  # the resident device rows
+                elif self.storage_mode is StorageMode.SQ8:
+                    # quantized-storage IVF: partitions stay one byte a dim
+                    src = SQ8Vectors(*(a[:used] for a in brute._sq8))
+                else:
+                    src = np.asarray(self.vectors.slot_view()[:used], np.float32)
                 t = time.perf_counter()
-                self.ivf.save(path, version=version)
-                t = self.ivf._mark(profile, "ivf.save", t)
-            # a fresh build or restore covers every row: the delta drains
-            self._stale["ivf"].clear()
-            self._delta_cache.pop("ivf", None)
-            self._calibrate_engine("ivf")
-            self.ivf._mark(profile, "ivf.calibrate", t)
+                if self.ivf.load(path, src, valid, version=version):
+                    t = self.ivf._mark(profile, "ivf.load", t)
+                else:
+                    self.ivf.build(src, valid, profile=profile)
+                    t = time.perf_counter()
+                    self.ivf.save(path, version=version)
+                    t = self.ivf._mark(profile, "ivf.save", t)
+                # a fresh build or restore covers every row: the delta drains
+                self._stale["ivf"].clear()
+                self._delta_cache.pop("ivf", None)
+                self._calibrate_engine("ivf")
+                self.ivf._mark(profile, "ivf.calibrate", t)
         return True
 
     def _calibrate_engine(self, engine: str, sample: int = 128) -> None:
@@ -731,20 +739,26 @@ class Collection:
     def _ensure_storage_gate(self, quality=None) -> None:
         """Calibrate the quantized serve path and widen the rerank oversample
         until its measured recall clears the profile bar (or the 32x cap).
-        Runs again only after the row count drifts by 10%."""
+        Runs again only after the row count drifts by 10%, under the
+        collection's lock: a concurrent search waits for the oversample the
+        gate settles on instead of serving at the one it is widening."""
         used = self.vectors.used_slots
         if used < 4096:  # toy collections: the probe costs more than it informs
             return
         prev = self._storage_gate_used
         if prev is not None and abs(used - prev) < 0.1 * prev:
             return
-        self._storage_gate_used = used  # set first: calibration re-enters search
-        bar = SearchQuality.parse(quality or SearchQuality.BALANCED).min_recall
-        r = self.calibrate_storage()
-        while r is not None and r < bar and self._rerank_oversample < 32:
-            self._rerank_oversample *= 2.0
-            self._storage_recall = None  # force a fresh probe
+        with self._lock:
+            prev = self._storage_gate_used
+            if prev is not None and abs(used - prev) < 0.1 * prev:
+                return
+            self._storage_gate_used = used  # set first: calibration re-enters search
+            bar = SearchQuality.parse(quality or SearchQuality.BALANCED).min_recall
             r = self.calibrate_storage()
+            while r is not None and r < bar and self._rerank_oversample < 32:
+                self._rerank_oversample *= 2.0
+                self._storage_recall = None  # force a fresh probe
+                r = self.calibrate_storage()
 
     def calibrate_storage(self, sample: int = 128):
         """True recall@10 of the quantized serve path (auto-rerank included)
@@ -819,7 +833,9 @@ class Collection:
                 oversample=self._rerank_oversample,
             )
         self.refresh_device()
-        q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        # the kernels take row-major queries whatever the caller's layout (the
+        # micro-batcher's padded batch comes out column-major from numpy)
+        q = np.ascontiguousarray(np.atleast_2d(np.asarray(queries, dtype=np.float32)))
         if q.shape[1] != self.dim:
             raise ValueError(
                 f"dimension mismatch: expected {self.dim}, got {q.shape[1]}"
@@ -947,14 +963,19 @@ class Collection:
     # -- filters -----------------------------------------------------------
 
     def _ensure_columns(self) -> None:
-        """Lazily populate the column store from the payload log (cold open)."""
+        """Lazily populate the column store from the payload log (cold open),
+        under the collection's lock: a concurrent caller waits for the build
+        instead of filtering on a half-filled store."""
         if self._columns_built:
             return
-        for vid, payload in self.payloads.payloads.items():
-            slot = self.vectors.id_to_slot.get(vid)
-            if slot is not None:
-                self.columns.upsert_row(slot, payload)
-        self._columns_built = True
+        with self._lock:
+            if self._columns_built:
+                return
+            for vid, payload in self.payloads.payloads.items():
+                slot = self.vectors.id_to_slot.get(vid)
+                if slot is not None:
+                    self.columns.upsert_row(slot, payload)
+            self._columns_built = True
 
     def _filter_mask(self, filt):
         mask = self._raw_filter_mask(filt)
@@ -968,8 +989,12 @@ class Collection:
         if filt is None:
             return None
         self._ensure_columns()
-        used = max(self.vectors.used_slots, 1)
-        return self.columns.mask_for_filter(filt, used)
+        # the column store's mask cache is an LRU that concurrent readers
+        # would reorder under each other; upserts write the columns under
+        # the same lock
+        with self._lock:
+            used = max(self.vectors.used_slots, 1)
+            return self.columns.mask_for_filter(filt, used)
 
     def _hydrate(self, vals: np.ndarray, idx: np.ndarray, k: int):
         """Map device slot indices back to user ids + payloads."""
@@ -1081,15 +1106,20 @@ class Collection:
 
     def _ensure_text(self) -> None:
         """Build the BM25 index from the payload log at the first text query;
-        mutations keep it in step from then on."""
+        mutations keep it in step from then on. The build runs under the
+        collection's lock and is published when whole, so a concurrent first
+        query waits for it instead of scoring a half-built index."""
         if self._text_built:
             return
-        self.text_index = Bm25Index(self.device)
-        self._text_built = True
-        for vid, payload in self.payloads.payloads.items():
-            slot = self.vectors.id_to_slot.get(vid)
-            if slot is not None:
-                self._index_text(slot, payload)
+        with self._lock:
+            if self._text_built:
+                return
+            self.text_index = Bm25Index(self.device)
+            for vid, payload in self.payloads.payloads.items():
+                slot = self.vectors.id_to_slot.get(vid)
+                if slot is not None:
+                    self._index_text(slot, payload)
+            self._text_built = True
 
     def _ensure_trigram(self) -> None:
         """Build the trigram index at the first :meth:`like_mask` (the
@@ -1098,12 +1128,16 @@ class Collection:
         self._ensure_text()
         if self.trigram_index is not None:
             return
-        self.trigram_index = TrigramIndex()
-        for vid, payload in self.payloads.payloads.items():
-            slot = self.vectors.id_to_slot.get(vid)
-            text = extract_text(payload) if payload is not None else ""
-            if slot is not None and text:
-                self.trigram_index.add_document(slot, text)
+        with self._lock:
+            if self.trigram_index is not None:
+                return
+            trigram = TrigramIndex()
+            for vid, payload in self.payloads.payloads.items():
+                slot = self.vectors.id_to_slot.get(vid)
+                text = extract_text(payload) if payload is not None else ""
+                if slot is not None and text:
+                    trigram.add_document(slot, text)
+            self.trigram_index = trigram
 
     def text_search(self, query: str, k: int = 10, filter: dict | None = None):
         """BM25 full-text search."""
@@ -1162,7 +1196,7 @@ class Collection:
             fetch = max(2 * k, k)
         self.refresh_device()
         self._ensure_text()
-        q = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
+        q = np.ascontiguousarray(np.atleast_2d(np.asarray(query_vectors, dtype=np.float32)))
         if q.shape[1] != self.dim:
             raise ValueError(f"dimension mismatch: expected {self.dim}, got {q.shape[1]}")
         vals, slots = self._hybrid_device(q, query_texts, k, max(fetch, k),
@@ -1221,14 +1255,17 @@ class Collection:
 
     def ensure_graph(self):
         """The knowledge graph, built at the first call: node indexes from the
-        payloads of the live rows, edges from ``edges.npz``."""
+        payloads of the live rows, edges from ``edges.npz``. Built under the
+        collection's lock, so concurrent first calls share one graph."""
         if self.graph is None:
-            g = kg.CollectionGraph()
-            g.load_edges(self.path)
-            for vid, payload in self.payloads.payloads.items():
-                if vid in self.vectors.id_to_slot:
-                    g.index_node(vid, payload)
-            self.graph = g
+            with self._lock:
+                if self.graph is None:
+                    g = kg.CollectionGraph()
+                    g.load_edges(self.path)
+                    for vid, payload in self.payloads.payloads.items():
+                        if vid in self.vectors.id_to_slot:
+                            g.index_node(vid, payload)
+                    self.graph = g
         return self.graph
 
     def add_node(self, node_id: int, labels=(), properties: dict | None = None,

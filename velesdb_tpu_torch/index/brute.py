@@ -350,7 +350,7 @@ class BruteForceIndex:
         sign bits (``1 - dist/dim`` for similarity metrics)."""
         q = torch.atleast_2d(
             torch.as_tensor(queries, dtype=torch.float32).to(self.device)
-        )
+        ).contiguous()
         k_eff = min(k, self.n_pad)
         mask_dev = pad_mask(mask, self.n_pad, self.device)
         engine, m = self._plan(k_eff)

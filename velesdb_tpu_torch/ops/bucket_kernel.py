@@ -61,6 +61,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -270,6 +271,9 @@ def _entry(lib: str, symbol: str, argtypes: tuple):
     return fn
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def _launch(launches: dict, counter: str, lib: str, symbol: str, argtypes: tuple,
             *args) -> None:
     """Launch a kernel on the current stream of its first tensor's device,
@@ -281,7 +285,8 @@ def _launch(launches: dict, counter: str, lib: str, symbol: str, argtypes: tuple
     rc = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{lib} launch failed with CUDA error {rc}")
-    launches[counter] += 1
+    with _COUNT_LOCK:  # server threads launch concurrently
+        launches[counter] += 1
 
 
 _PD_MAX_DPAD = 512  # the int32 encoding's budget (sq8pd_build refuses dim > 512)

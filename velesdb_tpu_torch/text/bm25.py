@@ -62,6 +62,9 @@ class Bm25Index:
         # guards _docs/_doc_len: refresh() snapshots under it while writer
         # threads mutate
         self._mut = threading.Lock()
+        # one refresh at a time: a caller that finds a build running waits
+        # for it instead of scoring the blocks it replaces
+        self._refresh_lock = threading.Lock()
         self._dirty = True
         # device state
         self._vocab: dict[str, int] = {}
@@ -106,21 +109,22 @@ class Bm25Index:
 
     def refresh(self, n_slots: int) -> None:
         """Flatten postings into device blocks over ``n_slots`` doc slots."""
-        if not self._dirty:
-            return
-        self.n_pad = 1 << max(7, (max(n_slots, 1) - 1).bit_length())
-        with self._mut:
-            # cleared before the build so a mutation during it re-dirties; a
-            # failed build restores it
-            self._dirty = False
-            docs = dict(self._docs)
-            doc_len = dict(self._doc_len)
-        try:
-            self._build_blocks(docs, doc_len)
-        except BaseException:
+        with self._refresh_lock:
+            if not self._dirty:
+                return
+            self.n_pad = 1 << max(7, (max(n_slots, 1) - 1).bit_length())
             with self._mut:
-                self._dirty = True
-            raise
+                # cleared before the build so a mutation during it re-dirties;
+                # a failed build restores it
+                self._dirty = False
+                docs = dict(self._docs)
+                doc_len = dict(self._doc_len)
+            try:
+                self._build_blocks(docs, doc_len)
+            except BaseException:
+                with self._mut:
+                    self._dirty = True
+                raise
 
     def _build_blocks(self, docs: dict, doc_len: dict) -> None:
         """The reference's host build, array for array: vocabulary sorted,
