@@ -157,15 +157,15 @@ Phases, in order; any failure exits nonzero:
    two agreement lines), ``exp_topk`` (1,000,000 x 128, b 256, pchunk
    2,048: the exact scans, #2, #2b, #8) and ``exp_gather_kernel`` (R 8,192
    of 1,000,000 x 128, group 16: #11 at depth 1 and 2 beside ``q @
-   corpus[idx].T``), twice. The first run is the main path: every launch
-   is recorded and then held against its plain version on its own
-   arguments, bit for bit, #2 (f32 and bf16 rows) and #8 within their
-   tolerances; its timing
+   corpus[idx].T``), once, as the main path: every launch is recorded and
+   then held against its plain version on its own arguments, bit for bit,
+   #2 (f32 and bf16 rows) and #8 within their tolerances; the timing
    protocol is cut, batches x samples 64 x 3 -> 8 x 2 (``exp_sq8i_v2``,
    ``exp_hamming_mxu``) and 16 x 3 -> 4 x 2 (``exp_topk``), to bound the
    outputs kept for the holds (recorded outputs also keep the allocator
-   from reusing memory, so its times are not reported). The second run,
-   unrecorded, keeps the scripts' protocol and prints the variants' lines.
+   from reusing memory, so the variants' lines are not times to quote).
+   A second, unrecorded run at the scripts' own protocol was cut in slice 16
+   to keep the script within its 1,200-second limit (phase 14 came in).
    No width or row count is cut. The counts of each experiment's first run
    must show every one of the ten Pallas functions'
    counterparts launched, and each is timed at the script's shape against
@@ -264,6 +264,30 @@ Phases, in order; any failure exits nonzero:
    ``/search/batch`` p50 at b 256 and 16 against ``search_batch``; the JSON
    encode share; the reopen and the first hybrid request) come before the
    phase's one profile: a coalesced dispatch's busy time and idle share.
+14. Multi-device search, ``velesdb_tpu_torch.parallel`` on
+   ``torch.distributed`` (``tools/sharded_phase.py:sharded_phase``, which
+   also runs alone), run right after phase 2, while the card is nearly
+   empty (its world of 4 shares the card with this process) and before any
+   profile: (a) ``make_mesh()`` starts a world of 1 over NCCL in
+   this process; ``ShardedBruteForce`` on one north-star shard, 6,291,456 x
+   128 euclidean FULL (``make_clustered``, seed 42: the reference's shard of
+   50M rows over 8 chips), the assist mode (#7) at b 256 and 16, every #7
+   launch held bit for bit, ids and values equal to the single-card
+   ``sq8i_rerank_topk`` on the same arrays, recall@10 >= 0.99 against the
+   float64 oracle, p50 over 40 calls beside the single-card call's; (b) the
+   streamed mode on 100k-768d's shape and the SQ8 mode on sift1m's, equal to
+   the single-card ``streamed_topk`` / ``sq8_streamed_topk``; (c)
+   ``ShardedIvfIndex`` and ``ShardedGraphIndex`` at world 1 on sift1m's rows,
+   b 16 over 256 queries at ef 128, recall@10 >= 0.95, every #10 launch of
+   the graph's entry scans held bit for bit, build times printed; (d) a world
+   of 4 ranks over gloo sharing the card (partials gathered through the
+   host), each reading its 1,572,864 rows from one memory-mapped ``.npy``:
+   the streamed mode's ids (k 300) equal world 1's, the assist's recall@10 >=
+   0.99 and the graphs' >= 0.95, every rank's #7 and #10 launches held bit
+   for bit in the rank; world 4's times are printed, not claimed. (a)'s
+   rows are made on the host while ``nvcc`` builds; (d) starts after (c)
+   and is waited for after phase 3's host-bound ingest, before phase 3
+   times anything on the card.
 Each configuration ends with its timing (CUDA events): QPS at b=256 and
 b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
 device path alone, the host share, then the profiler last: the device's
@@ -290,6 +314,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -1024,16 +1049,13 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                 held[exp, key] = max(held.get((exp, key), 0.0), err)
                 first.setdefault((exp, key), []).append((args, kwargs))
 
-    protocol = (exp_sq8i_v2.ITERS, exp_sq8i_v2.SAMPLES)  # the scripts' own, 64 x 3
-
-    def experiments(held):
-        """The four runs, each ``(name, results)`` as it ends; cut to
-        ``EXP_*`` batches and samples where every launch is held."""
-        iters, samples = (EXP_ITERS, EXP_SAMPLES) if held else protocol
-        exp_sq8i_v2.ITERS, exp_sq8i_v2.SAMPLES = iters, samples
-        exp_hamming_mxu.ITERS, exp_hamming_mxu.SAMPLES = iters, samples
-        topk_argv = ["--variants", ",".join(exp_topk.PORTED)] + (
-            ["--iters", str(EXP_TOPK_ITERS), "--samples", str(EXP_TOPK_SAMPLES)] if held else [])
+    def experiments():
+        """The four runs, each ``(name, results)`` as it ends, cut to
+        ``EXP_*`` batches and samples: every launch is held."""
+        exp_sq8i_v2.ITERS, exp_sq8i_v2.SAMPLES = EXP_ITERS, EXP_SAMPLES
+        exp_hamming_mxu.ITERS, exp_hamming_mxu.SAMPLES = EXP_ITERS, EXP_SAMPLES
+        topk_argv = ["--variants", ",".join(exp_topk.PORTED), "--iters", str(EXP_TOPK_ITERS),
+                     "--samples", str(EXP_TOPK_SAMPLES)]
         for exp, run in (("exp_sq8i_v2", lambda: exp_sq8i_v2.main([])),
                          ("exp_hamming_mxu", lambda: exp_hamming_mxu.main([])),
                          ("exp_topk", lambda: exp_topk.main(topk_argv)),
@@ -1049,7 +1071,7 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                 launch_counts[key] = 0
         before = {key: 0 for c in counters for key in c}
         t0 = time.perf_counter()
-        for exp, out in experiments(held=True):
+        for exp, out in experiments():
             torch.cuda.synchronize()
             runs[exp] = out
             counts[exp] = {key: n - before[key] for c in counters for key, n in c.items()
@@ -1059,9 +1081,7 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
                 + ", ".join(f"{k} {n}" for k, n in counts[exp].items()))
             hold_run(rec, exp)
             t0 = time.perf_counter()
-    print("experiments: every launch above held against its plain version; the timed run "
-          "follows, unrecorded, at the scripts' own protocol", flush=True)
-    timed = {exp: out for exp, out in experiments(held=False)}
+    print("experiments: every launch above held against its plain version", flush=True)
 
     # what comes out is right: the scripts' own agreement and recall lines
     r = {k: v["recall"] for k, v in runs["exp_sq8i_v2"]["results"].items()}
@@ -1081,7 +1101,7 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
     for name in ("row-gather", "row-gather double-buffered"):
         check(gr[name]["max_abs_err_vs_baseline"] <= 1e-3,
               f"exp_gather_kernel: {name} far from q @ corpus[idx].T: {gr[name]}")
-    print("experiments: timed run's results " + json.dumps(timed), flush=True)
+    print("experiments: results (the held run) " + json.dumps(runs), flush=True)
 
     # every one of the ten Pallas functions' counterparts ran in its run
     rows = {  # row -> (experiment, counter, source, replaced function)
@@ -2807,6 +2827,13 @@ def main() -> None:
     from velesdb_tpu_torch.experiments import kernels as xk
 
     counters = (bk.LAUNCHES, pk.LAUNCHES, ik.LAUNCHES, xk.LAUNCHES)
+    from velesdb_tpu_torch.tools import sharded_phase
+
+    # phase 14's north-star shard (~20 s of numpy) is made while nvcc builds
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    north_star = pool.submit(make_clustered, np.random.default_rng(42),
+                             sharded_phase.NS_ROWS + sharded_phase.NS_QUERIES, sharded_phase.NS_D)
+    pool.shutdown(wait=False)
     t0 = time.perf_counter()
     _cuda.build_all(LIBS)
     say(f"build {len(LIBS)} kernel libraries ({len(KERNELS)} kernels) in parallel: "
@@ -3059,8 +3086,17 @@ def main() -> None:
     del rx, rq, bits, aux, qbits, qi2, packed_r, qp, pen0, out, sq, rows8, args, rows, rp, rf
     torch.cuda.empty_cache()
 
+    # -- 14. multi-device search on torch.distributed: here, while the card
+    # is nearly empty (its world of 4 shares the card with this process) and
+    # before any profile (host-clock numbers read clean)
+    launches = {"sq8i_bucket": 0, "ivf_probe": 0}
+    phase("14. sharded")
+    finish_sharded = sharded_phase.sharded_phase(
+        sys.modules[__name__], counters, launches, errs, north_star=north_star.result(),
+        sift=(sift, sift_q))
+    del north_star
+
     tmp = tempfile.mkdtemp(prefix="velesdb_chip_smoke_")
-    launches = {}
     try:
         # -- 3. slice 1: SIFT-1M class through Database / Collection --------
         phase("3. sift1m FULL")
@@ -3069,11 +3105,15 @@ def main() -> None:
         col = db.create_collection("sift1m", SIFT_D, metric="euclidean")
         payloads = [{"cat": i % 8} for i in range(SIFT_N)]
         col.upsert_bulk(range(SIFT_N), sift, payloads)
-        say(f"sift1m ingest with payloads: {time.perf_counter() - t0:.2f} s")
+        say(f"sift1m ingest with payloads: {time.perf_counter() - t0:.2f} s (beside phase 14's "
+            f"world of 4)")
         t0 = time.perf_counter()
         col.refresh_device()
         torch.cuda.synchronize()
         say(f"sift1m device refresh (upload + pd shadow + ptile): {time.perf_counter() - t0:.2f} s")
+        # phase 14's world of 4 ran beside this host-bound ingest; it ends
+        # before anything here is timed on the card
+        finish_sharded()
         check(col.info()["serve_engine"] == "int8-assist-pd",
               f"serve_engine {col.info()['serve_engine']!r}, expected 'int8-assist-pd'")
 
@@ -3350,7 +3390,7 @@ def main() -> None:
             run.launched("filtered search_batch")
             qraw = colq.search_batch(sift_q[:256], k=K, _raw=True)
             run.launched("raw search_batch")
-        launches["sq8i_bucket"] = run.launches()
+        launches["sq8i_bucket"] += run.launches()
         sq8i_plain = bk.sq8i_bucket_ref
         sq8i_desc = (lambda qi, rows, *rest: f"sq8i_bucket B_pad {qi.shape[0]}, "
                      f"N {rows.shape[0]}, D_pad {rows.shape[1]}, chunk {rest[-1]}")
@@ -3548,7 +3588,7 @@ def main() -> None:
                   f"sift1m-ivf default profile did not probe at the downshifted ef {served}")
             i1 = col.search(sift_q[300], k=K)
             run.launched("search")
-        launches["ivf_probe"] = run.launches()
+        launches["ivf_probe"] += run.launches()
         errs["ivf_probe"] = max(errs["ivf_probe"], run.hold_all(ik.ivf_probe_ref, probe_desc))
         before = ik.LAUNCHES["ivf_probe"]
         i256 = col.search_batch(sift_q[:256], k=K, ef=128)

@@ -194,6 +194,12 @@ def test_port_never_imports_jax(tmp_path):
             httpd.shutdown()
             httpd.server_close()
             httpd.app.db.close()
+        import velesdb_tpu_torch.parallel, velesdb_tpu_torch.parallel.multihost
+        import velesdb_tpu_torch.tools.sharded_phase
+        mesh = velesdb_tpu_torch.parallel.make_mesh(device="cpu")
+        s = velesdb_tpu_torch.parallel.ShardedBruteForce(mesh, 16, "euclidean")
+        s.rebuild(x)
+        assert s.search(x[9:10], 3)[1][0, 0] == 9
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "lark" not in sys.modules
         assert not [m for m in sys.modules if m.split(".")[0] == "velesdb_tpu"]

@@ -273,3 +273,30 @@ def test_ivf_search_impl_matches_reference(carried, mask_kind):
     assert valid[live].all()
     if mask is not None:
         assert mask[live].all()
+
+
+def test_ivf_search_impl_exclude_rows_matches_reference(carried):
+    """``exclude_rows``, the self-kNN probe's option: stored rows as queries,
+    each leaving its own row out, k 12, nprobe 4, against the reference's
+    ``ivf_search_impl`` on the same partitions."""
+    j, t, _, x, valid = carried
+    rows = np.flatnonzero(valid)[::400][:10]
+    q = x[rows]
+    parts = (j._parts, j._part_scale, j._part_minv) if j.storage == "sq8" else j._parts
+    jv, ji = jivf.ivf_search_impl(jnp.asarray(q), j._centroids, j._cent_sq, parts, j._part_rows,
+                                  j._part_sq, None, k=12, nprobe=4, metric=j.metric,
+                                  exclude_rows=jnp.asarray(rows, jnp.int32))
+    tparts = (t._parts, t._part_scale, t._part_minv) if t.storage == "sq8" else t._parts
+    tv, ti = tivf.ivf_search_impl(torch.from_numpy(q), t._centroids, t._cent_sq, tparts,
+                                  t._part_rows, t._part_sq, None, k=12, nprobe=4,
+                                  metric=t.metric, exclude_rows=torch.from_numpy(rows))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-5)
+    _close_ids(ti.numpy(), np.asarray(ji))
+    assert not (ti.numpy() == rows[:, None]).any()
+    if j.metric.value == "dot_product":
+        return  # a row of larger norm can outscore a row's own dot
+    # without the option each stored row finds itself
+    _, own = tivf.ivf_search_impl(torch.from_numpy(q), t._centroids, t._cent_sq, tparts,
+                                  t._part_rows, t._part_sq, None, k=12, nprobe=4,
+                                  metric=t.metric)
+    assert (own.numpy() == rows[:, None]).any(axis=1).all()

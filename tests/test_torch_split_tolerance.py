@@ -529,3 +529,41 @@ def test_library_names_hash_the_headers_their_sources_include(tmp_path, monkeypa
     assert after["dense_bucket_tc"] != before["dense_bucket_tc"]
     assert after["sq8i_bucket"] != before["sq8i_bucket"]
     assert after["hamming_topk"] == before["hamming_topk"]  # includes no header
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 (a 10-bit significand), to nearest even."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x0FFF + ((b >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def test_fused_topk_oracle_check_rejects_a_single_tf32_pass():
+    """The float64-oracle check ``chip_smoke.py`` puts on #8 (phase 4b:
+    100k-768d, 100,000 x 768 cosine rows of ``make_clustered`` seed 42, its
+    first 256 held-out queries; recall@10 and recall@100 >= 0.999 and the
+    score error on shared ids <= 1e-4) against one TF32 pass, the arithmetic
+    ``fused_topk_tolerance`` cannot tell from the split at D 768: the
+    queries and rows rounded to TF32's 10-bit significand, the products
+    summed in fp32, times ``1/|c|``. The fp32 pass meets both bars; the TF32
+    pass fails the recall bar (about 0.9965 / 0.997), while its score error
+    (about 6e-5) stays under 1e-4: the recall bar is the check that tells
+    them apart."""
+    x = _clustered(np.random.default_rng(42), 110_000, 768).numpy()
+    c, q = torch.from_numpy(x[:100_000]), torch.from_numpy(x[100_000:100_256])
+    qn = q / q.norm(dim=1, keepdim=True)
+    inv = 1.0 / c.norm(dim=1)
+    passes = {"fp32": qn @ c.T * inv[None, :], "tf32": _tf32(qn) @ _tf32(c).T * inv[None, :]}
+    s64 = torch.cat([qn.double() @ (blk.double() / blk.double().norm(dim=1, keepdim=True)).T
+                     for blk in c.split(20_000)], dim=1)
+    seen = {}
+    for k in (10, 100):
+        ov, oi = torch.topk(s64, k, dim=1)
+        for name, s in passes.items():
+            v, i = torch.topk(s, k, dim=1)
+            recall = np.mean([len(set(a.tolist()) & set(b.tolist())) / k for a, b in zip(i, oi)])
+            same = i == oi
+            err = float(((v.double() - ov)[same].abs() / ov[same].abs()).max())
+            seen[name, k] = (recall, err)
+    assert all(seen["fp32", k][0] >= 0.999 and seen["fp32", k][1] <= 1e-4 for k in (10, 100))
+    assert all(seen["tf32", k][0] < 0.999 for k in (10, 100)), seen
+    assert all(seen["tf32", k][1] <= 1e-4 for k in (10, 100)), seen

@@ -9,9 +9,16 @@ integration (``match_exec.rs:697``). Execution:
 2. **Hop expansion** — each edge pattern expands every current binding's
    frontier with ONE vectorized CSR segment-gather per hop depth
    (``CsrView.neighbors_of``), honoring label filters and hop ranges.
-3. **WHERE** — per-binding predicates over node properties; ``similarity()``
-   thresholds score candidate node vectors in one device batch.
-4. **RETURN** — projection of vars / fields / similarity with ORDER BY/LIMIT.
+3. **WHERE** — predicates over node properties, each evaluated once per
+   distinct bound node; ``similarity()`` thresholds score candidate node
+   vectors in one device batch.
+4. **RETURN** — projection of vars / fields / similarity with ORDER BY/LIMIT,
+   each distinct node's properties read once.
+
+Bindings are columnar (:func:`_take`): one column per pattern variable, an
+int64 node array or, for an edge variable, a list of edge-id paths, all of
+one length and in the reference's row order. A row dict is built only for
+the result. (The reference builds one dict per binding at every hop.)
 """
 
 from __future__ import annotations
@@ -96,9 +103,9 @@ def execute_match(coll, stmt_or_text, params: dict | None = None,
         node_cands[start_idx] = set(_all_node_ids(coll))
 
     # -- expand bindings outward from the start node -------------------------
-    bindings = [
-        {_var(stmt, start_idx): int(n)} for n in sorted(node_cands[start_idx])
-    ]
+    bindings = {
+        _var(stmt, start_idx): np.asarray(sorted(node_cands[start_idx]), np.int64)
+    }
     # walk right then left from the start
     for i in range(start_idx, len(stmt.edges)):
         bindings = _expand(
@@ -122,11 +129,11 @@ def execute_match(coll, stmt_or_text, params: dict | None = None,
         if item.expr[0] == "similarity":
             cond = {"var": item.expr[1], "vector": item.expr[2], "kind": "sim"}
             _prime_sim_cache(coll, cond, bindings, params, proj_cache)
-            # re-key by (var, vector id) so _project can find it
+            # re-key by (var, vector id) so _project_rows can find it
             proj_cache[(item.expr[1], id(item.expr[2]))] = proj_cache.pop(
                 (item.expr[1], id(cond)), {}
             )
-    rows = [_project(coll, stmt, b, params, proj_cache) for b in bindings]
+    rows = _project_rows(coll, stmt, bindings, params, proj_cache)
 
     if with_scores:
         from velesdb_tpu_torch.graph.score_fusion import ScoreBreakdown
@@ -139,7 +146,8 @@ def execute_match(coll, stmt_or_text, params: dict | None = None,
                 got = cache.get((cond["var"], id(cond)))
                 if got:
                     sim_lookup.setdefault(cond["var"], {}).update(got)
-        for row, b in zip(rows, bindings):
+        for i, row in enumerate(rows):
+            b = _row(bindings, i)
             vector = None
             for var, scores in sim_lookup.items():
                 node = b.get(var)
@@ -186,11 +194,42 @@ def _node_candidates(coll, graph, pat, stmt, params) -> set[int] | None:
     return cands
 
 
+def _size(bindings: dict) -> int:
+    return len(next(iter(bindings.values())))
+
+
+def _take(bindings: dict, idx: np.ndarray) -> dict:
+    """The rows ``idx`` of columnar bindings (node columns are int64 arrays,
+    edge-variable columns lists of paths)."""
+    return {
+        var: col[idx] if isinstance(col, np.ndarray) else [col[i] for i in idx.tolist()]
+        for var, col in bindings.items()
+    }
+
+
+def _row(bindings: dict, i: int) -> dict:
+    """Binding ``i`` as one dict (nodes as Python ints)."""
+    return {
+        var: int(col[i]) if isinstance(col, np.ndarray) else col[i]
+        for var, col in bindings.items()
+    }
+
+
+def _per_node(col, fn) -> list:
+    """``fn(node)`` for every row of a node column, called once per distinct
+    node; a column of edge paths calls it per row."""
+    if not isinstance(col, np.ndarray):
+        return [fn(v) for v in col]
+    nodes, inv = np.unique(col, return_inverse=True)
+    vals = [fn(int(node)) for node in nodes.tolist()]
+    return [vals[i] for i in inv.tolist()]
+
+
 def _expand(coll, stmt, bindings, *, edge_idx, from_idx, to_idx, reverse,
-            cands, guardrails) -> list[dict]:
+            cands, guardrails) -> dict:
     """Expand every binding across one edge pattern (vectorized per hop)."""
-    if not bindings:
-        return []
+    if not _size(bindings):
+        return bindings
     edge = stmt.edges[edge_idx]
     graph = coll.ensure_graph()
     direction = edge.direction
@@ -204,10 +243,10 @@ def _expand(coll, stmt, bindings, *, edge_idx, from_idx, to_idx, reverse,
     if edge.labels:
         label_ids = {graph.edges.label_id(l) for l in edge.labels}
         if None in label_ids:
-            return []
+            return _take(bindings, np.empty(0, np.int64))
 
     # collect (frontier per unique source) once, then join back to bindings
-    srcs = np.unique(np.asarray([b[from_var] for b in bindings], np.int64))
+    srcs = np.unique(bindings[from_var])
 
     views = (
         [graph.edges.csr("out"), graph.edges.csr("in")]
@@ -260,7 +299,7 @@ def _expand_uniq(frontier_cur, frontier_src, view, label_ids):
 
 
 def _expand_arrays(bindings, srcs, views, edge, label_ids, from_var, to_var,
-                   cands, edge_var=None) -> list[dict]:
+                   cands, edge_var=None) -> dict:
     """Array-only hop expansion + join. With ``edge_var``, hop paths live in
     a parent-pointer trie (per-depth ``eids``/``parent`` int arrays) and only
     the rows surviving the join materialize python edge lists — the per-path
@@ -318,7 +357,7 @@ def _expand_arrays(bindings, srcs, views, edge, label_ids, from_var, to_var,
             rl_parts.append(np.zeros(len(srcs), np.int64))
             ri_parts.append(np.arange(len(srcs)))
     if not ro_parts:
-        return []
+        return _take(bindings, np.empty(0, np.int64))
     r_origin = np.concatenate(ro_parts)
     r_dst = np.concatenate(rd_parts)
     order = np.argsort(r_origin, kind="stable")
@@ -328,16 +367,14 @@ def _expand_arrays(bindings, srcs, views, edge, label_ids, from_var, to_var,
         r_idx = np.concatenate(ri_parts)[order]
 
     # join every binding to its source's reach rows — pure numpy
-    b_src = np.fromiter(
-        (b[from_var] for b in bindings), np.int64, len(bindings)
-    )
+    b_src = bindings[from_var]
     start = np.searchsorted(r_origin, b_src, "left")
     end = np.searchsorted(r_origin, b_src, "right")
     cnt = end - start
     total = int(cnt.sum())
     if total > 4 * MAX_BINDINGS:
         raise MatchError("MATCH bindings exceed guardrails")
-    brep = np.repeat(np.arange(len(bindings)), cnt)
+    brep = np.repeat(np.arange(len(b_src)), cnt)
     base = np.repeat(start, cnt)
     offs = np.arange(total) - np.repeat(
         np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt
@@ -349,10 +386,8 @@ def _expand_arrays(bindings, srcs, views, edge, label_ids, from_var, to_var,
     if cands is not None:
         keep &= np.isin(dst_out, np.fromiter(cands, np.int64, len(cands)))
     # bindings that already bind to_var must agree
-    if any(to_var in b for b in bindings):
-        bound = np.fromiter(
-            (b.get(to_var, -1) for b in bindings), np.int64, len(bindings)
-        )[brep]
+    if to_var in bindings:
+        bound = bindings[to_var][brep]
         keep &= (bound < 0) | (bound == dst_out)
     dst_out, brep, rows = dst_out[keep], brep[keep], rows[keep]
     if len(brep) > MAX_BINDINGS:
@@ -362,13 +397,10 @@ def _expand_arrays(bindings, srcs, views, edge, label_ids, from_var, to_var,
         if track
         else None
     )
-    out = []
-    for j, (bi, dst) in enumerate(zip(brep.tolist(), dst_out.tolist())):
-        nb = dict(bindings[bi])
-        nb[to_var] = dst
-        if track:
-            nb[edge_var] = paths[j]
-        out.append(nb)
+    out = _take(bindings, brep)
+    out[to_var] = dst_out
+    if track:
+        out[edge_var] = paths
     return out
 
 
@@ -377,7 +409,8 @@ def _materialize_paths(eids_lvl, parent_lvl, level_arr, idx_arr):
     class, backtrack parent pointers with numpy gathers (``d`` gathers for
     depth-``d`` rows), then one ``.tolist()``."""
     paths: list[list[int] | None] = [None] * len(level_arr)
-    for d in np.unique(level_arr):
+    depths = np.unique(level_arr)
+    for d in depths:
         sel = np.flatnonzero(level_arr == d)
         if d == 0:
             for slot in sel:
@@ -389,35 +422,43 @@ def _materialize_paths(eids_lvl, parent_lvl, level_arr, idx_arr):
             cols.append(eids_lvl[dd][cur])
             cur = parent_lvl[dd][cur]
         mat = np.stack(cols[::-1], axis=1)  # [n_d, d] edge ids, hop order
+        if len(depths) == 1:
+            return mat.tolist()
         for slot, p in zip(sel, mat.tolist()):
             paths[slot] = p
     return paths
 
 
-def _apply_where(coll, stmt, bindings, params) -> list[dict]:
+def _apply_where(coll, stmt, bindings, params) -> dict:
+    """The bindings that pass every WHERE condition, in order. Conditions
+    apply in turn to the rows that passed the ones before, as a per-binding
+    check that stops at the first failure would, and each is evaluated once
+    per distinct node."""
     # batch-score every similarity condition over its unique bound nodes in
     # ONE device call each (per-node scoring costs a dispatch round trip)
     sim_cache: dict[tuple, dict[int, float]] = {}
     for cond in stmt.where:
         if cond.get("kind") == "sim":
             _prime_sim_cache(coll, cond, bindings, params, sim_cache)
-    out = []
-    for b in bindings:
-        ok = True
-        for cond in stmt.where:
-            if not _check_cond(coll, cond, b, params, sim_cache):
-                ok = False
-                break
-        if ok:
-            out.append(b)
-    return out
+    alive = np.arange(_size(bindings))
+    for cond in stmt.where:
+        if not len(alive):
+            break
+        var = cond["var"]
+        if var not in bindings:
+            raise MatchError(f"unbound variable {var!r} in WHERE")
+        col = _take({var: bindings[var]}, alive)[var]
+        ok = _per_node(col, lambda node: _check_cond(coll, cond, {var: node}, params, sim_cache))
+        alive = alive[np.asarray(ok, bool)]
+    return _take(bindings, alive)
 
 
 def _prime_sim_cache(coll, cond, bindings, params, sim_cache) -> None:
     var = cond["var"]
-    nodes = sorted({b[var] for b in bindings if var in b and not isinstance(b[var], list)})
-    if not nodes:
+    col = bindings.get(var)
+    if not isinstance(col, np.ndarray) or not len(col):
         return
+    nodes = np.unique(col).tolist()
     vec = np.asarray(_resolve(cond["vector"], params), np.float32)
     scores = _batch_sim_scores(coll, vec, nodes)
     sim_cache[(var, id(cond))] = dict(zip(nodes, scores))
@@ -511,42 +552,42 @@ def _sim_score(coll, cond, node, params, sim_cache) -> float:
     return score
 
 
-def _project(coll, stmt, binding, params, proj_cache=None) -> dict:
+def _project_rows(coll, stmt, bindings, params, proj_cache) -> list[dict]:
+    """One result dict per binding: every RETURN item as a column, each
+    distinct node's properties, fields and similarity read once."""
     graph = coll.ensure_graph()
-    row = {}
-    items = stmt.returns or []
-    for item in items:
+    rows = [{} for _ in range(_size(bindings))]
+    if not rows:  # an empty join binds no later variable
+        return rows
+    for item in stmt.returns or []:
         expr = item.expr
+        if expr[0] in ("var", "field") and expr[1] not in bindings:
+            raise MatchError(f"unbound RETURN variable {expr[1]!r}")
         if expr[0] == "var":
             var = expr[1]
-            if var not in binding:
-                raise MatchError(f"unbound RETURN variable {var!r}")
-            val = binding[var]
-            if isinstance(val, list):  # edge variable: path of edges
-                row[item.alias or var] = [dict(graph.edges.edge(e)) for e in val]
+            col = bindings[var]
+            if isinstance(col, list):  # edge variable: path of edges
+                vals = [[dict(graph.edges.edge(e)) for e in path] for path in col]
             else:
-                row[item.alias or var] = {
-                    "id": val,
-                    "properties": _props_of(coll, val),
-                }
+                props = _per_node(col, lambda node: _props_of(coll, node))
+                vals = [{"id": v, "properties": p} for v, p in zip(col.tolist(), props)]
+            name = item.alias or var
         elif expr[0] == "field":
             var, path = expr[1], expr[2]
-            if var not in binding:
-                raise MatchError(f"unbound RETURN variable {var!r}")
-            row[item.alias or f"{var}.{path}"] = _node_value(
-                coll, binding[var], path
-            )
+            vals = _per_node(bindings[var], lambda node: _node_value(coll, node, path))
+            name = item.alias or f"{var}.{path}"
         elif expr[0] == "similarity":
-            node = binding[expr[1]]
-            cached = (proj_cache or {}).get((expr[1], id(expr[2])), {})
-            if node in cached:
-                row[item.alias or "similarity"] = cached[node]
-            else:
-                cond = {"var": expr[1], "vector": expr[2]}
-                row[item.alias or "similarity"] = _sim_score(
-                    coll, cond, node, params, {}
-                )
-    return row
+            var = expr[1]
+            cached = proj_cache.get((var, id(expr[2])), {})
+            cond = {"var": var, "vector": expr[2]}
+            vals = _per_node(bindings[var], lambda node: (
+                cached[node] if node in cached else _sim_score(coll, cond, node, params, {})))
+            name = item.alias or "similarity"
+        else:
+            continue
+        for row, v in zip(rows, vals):
+            row[name] = v
+    return rows
 
 
 def _order(rows, stmt) -> list[dict]:

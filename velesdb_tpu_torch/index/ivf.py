@@ -700,15 +700,16 @@ def _dedup_topk(vals, idx, *, k: int, higher_is_better: bool):
 
 
 def ivf_search_impl(q, cents, cent_sq, parts, part_rows, part_sq, mask, *, k: int, nprobe: int,
-                    metric):
+                    metric, exclude_rows=None):
     """Probing search in plain torch (reference ``:1018``): ``parts`` is
     either ``[P, L, D] f32`` or a ``(words int32, scale, minv)`` triple (SQ8
     storage, scored through the rank-1 affine identity on the unpacked
     codes). A mask prunes the routing to partitions that hold a masked row
     (a partition with none cannot contribute) and knocks masked rows out of
-    the scores. Returns ``(vals [B, k], row ids [B, k] int64)`` in the
-    metric's native orientation. (The reference's ``exclude_rows`` serves
-    its self-kNN builder, which waits for the graph port.)"""
+    the scores. ``exclude_rows [B]`` drops one row id per query from its
+    results (a self-kNN probe leaves the query's own row out), as the
+    reference's does (``:1112``). Returns ``(vals [B, k], row ids [B, k]
+    int64)`` in the metric's native orientation."""
     metric = DistanceMetric.parse(metric)
     quant = isinstance(parts, tuple)
     b, d = q.shape
@@ -754,6 +755,8 @@ def ivf_search_impl(q, cents, cent_sq, parts, part_rows, part_sq, mask, *, k: in
         ok = rows >= 0
         if mask is not None:
             ok = ok & mask[rows.clamp_min(0)]
+        if exclude_rows is not None:
+            ok = ok & (rows != exclude_rows[:, None])
         s = torch.where(ok, s, worst)
         rows = torch.where(ok, rows, -1)
         rv, pos = _best(torch.cat([rv, s], dim=1), k, hib)

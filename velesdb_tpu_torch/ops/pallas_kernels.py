@@ -177,6 +177,13 @@ def fused_topk_tolerance(q, rows, valid, aux, qq, k: int, metric):
     kernel that drops both ``lo`` products (its dots stray by about ``1e-4
     A``).
 
+    The gap: this bound also admits a single TF32 pass at D 768 (a CPU
+    emulation). The float64-oracle check ``chip_smoke.py`` adds on
+    100k-768d rejects one: recall@10 and recall@100 fall to about 0.997
+    against its 0.999 bar, though the score error (about 6e-5) stays under
+    its 1e-4 (``tests/test_torch_split_tolerance.py::
+    test_fused_topk_oracle_check_rejects_a_single_tf32_pass``).
+
     The cosine factor scales a dot's error by ``aux``, the euclidean ``- 2
     dot`` by 2 (the clamp at 0 shrinks it); the two ulps cover the rounding
     of the fixup. ``gap`` is the plain gap at each rank: the distance from
