@@ -98,6 +98,36 @@ Phases, in order; any failure exits nonzero:
    exact, the distance profile equal on >= 0.99 of positions (the bucket
    collision envelope). Recall after the rerank is printed, with no floor:
    sign sketches of this synthetic data are weak, a property of the method.
+6b. Slice 17, ``hamming-1m-256b`` (``hamming256_phase``, right after phase
+   6): 256-bit sign codes, the use of the reference's
+   ``BinaryQuantizedVector`` / ``hamming_distance_binary_fast`` (SimHash /
+   LSH sketches of embeddings for near-duplicate detection): the signs of
+   ``make_clustered`` (seed 106) as +-1 f32, 1,048,576 rows x 256 dims and
+   8,192 held-out queries. (a) a BINARY collection under the hamming
+   metric: ``search_batch`` at k 10, b 256 and 16, and ``search``, through
+   the storage gate and the auto-rerank, served by ``hamming-mxu`` (#5 at
+   D_pad 256; the 1 byte/bit shadow is 256 MiB); every launch held bit for
+   bit against its plain version on its own arguments; the returned
+   distances (integers: ties compared by value, not by id) equal the 10
+   best of the bucket winners (the best row of each 128-lane bucket, all a
+   bucket core can return) and the float64 oracle's 10 best on >= 0.99 of
+   positions (a bucket collision may take a row of a query: on an H100 one
+   of the 256 queries loses one so, as the reference's bucket cores would);
+   the gate's oversample and calibrated recall printed. (b)
+   the same collection rebuilt with
+   ``VELESDB_HAMMING_MXU_MAX_BYTES=0``: ``hamming-bucket`` (#4 at W 8),
+   the same checks. (c) a jaccard collection on the first 100,000 rows:
+   ``hamming-topk`` (#9 at W 8, k up to 320: ``search_batch_with_rerank``
+   at oversample 32), held bit for bit; recall@10 >= 0.95 against the
+   float64 jaccard oracle after the rerank (a row counts where its exact
+   jaccard reaches the oracle's 10th: sign codes tie often), unless the
+   gate stopped at its 32x cap, which is then printed. (d) times, records
+   and not claims: p50 and p99 of (a)'s ``search_batch`` over 30 calls
+   before the phase's profile, the device path alone, busy and idle share
+   from one profile of 8 calls at b 256, and #5, #4 and #9 at W 8 on CUDA
+   events against their bounds, plain versions and library calls
+   (``torch._int_mm`` on the unpacked 0/1 bytes). The kernels line keeps
+   phase 6's and 7's W 4 times; its launches add this phase's.
 7. Slice 2, ``100k-binary``: 100,000 x 100 cosine BINARY, below
    ``BUCKET_MIN_ROWS``, served by ``hamming-topk`` (#9): the raw pass equals
    the exact oracle's ids and distances. #9 (split across the card since
@@ -294,14 +324,16 @@ device path alone, the host share, then the profiler last: the device's
 busy time per call and its top kernels. Each kernel is timed at its slice
 shape against its plain version and its bound: the larger of its bytes over
 3.35 TB/s and its operations over their peak (int8 at 1,979 TOPS, bf16 and
-f16 at 989 TFLOP/s, fp32 at 67 TFLOP/s, popcount at 16 per SM per clock),
-for this run's inputs; the tensor-core kernels (#2, #3, #6, #8) also print
-the fp32 rate of their first designs, and the int8 ones (#5, #7, #12, #14
-hm: int8 products plus each epilogue's fp32 operations) the dp4a issue rate
-of theirs, and must beat the first designs' recorded times and the library
-yardstick (#1, #12 v5 and #14 hme too: int8 products plus 2 operations a
-score). Where a product and a bucket max
-compute the function (#1, #2, #2b, #3, #5, #6, #7), the kernel is timed
+f16 at 989 TFLOP/s, fp32 at 67 TFLOP/s), for this run's inputs; the
+Hamming kernels (#4, #5, #9) at the int8 tensor-core rate on the unpacked
+bits, the cheapest way the card has to count them (#4 and #9 also print
+their popcount issue share at 16 per SM per clock); the tensor-core
+kernels (#2, #3, #6, #8) also print the fp32 rate of their first designs,
+and the int8 ones (#5, #7, #12, #14 hm: int8 products plus each
+epilogue's fp32 operations) the dp4a issue rate of theirs, and must beat
+the first designs' recorded times and the library yardstick (#1, #12 v5
+and #14 hme too: int8 products plus 2 operations a score). Where a product
+and a bucket max compute the function (#1, #2, #2b, #3, #5, #6, #7), the kernel is timed
 against that library yardstick (``torch.mm``, ``torch._int_mm``, then the
 epilogue and ``amax`` over the ``[B, N/chunk, chunk/128, 128]`` view), its
 ``library_ms``; ``fused_topk`` against ``torch.topk(q @ c.T)``; #10 on f32
@@ -361,8 +393,10 @@ PEAK_TC16 = 989e12  # bf16 / f16 tensor cores, dense
 # bound_ms takes the peak of the products the kernel does: bf16/f16 at the
 # tensor-core rate (#2b; three split products a term for #2 on f32 rows, #3,
 # #6 and #8), int8 at the int8 tensor-core rate (#5, #7, #12) plus each
-# epilogue's fp32 operations. The fp32 rate or the dp4a issue rate of the
-# first designs is printed beside.
+# epilogue's fp32 operations. A Hamming distance over D bits is D int8
+# products of the unpacked 0/1 bits, so the packed popcount kernels (#4, #9)
+# take #5's bound, ``hamming_ops_ms``, over their packed bytes. The fp32
+# rate or the dp4a issue rate of the first designs is printed beside.
 F32_CORES = "at the fp32 CUDA-core rate of the first design"
 DP4A_FIRST = "at the dp4a issue rate of the first design"
 CARD = ""  # "name, power limit" from nvidia-smi, appended to every number
@@ -414,6 +448,10 @@ FIRST_GATHER_MS = {("row_gather", 8192): 0.0108, ("row_gather_db", 8192): 0.0090
                    ("row_gather", 262_144): 0.0862, ("row_gather_db", 262_144): 0.0865}
 GATHER_BEAM_R, GATHER_BEAM_SETS = 262_144, 8  # the beam's rows a step at b 256
 TOPK_M = 320  # 100k-binary's raw pass: the storage gate's oversample 32 x k 10
+# phase 6b, hamming-1m-256b: 256-bit sign codes of make_clustered (seed 106),
+# the 1M-row collection's held-out queries, and the jaccard collection's rows
+HAM_N, HAM_D, HAM_QUERIES, HAM_SEED = 1_048_576, 256, 8_192, 106
+JAC_N = 100_000
 # Phase 11: benchmarks/exp_hybrid.py at its knobs HYBRID_N / HYBRID_D
 # (hybrid-1m-128d), at its defaults (hybrid-100k-768d, the reference's config
 # #4), and as SQ8 cut to 262,144 rows (its host f32 rerank takes ~72 ms a
@@ -848,6 +886,13 @@ def int8_ops_ms(b, n, d_pad, epi_ops) -> float:
     return (2 * b * n * d_pad / PEAK_INT8 + epi_ops * b * n / PEAK_F32) * 1e3
 
 
+def hamming_ops_ms(b, n, bits) -> float:
+    """The least operations time of ``b x n`` Hamming distances over ``bits``
+    bits: the products of the unpacked bits at the int8 tensor-core rate and
+    one fp32 operation a distance (``|q| + |c| - 2 q.c``'s fold), as #5."""
+    return int8_ops_ms(b, n, bits, 1)
+
+
 def check_int8(name, ms, n, lib_ms, ms16, epi_ops, bytes_of) -> None:
     """A scan moved from dp4a onto the int8 tensor cores (#7, #5, #1) at
     B_pad 256 and 16, N ``n``, D_pad 128: print its bound against
@@ -1258,6 +1303,295 @@ def experiments_phase(torch, counters, kernel_row, launches, errs, dp4a_rate) ->
     gather_phase(torch, first, held, rows, kernel_row)
     for name in rows:
         errs[name] = held.get((rows[name][0], rows[name][1]), errs.get(name, 0.0))
+
+
+def hamming256_phase(torch, dev, counters, launches, errs, db, popc_rate, device_only) -> None:
+    """Phase 6b, ``hamming-1m-256b``: BINARY storage under the hamming and
+    jaccard metrics on 256-bit sign codes (the module docstring, 6b)."""
+    import velesdb_tpu_torch.index.brute as brute_mod
+    from velesdb_tpu_torch.ops import bucket_kernel as bk
+    from velesdb_tpu_torch.ops import pallas_kernels as pk
+    from velesdb_tpu_torch.ops.quantization import binary_quantize
+
+    t_phase = time.perf_counter()
+    x = make_clustered(np.random.default_rng(HAM_SEED), HAM_N + HAM_QUERIES, HAM_D)
+    codes = np.where(x >= 0, np.float32(1.0), np.float32(-1.0))
+    del x
+    corpus, queries = codes[:HAM_N], codes[HAM_N:]
+    say(f"hamming-1m-256b data ({HAM_N:,} x {HAM_D} +-1 sign codes, {HAM_QUERIES:,} held-out "
+        f"queries): {time.perf_counter() - t_phase:.2f} s")
+    # the float64 oracles on the card, over the 0/1 membership (v > 0.5)
+    bits64 = (torch.from_numpy(corpus).to(dev) > 0.5).double()
+    n64 = bits64.sum(1)
+
+    def oracle(qs, metric, rows, chunk=None):
+        """The 10 best exact values a query over the first ``rows`` rows and,
+        with ``chunk``, also the 10 best of the bucket winners: the best row
+        of each 128-lane bucket of each chunk, all that a bucket core can
+        return (``_bucket_safe`` bounds what it loses)."""
+        qa = (torch.from_numpy(qs).to(dev) > 0.5).double()
+        na = qa.sum(1, keepdim=True)
+        best = [None, None]
+        for c0 in range(0, rows, 1 << 18):
+            c1 = min(c0 + (1 << 18), rows)
+            inter = qa @ bits64[c0:c1].T
+            if metric == "hamming":
+                v = -(na + n64[c0:c1] - 2 * inter)
+            else:
+                union = na + n64[c0:c1] - inter
+                v = torch.where(union > 0, inter / union.clamp_min(1e-300), 1.0)
+            parts = [v] if chunk is None else [
+                v, v.view(len(qs), -1, chunk // 128, 128).amax(2).flatten(1)]
+            for j, p in enumerate(parts):
+                p = torch.topk(p, K, dim=1).values
+                best[j] = p if best[j] is None else torch.topk(torch.cat([best[j], p], 1), K,
+                                                               dim=1).values
+        out = [(-b if metric == "hamming" else b).cpu().numpy() for b in best if b is not None]
+        return out if chunk is not None else out[0]
+
+    def scores(rows):
+        return np.array([[h.score for h in row] for row in rows])
+
+    def same_distances(label, rows, qs, chunk):
+        """The returned distances against the 10 best of the bucket winners
+        (equal) and the float64 oracle's 10 best (equal but where a bucket
+        collision took a row: >= 0.99 of positions). ``chunk`` is the
+        serving core's (None for the exact ``hamming-topk``)."""
+        got = np.sort(scores(rows), axis=1)
+        want, want_b = oracle(qs, "hamming", HAM_N, chunk) if chunk else [
+            oracle(qs, "hamming", HAM_N)] * 2
+        check(got.shape == want_b.shape and np.array_equal(got, want_b),
+              f"{label}: returned distances differ from the 10 best of the bucket winners "
+              f"({int((got != want_b).any(axis=1).sum())} of {len(qs)} queries)")
+        lost = int((got != want).any(axis=1).sum())
+        agree = float((got == want).mean())
+        check(agree >= 0.99, f"{label}: returned distances agree with the float64 oracle's on "
+                             f"{agree:.4f} < 0.99 of positions")
+        print(f"{label}: returned distances equal the 10 best of the bucket winners (chunk "
+              f"{chunk}) on all {len(qs)} queries, and the float64 oracle's 10 best on "
+              f"{len(qs) - lost} ({agree:.4f} of positions; the rest lost a row to a bucket "
+              f"collision)", flush=True)
+
+    def core_chunk():
+        """The bucket chunk of the core that served the rerank's coarse pass
+        (``oversample x k`` rows), None where it is the exact one."""
+        engine = col._brute.serve_engine(int(round(col._rerank_oversample * K)))
+        return {"hamming-mxu": col._brute._chunk, "hamming-bucket": bk.HAMMING_CHUNK}.get(engine)
+
+    # -- (a) hamming, hamming-mxu (#5 at D_pad 256) ---------------------------
+    t0 = time.perf_counter()
+    col = db.create_collection("ham256", HAM_D, metric="hamming", storage_mode="binary")
+    col.upsert_bulk(range(HAM_N), corpus)
+    col.refresh_device()
+    torch.cuda.synchronize()
+    say(f"hamming-1m-256b ingest + refresh (pack + bit shadow): {time.perf_counter() - t0:.2f} s")
+    idx = col._brute
+    check(idx.n_pad == HAM_N and idx._packed.shape[1] == 8 and idx._ham_bits.shape[1] == 256,
+          f"hamming-1m-256b state: N_pad {idx.n_pad}, W {idx._packed.shape[1]}")
+    check(col.info()["serve_engine"] == "hamming-mxu",
+          f"serve_engine {col.info()['serve_engine']!r}, expected 'hamming-mxu'")
+    with MainPath(counters, bk, "hamming_mxu_gm", "hamming_mxu_gm") as run:
+        t0 = time.perf_counter()
+        a256 = col.search_batch(queries[:256], k=K)
+        say(f"hamming-1m-256b first search_batch b=256 with the storage gate: "
+            f"{time.perf_counter() - t0:.2f} s (oversample {col._rerank_oversample}, "
+            f"calibrated recall {col.info()['storage_recall']})")
+        run.launched("hamming search_batch b=256")
+        a16 = col.search_batch(queries[256:272], k=K)
+        run.launched("hamming search_batch b=16")
+        a1 = col.search(queries[300], k=K)
+        run.launched("hamming search")
+    launches["hamming_mxu_bucket"] += run.launches()
+    errs["hamming_mxu_bucket"] = max(errs["hamming_mxu_bucket"], run.hold_all(
+        bk.hamming_mxu_ref,
+        lambda qi, bits, aux, ch: (f"hamming_mxu_bucket B_pad {qi.shape[0]}, N {bits.shape[0]}, "
+                                   f"D_pad {bits.shape[1]}, chunk {ch}")))
+    for label, rows, qs in (("b=256", a256, queries[:256]), ("b=16", a16, queries[256:272]),
+                            ("search", [a1], queries[300:301])):
+        same_distances(f"hamming-1m-256b hamming-mxu {label}", rows, qs, core_chunk())
+    print(f"hamming-1m-256b storage gate: oversample {col._rerank_oversample}, calibrated "
+          f"recall {col.info()['storage_recall']} (the gate's oracle ranks ids, and sign codes "
+          f"tie: it stops at 32 when tied ids fall otherwise)", flush=True)
+
+    # -- (d) times, before any profile of this phase ---------------------------
+    m = int(round(col._rerank_oversample * K))
+    out = {}
+    for label, fn in (("hamming-1m-256b search_batch", lambda b: col.search_batch(b, k=K)),
+                      (f"hamming-1m-256b device path (m={m}, no rerank)",
+                       device_only(col, m))):
+        for b in (256, 16):
+            out[label, b] = (fn, *report_qps(torch, label, fn, queries, b))
+    for b in (256, 16):
+        host = 1.0 - out[f"hamming-1m-256b device path (m={m}, no rerank)", b][1] / out[
+            "hamming-1m-256b search_batch", b][1]
+        say(f"hamming-1m-256b search_batch b={b}: host share {host:.3f} (1 - device path / "
+            f"search_batch)")
+    # #5 and #4 at W 8 (D_pad 256) on the collection's rows
+    n, bits, aux, packed = idx.n_pad, idx._ham_bits, idx._ham_aux, idx._packed
+    qd = torch.from_numpy(queries[:256]).to(dev)
+    qbits = (qd >= 0).to(torch.int8)
+    qi = {b: (2 * qbits[:b]).contiguous() for b in (256, 16)}
+    qpk = {b: binary_quantize(qd[:b]) for b in (256, 16)}
+    pen0 = torch.where(idx._valid, 0.0, torch.inf)
+    qsum = {b: qbits[:b].to(torch.int32).sum(1) for b in (256, 16)}
+    csum = bits.to(torch.int32).sum(1)
+    for b in (256, 16):
+        errs["hamming_mxu_bucket"] = max(errs["hamming_mxu_bucket"], hold(
+            f"hamming_mxu_bucket W 8: B_pad {b}, N {n}, D_pad 256, chunk {CHUNK}",
+            bk.hamming_mxu_gm(qi[b], bits, aux, CHUNK), bk.hamming_mxu_ref(qi[b], bits, aux,
+                                                                           CHUNK)))
+        errs["hamming_bucket"] = max(errs["hamming_bucket"], hold(
+            f"hamming_bucket W 8: B_pad {b}, N {n}, chunk {bk.HAMMING_CHUNK}",
+            bk.hamming_bucket_gm(qpk[b], packed, pen0, bk.HAMMING_CHUNK),
+            bk.hamming_bucket_ref(qpk[b], packed, pen0, bk.HAMMING_CHUNK)))
+        ms5 = time_kernel(torch, lambda: bk.hamming_mxu_gm(qi[b], bits, aux, CHUNK))
+        plain5 = time_kernel(torch, lambda: bk.hamming_mxu_ref(qi[b], bits, aux, CHUNK), iters=3)
+        # torch._int_mm takes more than 16 rows: the library calls run at B 256
+        lib5 = lib4 = None
+        if b == 256:
+            lib5 = time_kernel(torch, lambda: bucket_max(torch._int_mm(qi[b], bits.T) - aux,
+                                                         CHUNK))
+            lib4 = time_kernel(torch, lambda: bucket_max(
+                -(qsum[b][:, None] + csum - torch._int_mm(qi[b], bits.T)).float() - pen0,
+                bk.HAMMING_CHUNK))
+        least, by = bound(int8_ops_ms(b, n, 256, 1),
+                          b * 256 + n * 256 + 4 * n + 8 * b * n // CHUNK * 128)
+        say(f"hamming_mxu_bucket W 8: B_pad {b}, N {n}, D_pad 256, chunk {CHUNK}: kernel "
+            f"{ms5:.4f} ms, plain torch {plain5:.4f} ms, bound {least:.4f} ms ({by}; "
+            f"{least / ms5:.4f} of it)" + ("" if lib5 is None else
+                                            f", library call {lib5:.4f} ms (torch._int_mm(2 "
+                                            f"qbits, bits.T) - aux, the bucket amax)"))
+        ms4 = time_kernel(torch, lambda: bk.hamming_bucket_gm(qpk[b], packed, pen0,
+                                                              bk.HAMMING_CHUNK))
+        plain4 = time_kernel(torch, lambda: bk.hamming_bucket_ref(qpk[b], packed, pen0,
+                                                                  bk.HAMMING_CHUNK), iters=3)
+        least, by = bound(hamming_ops_ms(b, n, 256),
+                          4 * b * 8 + 4 * n * 8 + 4 * n + 8 * b * n // bk.HAMMING_CHUNK * 128)
+        say(f"hamming_bucket W 8: B_pad {b}, N {n}, chunk {bk.HAMMING_CHUNK}: kernel "
+            f"{ms4:.4f} ms, plain torch {plain4:.4f} ms, bound {least:.4f} ms ({by}; "
+            f"{least / ms4:.4f} of it; popcount issue {b * n * 8 / popc_rate * 1e3:.4f} ms at "
+            f"16 per SM per clock, {b * n * 8 / popc_rate * 1e3 / ms4:.4f} of it)"
+            + ("" if lib4 is None else
+                                            f", library call {lib4:.4f} ms (|q| + |c| - "
+                                            f"torch._int_mm on the unpacked 0/1 bytes, the "
+                                            f"penalty, the bucket amax)"))
+    del qi, csum
+    fn, med, batches = out["hamming-1m-256b search_batch", 256]
+    report_busy(torch, "hamming-1m-256b search_batch b=256", fn, batches, med)
+
+    # -- (b) the same collection past the bit-shadow budget: hamming-bucket ----
+    os.environ["VELESDB_HAMMING_MXU_MAX_BYTES"] = "0"
+    try:
+        col._device_dirty = True
+        col.refresh_device()
+        check(idx._ham_bits is None, "hamming-1m-256b: bit shadow built past its budget")
+        check(col.info()["serve_engine"] == "hamming-bucket",
+              f"serve_engine {col.info()['serve_engine']!r}, expected 'hamming-bucket'")
+        with MainPath(counters, bk, "hamming_bucket_gm", "hamming_bucket_gm") as run:
+            b256 = col.search_batch(queries[:256], k=K)
+            run.launched("hamming-bucket search_batch b=256")
+            b16 = col.search_batch(queries[256:272], k=K)
+            run.launched("hamming-bucket search_batch b=16")
+            b1 = col.search(queries[300], k=K)
+            run.launched("hamming-bucket search")
+        launches["hamming_bucket"] += run.launches()
+        errs["hamming_bucket"] = max(errs["hamming_bucket"], run.hold_all(
+            bk.hamming_bucket_ref,
+            lambda q, pk_, pen, ch: (f"hamming_bucket B_pad {q.shape[0]}, N {pk_.shape[0]}, "
+                                     f"W {pk_.shape[1]}, chunk {ch}")))
+        for label, rows, qs in (("b=256", b256, queries[:256]), ("b=16", b16, queries[256:272]),
+                                ("search", [b1], queries[300:301])):
+            same_distances(f"hamming-1m-256b hamming-bucket {label}", rows, qs, core_chunk())
+    finally:
+        del os.environ["VELESDB_HAMMING_MXU_MAX_BYTES"]
+    db.delete_collection("ham256")
+    torch.cuda.empty_cache()
+
+    # -- (c) jaccard on the first 100,000 rows: hamming-topk (#9 at W 8) ------
+    colj = db.create_collection("jac256", HAM_D, metric="jaccard", storage_mode="binary")
+    colj.upsert_bulk(range(JAC_N), corpus[:JAC_N])
+    colj.refresh_device()
+    jdx = colj._brute
+    check(colj.info()["serve_engine"] == "hamming-topk",
+          f"serve_engine {colj.info()['serve_engine']!r}, expected 'hamming-topk'")
+    with MainPath(counters, brute_mod, "hamming_topk", "hamming_topk") as run:
+        t0 = time.perf_counter()
+        j256 = colj.search_batch(queries[:256], k=K)
+        say(f"jaccard 100,000 x 256 first search_batch b=256 with the storage gate: "
+            f"{time.perf_counter() - t0:.2f} s (oversample {colj._rerank_oversample}, "
+            f"calibrated recall {colj.info()['storage_recall']})")
+        run.launched("jaccard search_batch b=256")
+        colj.search_batch(queries[256:272], k=K)
+        run.launched("jaccard search_batch b=16")
+        colj.search(queries[300], k=K)
+        run.launched("jaccard search")
+        j32 = colj.search_batch_with_rerank(queries[:256], k=K, oversample=32)
+        run.launched("jaccard search_batch_with_rerank oversample 32")
+    launches["hamming_topk"] = launches.get("hamming_topk", 0) + run.launches()
+    ks9 = sorted({kw.get("k", 10) for _, kw, _ in run.calls})
+    check(TOPK_M in ks9, f"the jaccard main path launched #9 at k {ks9}, not {TOPK_M}")
+    errs["hamming_topk"] = max(errs["hamming_topk"], run.hold_all(
+        lambda q, p_, valid=None, k=10: pk.hamming_topk_ref(q, p_, valid, k),
+        lambda q, p_, valid=None, k=10: f"hamming_topk B {q.shape[0]}, N {p_.shape[0]}, "
+                                        f"W {p_.shape[1]}, k {k}"))
+    want = oracle(queries[:256], "jaccard", JAC_N)
+    kth = want[:, -1:]
+    for label, rows in (("search_batch", j256), ("search_batch_with_rerank x32", j32)):
+        got = scores(rows)
+        # each returned value is the row's exact jaccard
+        ids = torch.tensor([[h.id for h in row] for row in rows], device=dev)
+        qa = (torch.from_numpy(queries[:256]).to(dev) > 0.5).double()
+        cb = bits64[ids]
+        inter = torch.einsum("bd,bkd->bk", qa, cb)
+        union = qa.sum(1, keepdim=True) + cb.sum(2) - inter
+        exact = torch.where(union > 0, inter / union.clamp_min(1e-300), 1.0).cpu().numpy()
+        err = float(np.abs(got - exact).max())
+        check(err <= 1e-6, f"jaccard {label}: values {err:.3e} from the exact jaccard")
+        r = float((got >= kth - 1e-6).mean())
+        print(f"jaccard 100,000 x 256 {label}: recall@10 {r:.4f} against the float64 jaccard "
+              f"oracle (ties by value), values within {err:.1e} of exact", flush=True)
+        if label == "search_batch":
+            if r < 0.95:
+                check(colj._rerank_oversample == 32.0,
+                      f"jaccard recall@10 {r:.4f} < 0.95 with the gate at oversample "
+                      f"{colj._rerank_oversample}, below its cap")
+                print(f"jaccard recall@10 {r:.4f} < 0.95: the gate stopped at its 32x cap, its "
+                      f"calibrated recall {colj.info()['storage_recall']} still under the bar",
+                      flush=True)
+    # #9 at W 8 on the jaccard collection's rows
+    n9, w9 = jdx.n_pad, jdx._packed.shape[1]
+    q9 = binary_quantize(torch.from_numpy(queries[:256]).to(dev))
+    bits9 = (torch.from_numpy(corpus[:JAC_N]).to(dev) >= 0).to(torch.int8)
+    bits9 = torch.nn.functional.pad(bits9, (0, 0, 0, n9 - JAC_N))
+    qb9 = (torch.from_numpy(queries[:256]).to(dev) >= 0).to(torch.int8)
+    c9, s9 = bits9.to(torch.int32).sum(1), qb9.to(torch.int32).sum(1)
+    far = torch.where(jdx._valid, 0, 1 << 20).to(torch.int32)
+    n9_valid = int(jdx._valid.sum())  # the rows this run's data scores
+    for b, k9 in ((256, K), (256, TOPK_M), (16, K)):
+        out9 = pk.hamming_topk(q9[:b].contiguous(), jdx._packed, jdx._valid, k9)
+        torch.cuda.synchronize()
+        errs["hamming_topk"] = max(errs["hamming_topk"], hold(
+            f"hamming_topk W 8: B {b}, N {n9}, k {k9}", out9,
+            pk.hamming_topk_ref(q9[:b].contiguous(), jdx._packed, jdx._valid, k9)))
+        ms9 = time_kernel(torch, lambda: pk.hamming_topk(q9[:b].contiguous(), jdx._packed,
+                                                         jdx._valid, k9))
+        plain9 = time_kernel(torch, lambda: pk.hamming_topk_ref(q9[:b].contiguous(), jdx._packed,
+                                                                jdx._valid, k9), iters=3)
+        lib9 = None if b < 256 else time_kernel(torch, lambda: torch.topk(
+            s9[:, None] + (c9 + far) - 2 * torch._int_mm(qb9, bits9.T), k9, dim=1,
+            largest=False))
+        least, by = bound(hamming_ops_ms(b, n9_valid, 32 * w9),
+                          4 * b * w9 + 4 * n9 * w9 + n9 + 12 * b * k9)
+        popc9 = b * n9_valid * w9 / popc_rate * 1e3
+        say(f"hamming_topk W 8: B {b}, N {n9}, k {k9}: kernel {ms9:.4f} ms, plain torch "
+            f"{plain9:.4f} ms, bound {least:.4f} ms ({by}; {least / ms9:.4f} of it; popcount "
+            f"issue {popc9:.4f} ms, {popc9 / ms9:.4f} of it)"
+            + ("" if lib9 is None else f", library call {lib9:.4f} ms (|q| + |c| - 2 "
+                                       f"torch._int_mm on the unpacked 0/1 bytes, torch.topk)"))
+    db.delete_collection("jac256")
+    del bits64, n64, bits9, qb9
+    torch.cuda.empty_cache()
+    say(f"phase 6b hamming-1m-256b: {time.perf_counter() - t_phase:.1f} s")
 
 
 def graph_phase(torch, dev, counters, launches, errs, sift_oi, of_i) -> None:
@@ -4172,7 +4506,7 @@ def main() -> None:
             bk.HAMMING_CHUNK))
         kernel_row(
             "hamming_bucket", "hamming_bucket.cu", "velesdb_tpu/ops/bucket_kernel.py:362",
-            ms, plain, 256 * n * w / popc_rate * 1e3,
+            ms, plain, hamming_ops_ms(256, n, 32 * w),
             4 * 256 * w + 4 * n * w + 4 * n + 8 * 256 * n // bk.HAMMING_CHUNK * 128,
             errs["hamming_bucket"], ("popc", 256 * n * w, popc_rate), library_ms=lib,
         )
@@ -4260,6 +4594,10 @@ def main() -> None:
         del glove_all, glove, gq
         torch.cuda.empty_cache()
 
+        # -- 6b. slice 17: hamming-1m-256b ----------------------------------
+        phase("6b. hamming-1m-256b")
+        hamming256_phase(torch, dev, counters, launches, errs, db, popc_rate, device_only)
+
         # -- 7. slice 2: 100k-binary (hamming-topk) -------------------------
         phase("7. 100k-binary")
         small_all = make_clustered(np.random.default_rng(101), B100K_N + HELD_OUT, GLOVE_D)
@@ -4294,11 +4632,12 @@ def main() -> None:
         lib9 = {k9: time_kernel(torch, lambda: torch.topk(
             q9[:, None] + (c9 + far) - 2 * torch._int_mm(qb9, bits9.T), k9, dim=1,
             largest=False)) for k9 in (K, TOPK_M)}
-        ops9 = 256 * int(idx._valid.sum()) * w / popc_rate * 1e3  # one popcount a word
+        n_valid = int(idx._valid.sum())  # the rows this run's data scores
+        ops9 = hamming_ops_ms(256, n_valid, 32 * w)
         kernel_row(
             "hamming_topk", "hamming_topk.cu", "velesdb_tpu/ops/pallas_kernels.py:317",
             ms9[256, TOPK_M], plain, ops9, 4 * 256 * w + 4 * n * w + n + 12 * 256 * TOPK_M,
-            errs["hamming_topk"], ("popc", 256 * B100K_N * w, popc_rate),
+            errs["hamming_topk"], ("popc", 256 * n_valid * w, popc_rate),
             library_ms=lib9[TOPK_M],
         )
         for (b, k9), t in ms9.items():
@@ -4324,7 +4663,7 @@ def main() -> None:
             run.launched("search")
             sv, si = cols._search_device(small_q[:256], K, None)
             run.launched("raw device pass b=256")
-        launches["hamming_topk"] = run.launches()
+        launches["hamming_topk"] = launches.get("hamming_topk", 0) + run.launches()
         ks9 = sorted({kw.get("k", 10) for _, kw, _ in run.calls})
         check(TOPK_M in ks9, f"100k-binary's main path launched #9 at k {ks9}, not {TOPK_M}")
         print(f"100k-binary main path: #9 launched at k {ks9}", flush=True)

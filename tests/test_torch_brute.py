@@ -205,10 +205,27 @@ def test_pd_core_on_the_hybrid_recipe_equals_reference():
 
 
 def test_unported_storage_and_metric_raise():
-    """Hamming and jaccard serve on float storage (``fused-xla``);
-    on the quantized storages they still raise."""
+    """Hamming and jaccard serve on float storage (``fused-xla``) and on
+    BINARY storage (the Hamming cores); on SQ8 the index builds and its
+    search raises the reference's ``ValueError``, at the same point."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((300, 16)).astype(np.float32)
+    valid = np.ones(300, bool)
     for metric in ("hamming", "jaccard"):
         assert TIndex(16, metric, device="cpu").serve_engine() == "fused-xla"
-        for mode in ("sq8", "binary"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                TIndex(16, metric, mode, device="cpu")
+        b = TIndex(16, metric, "binary", device="cpu")
+        b.rebuild(x, valid)
+        assert b.serve_engine() == "hamming-topk"
+        jb = JIndex(16, JMetric.parse(metric), JMode.BINARY)
+        jb.rebuild(x, valid)
+        got, want = b.search(x[:5], 7), jb.search(x[:5], 7)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-6)
+        t, j = TIndex(16, metric, "sq8", device="cpu"), JIndex(16, JMetric.parse(metric), JMode.SQ8)
+        for idx in (t, j):
+            idx.rebuild(x, valid)
+        with pytest.raises(ValueError) as je:
+            j.search(x[:2], 3)
+        with pytest.raises(ValueError, match="not supported in sq8 mode") as te:
+            t.search(x[:2], 3)
+        assert str(te.value) == str(je.value)

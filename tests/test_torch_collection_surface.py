@@ -230,9 +230,21 @@ def test_set_metric_exact_search_matches_reference(tmp_path, metric, mode):
 
 @pytest.mark.parametrize("metric", ["hamming", "jaccard"])
 @pytest.mark.parametrize("mode", ["sq8", "binary"])
-def test_set_metrics_on_quantized_storage_still_raise(metric, mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BruteForceIndex(16, metric, mode, device="cpu")
+def test_set_metrics_on_quantized_storage_still_raise(metric, mode, tmp_path):
+    """SQ8 under a set metric still raises: a collection builds and its
+    search raises the reference's ``ValueError``. BINARY no longer raises:
+    it serves the reference's rows."""
+    ref, col, vecs = _pair(tmp_path, "setq", 16, 300, seed=5, metric=metric,
+                           storage_mode=mode)
+    if mode == "sq8":
+        with pytest.raises(ValueError) as je:
+            ref.search(vecs[0], k=5)
+        with pytest.raises(ValueError, match="not supported in sq8 mode") as te:
+            col.search(vecs[0], k=5)
+        assert str(te.value) == str(je.value)
+        assert isinstance(BruteForceIndex(16, metric, mode, device="cpu"), BruteForceIndex)
+        return
+    _same(col.search_batch(vecs[:6], k=8), ref.search_batch(vecs[:6], k=8))
 
 
 def test_dictionary_compression_roundtrip():

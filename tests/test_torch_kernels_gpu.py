@@ -1497,3 +1497,83 @@ def test_set_metric_search_card_equals_cpu(cuda, metric):
         cv, ci = on_card.search(q, 50, mask=m)
         hv, hi = on_cpu.search(q, 50, mask=m)
         assert torch.equal(ci.cpu(), hi) and torch.equal(cv.cpu(), hv)
+
+
+# -- BINARY under hamming and jaccard: #5, #4 and #9 at 256 bits (W 8 words,
+# D_pad 256), on sign codes (the signs of clustered Gaussians as +-1)
+
+
+def _sign_codes(rng, n, d=256):
+    return np.where(_clustered(rng, n, d) >= 0, 1.0, -1.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,n", [(256, 1_048_576), (16, 1_048_576), (13, 131_072)])
+def test_hamming_mxu_kernel_equals_plain_at_256_bits(cuda, b, n):
+    x = torch.from_numpy(_sign_codes(np.random.default_rng(b + 7), n + b)).to(cuda)
+    bits = bk.hamming_bits_rows(x[:n], 256)
+    assert bits.shape[1] == 256
+    csum = bits.to(torch.int32).sum(dim=1)
+    aux = torch.where(torch.arange(n, device=cuda) % 7 == 3, csum + bk._HAM_BIG, csum)
+    qi = torch.nn.functional.pad(2 * (x[n:] >= 0).to(torch.int8), (0, 0, 0, (-b) % 8))
+    before = bk.LAUNCHES["hamming_mxu_gm"]
+    gm, gi = bk.hamming_mxu_gm(qi, bits, aux.to(torch.int32), 8192)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["hamming_mxu_gm"] == before + 1
+    rm, ri = bk.hamming_mxu_ref(qi, bits, aux.to(torch.int32), 8192)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+@pytest.mark.parametrize("b,n", [(256, 1_048_576), (16, 131_072)])
+def test_hamming_bucket_kernel_equals_plain_at_8_words(cuda, b, n):
+    x = torch.from_numpy(_sign_codes(np.random.default_rng(b + 8), n + b)).to(cuda)
+    packed = binary_quantize(x[:n])
+    assert packed.shape[1] == 8
+    q = torch.nn.functional.pad(binary_quantize(x[n:]), (0, 0, 0, (-b) % 8))
+    pen = torch.where(torch.arange(n, device=cuda) % 5 == 1, torch.inf, 0.0)
+    before = bk.LAUNCHES["hamming_bucket_gm"]
+    gm, gi = bk.hamming_bucket_gm(q, packed, pen, 2048)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["hamming_bucket_gm"] == before + 1
+    rm, ri = bk.hamming_bucket_ref(q, packed, pen, 2048)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+
+
+@pytest.mark.parametrize("b,k", [(256, 10), (256, 320), (16, 320), (1, 40)])
+def test_hamming_topk_kernel_equals_plain_at_8_words(cuda, b, k):
+    rng = np.random.default_rng(b * k)
+    x = torch.from_numpy(_sign_codes(rng, 100_000 + b)).to(cuda)
+    packed, q = binary_quantize(x[:100_000]), binary_quantize(x[100_000:])
+    valid = torch.from_numpy(rng.random(100_000) > 0.1).to(cuda)
+    before = pk.LAUNCHES["hamming_topk"]
+    dist, idx = pk.hamming_topk(q, packed, valid, k)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["hamming_topk"] == before + 1
+    rd, ri = pk.hamming_topk_ref(q, packed, valid, k)
+    assert torch.equal(dist, rd) and torch.equal(idx, ri)
+
+
+@pytest.mark.parametrize("metric", ["hamming", "jaccard"])
+@pytest.mark.parametrize("n,engine,counter", [
+    (131_072, "hamming-mxu", "hamming_mxu_gm"),
+    (131_072, "hamming-bucket", "hamming_bucket_gm"),
+    (20_000, "hamming-topk", "hamming_topk"),
+])
+def test_set_metric_binary_serve_paths_launch_their_kernels(cuda, monkeypatch, metric, n,
+                                                             engine, counter):
+    """BINARY under a set metric on the card: each core launches its kernel
+    once a search and returns the CPU's ids and values (distances for
+    hamming, ``1 - d/256`` for jaccard)."""
+    if engine == "hamming-bucket":
+        monkeypatch.setenv("VELESDB_HAMMING_MXU_MAX_BYTES", "0")
+    x = _sign_codes(np.random.default_rng(n + 1), n + 16)
+    on_card = BruteForceIndex(256, metric, "binary", device=cuda)
+    on_cpu = BruteForceIndex(256, metric, "binary", device="cpu")
+    for index in (on_card, on_cpu):
+        index.rebuild(x[:n], np.ones(n, bool))
+        assert index.serve_engine(40) == engine
+    launches = pk.LAUNCHES if counter == "hamming_topk" else bk.LAUNCHES
+    before = launches[counter]
+    vals, ids = on_card.search(x[n:], 40)
+    assert launches[counter] == before + 1
+    want_vals, want_ids = on_cpu.search(x[n:], 40)
+    assert torch.equal(ids.cpu(), want_ids) and torch.equal(vals.cpu(), want_vals)

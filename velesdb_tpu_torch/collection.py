@@ -68,7 +68,13 @@ from velesdb_tpu_torch.index.graph_index import GraphIndex
 from velesdb_tpu_torch.index.ivf import IvfIndex
 from velesdb_tpu_torch.index.ivf import stage_mark as _mark
 from velesdb_tpu_torch.index.params import GraphParams, SearchQuality
-from velesdb_tpu_torch.ops.distance import DistanceMetric
+from velesdb_tpu_torch.ops.distance import (
+    SET_METRICS,
+    DistanceMetric,
+    host_bit_scores,
+    host_bits,
+    host_set_scores,
+)
 from velesdb_tpu_torch.ops.fused_rrf import rrf_fuse_topk
 from velesdb_tpu_torch.ops.quantization import SQ8Vectors, StorageMode
 from velesdb_tpu_torch.ops.streamed import streamed_topk
@@ -769,7 +775,8 @@ class Collection:
 
         The reference ranks with ``argsort`` of per-row f32 scores; this copy
         ranks with ``argpartition`` on euclidean ``|c|^2 - 2 q.c`` and cosine
-        dots over precomputed norms (the same order up to ties), and keeps
+        dots over precomputed norms (the same order up to ties), hamming and
+        jaccard as the reference does (:func:`_host_topk`), and keeps
         the probe set and its oracle ids for the row count and store version,
         so the gate's later rounds rerun only the serve path."""
         if self.storage_mode not in (StorageMode.SQ8, StorageMode.BINARY):
@@ -1340,11 +1347,28 @@ class Collection:
 
 def _host_topk(corpus: np.ndarray, live: np.ndarray, q: np.ndarray, kk: int,
                metric: DistanceMetric) -> np.ndarray:
-    """Each query's ``kk`` best live rows, best first, ``[B, kk]`` slots: one
-    f32 matrix product per block of 131,072 rows, ranked by ``|c|^2 - 2 q.c``
-    (euclidean), ``q.c / |c|`` (cosine) or ``q.c`` (the same order as the
-    exact scores, up to ties and rounding)."""
+    """Each query's ``kk`` best live rows, best first, ``[B, kk]`` slots.
+
+    Float metrics: one f32 matrix product per block of 131,072 rows, ranked
+    by ``|c|^2 - 2 q.c`` (euclidean), ``q.c / |c|`` (cosine) or ``q.c`` (the
+    same order as the exact scores, up to ties and rounding). Set metrics:
+    the exact scores of every row (:func:`host_set_scores`, equal to the
+    reference's), dead rows at the worst score, and the reference oracle's
+    own ranking, ``np.argsort`` of each full row (``collection.py:701-708``):
+    integer distances tie often, and the gate's recall counts ids, so the
+    ties must fall as the reference's do."""
     kk = min(kk, len(corpus))
+    if metric in SET_METRICS:
+        hib = metric.higher_is_better
+        cb = host_bits(corpus)
+        nb = cb.sum(axis=1, dtype=np.float32)
+        out = np.empty((len(q), kk), np.int64)
+        for r0 in range(0, len(q), 16):
+            s = host_bit_scores(host_bits(q[r0 : r0 + 16]), cb, nb, metric)
+            s = np.where(live[None, :], s, -np.inf if hib else np.inf)
+            for i, row in enumerate(s):
+                out[r0 + i] = np.argsort(-row if hib else row)[:kk]
+        return out
     best_s = np.zeros((len(q), 0), np.float32)
     best_i = np.zeros((len(q), 0), np.int64)
     for c0 in range(0, len(corpus), 1 << 17):
@@ -1371,7 +1395,10 @@ def _host_topk(corpus: np.ndarray, live: np.ndarray, q: np.ndarray, kk: int,
 
 def _host_scores(q: np.ndarray, vecs: np.ndarray, metric: DistanceMetric):
     """Exact f32 scores of one query against a few candidate rows, in numpy
-    (reference ``collection.py:1775``, the three float metrics)."""
+    (reference ``collection.py:1775-1793``): hamming and jaccard by
+    :func:`host_set_scores`, whose f32 values equal the reference's."""
+    if metric in SET_METRICS:
+        return host_set_scores(q[None, :], vecs, metric)[0]
     dots = vecs @ q
     if metric is DistanceMetric.DOT_PRODUCT:
         return dots

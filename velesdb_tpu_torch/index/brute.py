@@ -32,10 +32,16 @@ does:
   ``sq8-bucket`` (the SQ8 mode of ``csrc/dense_bucket_tc.cu``, block-packed
   words unpacked on the tensor cores) where it holds
   and D >= ``_SQ8I_MAX_DIM``, else ``sq8-streamed`` (plain torch).
-- BINARY (packed sign bits): ``hamming-mxu`` (``csrc/sq8i_bucket.cu``)
-  while the 1 byte/bit shadow fits ``VELESDB_HAMMING_MXU_MAX_BYTES``, else
-  ``hamming-bucket`` (``csrc/hamming_bucket.cu``) where the guard holds, else
-  ``hamming-topk`` (``csrc/hamming_topk.cu``, exact).
+- BINARY (packed sign bits, ``v >= 0``), under every metric: ``hamming-mxu``
+  (``csrc/sq8i_bucket.cu``) while the 1 byte/bit shadow fits
+  ``VELESDB_HAMMING_MXU_MAX_BYTES``, else ``hamming-bucket``
+  (``csrc/hamming_bucket.cu``) where the guard holds, else ``hamming-topk``
+  (``csrc/hamming_topk.cu``, exact). Values are the Hamming distance of the
+  sign bits for hamming and euclidean, ``1 - dist/dim`` for the
+  higher-is-better metrics (cosine, dot, jaccard), as in the reference
+  (``brute.py:577-659``; its CPU path ``_fused_search`` computes the same).
+- SQ8 with hamming or jaccard builds and raises the reference's
+  ``ValueError`` at search (``brute.py:920``).
 
 There is no fallback between cores at run time: a failing kernel raises.
 ``_SQ8I_MAX_DIM`` is the reference's build-time dispatch rule (``:79``), read
@@ -73,7 +79,15 @@ from velesdb_tpu_torch.ops.bucket_kernel import (
     sq8pd_ptile,
     sq8pd_rerank_topk,
 )
-from velesdb_tpu_torch.ops.distance import DistanceMetric, binarize, normalize, set_scores
+from velesdb_tpu_torch.ops.distance import (
+    SET_METRICS,
+    DistanceMetric,
+    binarize,
+    hamming_distances,
+    normalize,
+    pairwise_scores,
+    set_scores,
+)
 from velesdb_tpu_torch.ops.pallas_kernels import hamming_topk
 from velesdb_tpu_torch.ops.quantization import (
     STORAGE_DTYPE,
@@ -81,6 +95,7 @@ from velesdb_tpu_torch.ops.quantization import (
     StorageMode,
     binary_quantize,
     sq8_dequantize,
+    sq8_dot_scores,
     sq8_pack_blocked,
     sq8_quantize,
 )
@@ -89,22 +104,13 @@ from velesdb_tpu_torch.ops.topk import DENSE_ELEMS, pad_mask
 
 __all__ = ["BruteForceIndex", "pad_rows", "state_from_jax"]
 
-_METRICS = (DistanceMetric.COSINE, DistanceMetric.EUCLIDEAN, DistanceMetric.DOT_PRODUCT)
-_SET_METRICS = (DistanceMetric.HAMMING, DistanceMetric.JACCARD)
 _FLOAT_MODES = (StorageMode.FULL, StorageMode.F16, StorageMode.BF16)
-_MODES = (*_FLOAT_MODES, StorageMode.SQ8, StorageMode.BINARY)
 
 # The reference's dispatch constant (``brute.py:79``): the per-row int8 shadow
 # (FULL) and int8 rows (SQ8) are built below this dim; at or above it FULL
 # builds the split-bf16 (hi, lo) shadow and SQ8 the block-packed words.
 # Read at each rebuild.
 _SQ8I_MAX_DIM = [1 << 30]
-
-
-def not_in_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to velesdb_tpu_torch yet (see ROADMAP.md)"
-    )
 
 
 def _ham_mxu_max_bytes() -> int:
@@ -179,15 +185,6 @@ class BruteForceIndex:
         self.dim = int(dim)
         self.metric = DistanceMetric.parse(metric)
         self.storage_mode = StorageMode.parse(storage_mode)
-        if self.storage_mode not in _MODES:
-            raise not_in_slice(f"storage_mode={self.storage_mode.value!r}")
-        if self.metric not in _METRICS and not (
-            self.metric in _SET_METRICS and self.storage_mode in _FLOAT_MODES
-        ):
-            raise not_in_slice(
-                f"exact search with metric={self.metric.value!r} on "
-                f"storage_mode={self.storage_mode.value!r}"
-            )
         self.device = torch.device(device)
         self.n_pad = 0
         self._chunk = 0  # bucket_chunk(n_pad): the one chunk rule of #1/#7/#5
@@ -230,7 +227,7 @@ class BruteForceIndex:
         vmask[:used] = torch.from_numpy(np.array(valid, dtype=bool)).to(self.device)
         self._reset(n_pad, vmask)
         mode = self.storage_mode
-        if self.metric in _SET_METRICS:
+        if self.metric in SET_METRICS and mode in _FLOAT_MODES:
             # membership of the stored (possibly half-rounded) values, once;
             # no search of these metrics reads the float rows
             self._set_bits = binarize(x.to(STORAGE_DTYPE[mode]))
@@ -315,7 +312,13 @@ class BruteForceIndex:
         an assist core). The single source of the dispatch rule for
         :meth:`search` and :meth:`serve_engine`."""
         mode, n_pad = self.storage_mode, self.n_pad
-        if self.metric in _SET_METRICS:
+        if mode is StorageMode.BINARY:  # every metric scores the sign bits
+            if self._ham_bits is not None and _bucket_safe(n_pad, self._chunk, k):
+                return "hamming-mxu", 0
+            if _bucket_safe(n_pad, HAMMING_CHUNK, k):
+                return "hamming-bucket", 0
+            return "hamming-topk", 0
+        if self.metric in SET_METRICS and mode in _FLOAT_MODES:
             return "fused-xla", 0
         if mode in _FLOAT_MODES:  # reference ``:373-400``
             if self.dim >= 512:
@@ -329,15 +332,9 @@ class BruteForceIndex:
             if _bucket_safe(n_pad, self._chunk, k):
                 return ("split-bf16" if self._full_hl is not None else "bucket-f32"), 0
             return "streamed-scan", 0
-        if mode is StorageMode.SQ8:
-            if _bucket_safe(n_pad, self._chunk, k):
-                return ("sq8-int8" if self._sq8_rows8 is not None else "sq8-bucket"), 0
-            return "sq8-streamed", 0
-        if self._ham_bits is not None and _bucket_safe(n_pad, self._chunk, k):
-            return "hamming-mxu", 0
-        if _bucket_safe(n_pad, HAMMING_CHUNK, k):
-            return "hamming-bucket", 0
-        return "hamming-topk", 0
+        if _bucket_safe(n_pad, self._chunk, k):
+            return ("sq8-int8" if self._sq8_rows8 is not None else "sq8-bucket"), 0
+        return "sq8-streamed", 0
 
     def serve_engine(self, k: int = 10) -> str:
         """Name of the core a ``search(..., k)`` would run right now."""
@@ -348,6 +345,7 @@ class BruteForceIndex:
         int64)`` on the index's device in the metric's native orientation;
         empty slots are id -1. BINARY storage scores Hamming distance of the
         sign bits (``1 - dist/dim`` for similarity metrics)."""
+        self._refuse_sq8_set_metric()
         q = torch.atleast_2d(
             torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         ).contiguous()
@@ -421,6 +419,35 @@ class BruteForceIndex:
             return torch.where(idx < 0, -torch.inf, sim), idx
         return dist, idx
 
+    def _refuse_sq8_set_metric(self) -> None:
+        """SQ8 has no set-metric scores: the reference raises this at search
+        (``_sq8_metric_scores``, ``brute.py:920``)."""
+        if self.storage_mode is StorageMode.SQ8 and self.metric in SET_METRICS:
+            raise ValueError(f"metric {self.metric} not supported in sq8 mode")
+
+    def scores(self, queries) -> torch.Tensor:
+        """``[B, N_pad]`` scores of every padded slot, knocked-out ones
+        included, in the metric's native direction (reference ``:450``)."""
+        self._refuse_sq8_set_metric()
+        q = torch.atleast_2d(
+            torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+        )
+        mode, metric = self.storage_mode, self.metric
+        if mode is StorageMode.BINARY:
+            d = hamming_distances(binary_quantize(q), self._packed).float()
+            return 1.0 - _div(d, float(self.dim)) if metric.higher_is_better else d
+        if metric in SET_METRICS:
+            return set_scores(q, self._set_bits, self._set_count, metric)
+        if mode in _FLOAT_MODES:
+            return pairwise_scores(q, self._full, metric)
+        dots = sq8_dot_scores(q, self._sq8)
+        if metric is DistanceMetric.DOT_PRODUCT:
+            return dots
+        if metric is DistanceMetric.COSINE:
+            denom = torch.linalg.vector_norm(q, dim=-1, keepdim=True) * self._sq_norm[None, :]
+            return torch.where(denom > 1e-30, dots / denom.clamp_min(1e-30), 0.0)
+        qq = torch.sum(q * q, dim=-1, keepdim=True)
+        return torch.sqrt((qq + self._sq_norm[None, :] - 2.0 * dots).clamp_min(0.0))
 
     def _set_search(self, q: torch.Tensor, k: int, valid: torch.Tensor):
         """``fused-xla``: exact hamming / jaccard top-k over the binarized

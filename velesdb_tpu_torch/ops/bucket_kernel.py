@@ -67,7 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from velesdb_tpu_torch.ops import _cuda
-from velesdb_tpu_torch.ops.distance import DistanceMetric, normalize
+from velesdb_tpu_torch.ops.distance import DistanceMetric, hamming_distances, normalize
 from velesdb_tpu_torch.ops.quantization import sq8_unpack_blocked
 
 __all__ = [
@@ -727,31 +727,6 @@ def hamming_mxu_rerank_topk(queries, qbits, rows_bits, aux, corpus, *, k, m, met
 # ---------------------------------------------------------------------------
 
 _HAM_MAX_WORDS = 256
-
-
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Bit count of 32-bit values held in int64 ``[0, 2^32)`` (SWAR)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
-
-
-def hamming_distances(q: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """Exact ``[B, N]`` int32 Hamming distances between packed words, in
-    row blocks that keep each int64 intermediate near 2^24 elements."""
-    b, w = q.shape
-    n = packed.shape[0]
-    out = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    step = max(1, (1 << 24) // max(b, 1))
-    q64 = q.to(torch.int64)
-    for r0 in range(0, n, step):
-        c = packed[r0 : r0 + step].to(torch.int64)
-        acc = torch.zeros((b, c.shape[0]), dtype=torch.int64, device=q.device)
-        for i in range(w):
-            acc += _popcount32((q64[:, i, None] ^ c[None, :, i]) & 0xFFFFFFFF)
-        out[:, r0 : r0 + c.shape[0]] = acc.to(torch.int32)
-    return out
 
 
 def _check_packed(q, packed, pen, chunk):

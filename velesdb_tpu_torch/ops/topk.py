@@ -2,13 +2,16 @@
 
 Counterpart of ``velesdb_tpu/ops/topk.py``. Results come best-first in the
 metric's native orientation; an empty slot (a masked or missing entry) is
-id ``-1`` with value ``-inf`` (similarity) or ``+inf`` (distance).
+id ``-1`` with value ``-inf`` (similarity) or ``+inf`` (distance). Scores,
+masks and ids may be tensors or host arrays, as in the reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from velesdb_tpu_torch.ops.distance import as_tensor
 
 __all__ = ["top_k", "merge_top_k", "mask_scores", "pad_mask", "DENSE_ELEMS"]
 
@@ -33,10 +36,11 @@ def pad_mask(mask, n_pad: int, device):
 
 def mask_scores(scores: torch.Tensor, mask, higher_is_better: bool) -> torch.Tensor:
     """Set masked-out entries (``mask`` False) to the worst possible score."""
+    scores = as_tensor(scores)
     if mask is None:
         return scores
     worst = -torch.inf if higher_is_better else torch.inf
-    return torch.where(mask, scores, worst)
+    return torch.where(as_tensor(mask).to(scores.device, torch.bool), scores, worst)
 
 
 def top_k(scores: torch.Tensor, k: int, higher_is_better: bool = True, mask=None):
@@ -50,6 +54,7 @@ def top_k(scores: torch.Tensor, k: int, higher_is_better: bool = True, mask=None
 def merge_top_k(values: torch.Tensor, indices: torch.Tensor, k: int,
                 higher_is_better: bool = True):
     """Merge candidate lists ``[..., S, K']`` (or ``[..., M]``) into one top-k."""
+    values, indices = as_tensor(values), as_tensor(indices)
     if values.ndim > 2:
         values = values.reshape(*values.shape[:-2], -1)
         indices = indices.reshape(*indices.shape[:-2], -1)
