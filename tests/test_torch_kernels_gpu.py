@@ -221,6 +221,55 @@ def test_hamming_bucket_kernel_equals_plain(cuda, b, d, n, chunk):
     assert torch.equal(gm, rm) and torch.equal(gi, ri)
 
 
+def _hamming_edge_inputs(cuda, w, b, n, chunk, pens):
+    """Random packed words (every bit past D set too: the kernel takes any
+    words): 15% of rows knocked out, bucket lane 5 of chunk 0 knocked out in
+    every slice, the last chunk wholly knocked out, lane 9 of chunk 0 holding
+    one row in every slice; ``pens == "odd"`` adds finite and -0.0 penalties
+    to a few rows of every chunk but the last, which send their threads to
+    the kernel's float select part way through a chunk."""
+    g = torch.Generator(device=cuda).manual_seed(w * 1000 + b)
+    packed = torch.randint(-(1 << 31), 1 << 31, (n, w), dtype=torch.int64, device=cuda,
+                           generator=g).to(torch.int32)
+    packed[9 + 128:chunk:128] = packed[9]
+    pen = torch.where(torch.rand(n, device=cuda, generator=g) < 0.15, torch.inf, 0.0)
+    pen[5:chunk:128] = torch.inf
+    pen[n - chunk:] = torch.inf
+    if pens == "odd":
+        pick = torch.randint(0, n - chunk, (max(4, n // 512),), device=cuda, generator=g)
+        vals = torch.tensor([0.5, 3.0, 17.25, -0.0, -2.0], device=cuda)
+        pen[pick] = vals[torch.arange(pick.numel(), device=cuda) % 5]
+    pen[9:chunk:128] = 0.0
+    q = torch.randint(-(1 << 31), 1 << 31, (b, w), dtype=torch.int64, device=cuda,
+                      generator=g).to(torch.int32)
+    q[b // 2] = packed[9]  # a query at distance 0 from lane 9's rows
+    return q, packed, pen
+
+
+@pytest.mark.parametrize("pens", ["serve", "odd"])
+@pytest.mark.parametrize("w,b,n,chunk", [
+    (1, 8, 16_384, 128), (1, 24, 65_536, 8192), (3, 16, 16_384, 1024), (4, 256, 131_072, 2048),
+    (4, 264, 65_536, 128), (4, 16, 131_072, 2048), (8, 256, 65_536, 8192),
+    (8, 264, 131_072, 2048), (8, 8, 65_536, 2048), (24, 24, 16_384, 1024),
+    (24, 264, 65_536, 2048), (256, 8, 8192, 1024), (256, 24, 16_384, 8192),
+    (256, 264, 16_384, 2048),
+])
+def test_hamming_bucket_kernel_edges(cuda, w, b, n, chunk, pens):
+    """#4 on the int8 tensor cores at the edges of its tiling: W 1 to 256
+    (one step a slice up to W 4, then one a 4 words; NQ 16 at W 256), B_pad
+    8 to 264 (a ragged last query tile), chunk 128 to 8,192, knocked-out
+    lanes and chunks, ties across slices, and the float select."""
+    q, packed, pen = _hamming_edge_inputs(cuda, w, b, n, chunk, pens)
+    before = bk.LAUNCHES["hamming_bucket_gm"]
+    gm, gi = bk.hamming_bucket_gm(q, packed, pen, chunk)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["hamming_bucket_gm"] == before + 1
+    rm, ri = bk.hamming_bucket_ref(q, packed, pen, chunk)
+    assert torch.equal(gm, rm) and torch.equal(gi, ri)
+    assert torch.equal(gm.view(torch.int32), rm.view(torch.int32))  # -0.0 included
+    assert bool((gi[b // 2, 9] == 9).item()) and float(gm[b // 2, 9]) == 0.0
+
+
 @pytest.mark.parametrize("b,d,n,k", [(13, 100, 106_496, 10), (1, 100, 4096, 1),
                                      (16, 768, 20_000, 100), (40, 32, 3000, 64),
                                      (8, 100, 4096, 4096)])

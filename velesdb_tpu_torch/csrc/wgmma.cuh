@@ -1,10 +1,11 @@
 // wgmma.cuh — the Hopper tensor-core building blocks shared by the wgmma
 // kernels (dense_bucket_tc.cu: #2b, #3, #2 on f32 rows and #6; fused_topk.cu:
-// #8; sq8i_bucket.cu: #7, #12 and #5).
+// #8; sq8i_bucket.cu: #7, #12 and #5; hamming_bucket.cu: #4).
 //
 // - wgmma.mma_async m64nNk16 (N = 8 .. 128) on bf16 or f16 operands and
 //   m64nNk32 on s8 operands, both K-major in shared memory, fp32 or s32
-//   accumulators in registers; the byte packing of the bucket select;
+//   accumulators in registers, and m64nNk32 on s8 with A in registers; the
+//   byte packing of the bucket select;
 // - the shared-memory matrix descriptor of the 128-byte-swizzled K-major
 //   layout (8-row groups 1024 bytes apart) and the swizzle itself;
 // - 16-byte cp.async with zero fill, its groups, and the proxy fence that
@@ -150,6 +151,69 @@ __device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db, int s
   } else {
     static_assert(NQ == 128, "query tile of 8, 16, 32, 64 or 128");
     VDB_WGMMA_N128(VDB_S8(128), "+r", "p");
+  }
+}
+
+// The integer form with A in registers (hamming_bucket.cu): four b32 a
+// thread, each four int8 of the A tile, laid out as mma.m16n8k32's A
+// fragment a warp (warp w: rows 16 w .. 16 w + 15; lane l: a[0] row l / 4,
+// K 4 (l % 4) .. + 3; a[1] row l / 4 + 8; a[2] and a[3] the same rows at K
+// 16 + 4 (l % 4) .. + 3). The registers are read asynchronously: they keep
+// their values until the group's wgmma.wait_group.
+#define VDB_WGMMA_RS_N8(INSTR)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n" INSTR " "         \
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p;\n}\n"             \
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define VDB_WGMMA_RS_N16(INSTR)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" INSTR " "        \
+               "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n" \
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),             \
+                 "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define VDB_WGMMA_RS_N32(INSTR)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" INSTR " "        \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, "                           \
+               "%8, %9, %10, %11, %12, %13, %14, %15}, "                     \
+               "{%16, %17, %18, %19}, %20, p;\n}\n"                          \
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),             \
+                 "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),             \
+                 "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),           \
+                 "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])          \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define VDB_WGMMA_RS_N64(INSTR)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" INSTR " "        \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, "                           \
+               "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
+               "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
+               "%24, %25, %26, %27, %28, %29, %30, %31}, "                   \
+               "{%32, %33, %34, %35}, %36, p;\n}\n"                          \
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),             \
+                 "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),             \
+                 "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),           \
+                 "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),         \
+                 "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),         \
+                 "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),         \
+                 "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),         \
+                 "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])          \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+// d += A . B^T over one K step of 32 int8, A from the registers ``a``.
+template <int NQ>
+__device__ __forceinline__ void wgmma_s8_rs(int* d, const uint32_t* a, uint64_t db,
+                                            int scale_d) {
+  if constexpr (NQ == 8) {
+    VDB_WGMMA_RS_N8(VDB_S8(8));
+  } else if constexpr (NQ == 16) {
+    VDB_WGMMA_RS_N16(VDB_S8(16));
+  } else if constexpr (NQ == 32) {
+    VDB_WGMMA_RS_N32(VDB_S8(32));
+  } else {
+    static_assert(NQ == 64, "query tile of 8, 16, 32 or 64");
+    VDB_WGMMA_RS_N64(VDB_S8(64));
   }
 }
 

@@ -35,7 +35,8 @@ does:
 - BINARY (packed sign bits, ``v >= 0``), under every metric: ``hamming-mxu``
   (``csrc/sq8i_bucket.cu``) while the 1 byte/bit shadow fits
   ``VELESDB_HAMMING_MXU_MAX_BYTES``, else ``hamming-bucket``
-  (``csrc/hamming_bucket.cu``) where the guard holds, else ``hamming-topk``
+  (``csrc/hamming_bucket.cu``: the packed words on the int8 tensor cores)
+  where the guard holds, else ``hamming-topk``
   (``csrc/hamming_topk.cu``, exact). Values are the Hamming distance of the
   sign bits for hamming and euclidean, ``1 - dist/dim`` for the
   higher-is-better metrics (cosine, dot, jaccard), as in the reference

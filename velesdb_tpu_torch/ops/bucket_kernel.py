@@ -49,8 +49,12 @@ and Hamming kernels:
   an epilogue of #7's kernel. #7, #5 and #1 run on the int8 tensor cores
   (``wgmma`` s8, s32 accumulators): an int8 dot is exact in any order, so
   all three stay bit for bit against their plain versions.
-- ``hamming_bucket`` (#4, :func:`hamming_bucket_gm`): XOR + popcount over the
-  packed words (BINARY past the bit-shadow budget).
+- ``hamming_bucket`` (#4, :func:`hamming_bucket_gm`): Hamming distance over
+  the packed words (BINARY past the bit-shadow budget), on the int8 tensor
+  cores as well: each word unpacks in registers into 32 int8 K positions of
+  the A operand, the query's bits as +-1, so the s32 dot gives
+  ``|q| - popc(q ^ c)`` (``csrc/hamming_bucket.cu``), bit for bit against
+  :func:`hamming_bucket_ref`.
 
 A wrapper takes its plain version only for CPU tensors; on CUDA tensors it
 launches its kernel on the current stream or raises.
@@ -721,7 +725,7 @@ def hamming_mxu_rerank_topk(queries, qbits, rows_bits, aux, corpus, *, k, m, met
 
 
 # ---------------------------------------------------------------------------
-# #4: packed XOR + popcount bucket scan (reference ``_hamming_kernel`` :362,
+# #4: packed Hamming bucket scan (reference ``_hamming_kernel`` :362,
 # ``hamming_bucket_topk`` :377). The reference pads W to 128 words (a TPU lane
 # artifact); here the scan reads the true W = ceil(D/32) words.
 # ---------------------------------------------------------------------------
@@ -746,7 +750,8 @@ def hamming_bucket_ref(q, packed, pen, chunk: int):
 
 def hamming_bucket_gm(q, packed, pen, chunk: int):
     """Bucket winners of the packed Hamming scan, ``(gm f32, gi int32)``.
-    CUDA tensors launch ``csrc/hamming_bucket.cu``; CPU tensors take
+    CUDA tensors launch ``csrc/hamming_bucket.cu`` (the int8 tensor cores on
+    the words unpacked in registers); CPU tensors take
     :func:`hamming_bucket_ref`."""
     _check_packed(q, packed, pen, chunk)
     if _kernel_route(q, packed, pen):

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the int8 bucket scans (#7, #12's v2 / v2h / v3 epilogues, #5, #1)
 and the exact Hamming top-k (#9) of the checkout this runs from, on one
-NVIDIA GPU; or the scored row gather (#11).
+NVIDIA GPU; or the packed Hamming bucket scan (#4); or the scored row gather
+(#11).
 
     python3 velesdb_tpu_torch/tools/int8_tc_timing.py    # from a checkout's root
     python3 velesdb_tpu_torch/tools/int8_tc_timing.py --topk    # #9 alone
+    python3 velesdb_tpu_torch/tools/int8_tc_timing.py --hamming  # #4 (and #5)
     python3 velesdb_tpu_torch/tools/int8_tc_timing.py --gather  # #11 alone
     python3 velesdb_tpu_torch/tools/int8_tc_timing.py --gather-parts  # #11 in parts
 
@@ -23,6 +25,18 @@ events; #9's launches are then traced with ``torch.profiler`` for the device
 time of each of its kernels and their sum. Prints the card's name and power
 limit, the ptxas registers and spills of each kernel instantiation the run
 built, one line per (kernel, batch) and one per (#9 shape, kernel).
+
+``--hamming`` times #4 (``hamming_bucket_gm``) on random packed words at
+its two cells' shapes, W 4 (N 1,310,720) and W 8 (N 1,048,576), chunk 2,048,
+B_pad 256 and 16, 15% of rows at penalty +inf: once with the rest at 0 (the
+serve paths' penalties) and once with the first 128 rows of every chunk at
+0.5 (every thread on the float select); and #5 on the same bits unpacked
+(D_pad 128 / 256, chunk 8,192), the same distances from 8x the bytes. Each
+held bit for bit (``gm``'s bits too), then timed with CUDA events; #4's
+lines give its bound (the products at the int8 rate and one fp32 operation
+a distance, or the bytes: the words, the penalties, the gm / gi writes) and
+its share; then every instantiation's ptxas registers, spills and any
+``wgmma`` serialization warning.
 
 ``--gather`` times #11 (``row_gather_scores`` at depth 1 and 2) and the
 library yardstick ``q @ corpus[idx.long()].T`` on the experiment's data (N
@@ -249,6 +263,64 @@ def _print_ptxas(_cuda) -> None:
             print(f"ptxas {lib}: {regs} registers  {entry}", flush=True)
         spills = {ln.strip() for ln in _cuda.BUILD_LOG[lib].splitlines() if "spill" in ln}
         print(f"ptxas {lib}: " + " | ".join(sorted(spills)), flush=True)
+        # e.g. "wgmma.mma_async instructions are serialized due to ..."
+        for ln in sorted({ln.strip() for ln in _cuda.BUILD_LOG[lib].splitlines()
+                          if "wgmma" in ln or "Performance" in ln}):
+            print(f"ptxas {lib}: {ln}", flush=True)
+
+
+# #4's shapes: glove100 BINARY (W 4) and hamming-1m-256b (W 8), chunk 2,048
+HAMMING_SHAPES = ((4, 1_310_720), (8, 1_048_576))
+HAMMING_CHUNK = 2048
+
+
+def _hamming(bk, dev) -> list:
+    """#4 at ``HAMMING_SHAPES``, B_pad 256 and 16, and #5 on the same bits
+    (D_pad 128 / 256, chunk 8,192): each held bit for bit, then timed."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    lines = []
+    for w, n in HAMMING_SHAPES:
+        packed = torch.randint(-(1 << 31), 1 << 31, (n, w), dtype=torch.int64, device=dev,
+                               generator=g).to(torch.int32)
+        pen = torch.where(torch.rand(n, device=dev, generator=g) < 0.15, torch.inf, 0.0)
+        # every thread's first rows of each chunk at a finite penalty: the
+        # float select over the whole scan, the select of the first design
+        pen_f = pen.clone().view(-1, HAMMING_CHUNK)
+        pen_f[:, :128] = 0.5
+        pen_f = pen_f.reshape(-1)
+        shift = torch.arange(32, device=dev)
+        bits = ((packed.to(torch.int64)[:, :, None] >> shift) & 1).reshape(n, 32 * w)
+        bits = bits.to(torch.int8)
+        aux = (bits.to(torch.int32).sum(1) + bk._HAM_BIG * (pen > 0)).to(torch.int32)
+        for b in (256, 16):
+            q = torch.randint(-(1 << 31), 1 << 31, (b, w), dtype=torch.int64, device=dev,
+                              generator=g).to(torch.int32)
+            qbits = ((q.to(torch.int64)[:, :, None] >> shift) & 1).reshape(b, 32 * w)
+            q5 = (2 * qbits).to(torch.int8)
+            bytes_ = 4 * b * w + 4 * n * w + 4 * n + 8 * b * n // HAMMING_CHUNK * 128
+            ops_ms = (2 * b * n * 32 * w / 1.979e15 + b * n / 67e12) * 1e3
+            bound, by = max((ops_ms, "operations"), (bytes_ / 3.35e12 * 1e3, "bytes"))
+            cases = {
+                "#4 hamming_bucket": (bk.hamming_bucket_gm, bk.hamming_bucket_ref,
+                                      (q, packed, pen, HAMMING_CHUNK)),
+                "#4 hamming_bucket float select": (bk.hamming_bucket_gm, bk.hamming_bucket_ref,
+                                                   (q, packed, pen_f, HAMMING_CHUNK)),
+                f"#5 hamming_mxu D_pad {32 * w} chunk {CHUNK}": (
+                    bk.hamming_mxu_gm, bk.hamming_mxu_ref, (q5, bits, aux, CHUNK)),
+            }
+            for name, (kernel, plain, args) in cases.items():
+                out, want = kernel(*args), plain(*args)
+                same = all(torch.equal(a, r) for a, r in zip(out, want))
+                same = same and torch.equal(out[0].view(torch.int32), want[0].view(torch.int32))
+                ms = _time(lambda: kernel(*args))
+                share = (f", bound {bound:.4f} ms ({by}), {bound / ms:.4f} of it"
+                         if "#4" in name else "")
+                lines.append(f"{name} W {w}, N {n}, B_pad {b}: {ms:.4f} ms{share}, "
+                             f"bit for bit: {same}")
+                print(lines[-1], flush=True)
+        del packed, bits, aux
+        torch.cuda.empty_cache()
+    return lines
 
 
 def main() -> None:
@@ -267,8 +339,8 @@ def main() -> None:
     if "--gather-parts" in sys.argv[1:]:
         _gather_parts()
         return
-    if "--gather" in sys.argv[1:]:
-        lines = _gather(xk, dev)
+    if "--gather" in sys.argv[1:] or "--hamming" in sys.argv[1:]:
+        lines = _gather(xk, dev) if "--gather" in sys.argv[1:] else _hamming(bk, dev)
         _print_ptxas(_cuda)
         if not all(ln.endswith("True") for ln in lines):
             sys.exit("int8_tc_timing: a kernel differs from its plain version")
