@@ -318,6 +318,30 @@ Phases, in order; any failure exits nonzero:
    rows are made on the host while ``nvcc`` builds; (d) starts after (c)
    and is waited for after phase 3's host-bound ingest, before phase 3
    times anything on the card.
+15. The client layer (``tools/client_phase.py``): the port's LangChain,
+   LlamaIndex and graph-RAG adapters and its five examples, through the
+   entry points a user calls. (a) ``rag-1m-128d``, at the end of phase 11
+   on its directory after phase 13: ``VelesDBVectorStore`` and
+   ``VelesDBLlamaStore`` open hybrid-1m-128d on their default device, a
+   table embedder maps each query text to its held-out vector
+   (``qv[SERVE_Q0:]``); host-clock p50 / p99 of ``similarity_search`` and
+   ``query`` beside the direct ``search`` first; then the 1,024 answers
+   equal the direct ``search`` (texts or ids in order, scores within 1e-6,
+   near-tie swaps counted) with recall@10 >= 0.95 against phase 13's
+   float64 oracle, 64 filtered calls (``price < 50``) equal ``search_batch``
+   with the filter, 64 MMR calls (k 4, fetch 20) equal a numpy MMR over the
+   direct search's 20 rows, 10,000 documents added (the recipe, seed 19)
+   are found and, once deleted, never returned. (b) ``graphrag-kg-262k``,
+   in phase 12 after the traversal check: ``VelesGraphRetriever`` (seed_k
+   3, expand_k 10, depth 2, ``also_bought``) over hybrid-sq8-262k and its
+   1,234,877 edges for 256 held-out queries, each answer equal to a host
+   recomputation (the direct ``search`` seeds, ``host_bfs``, the ranking
+   rule). (c) last: ``ecommerce_demo`` at 5,000 products with
+   ``tests/test_ecommerce_demo.py``'s checks, ``quickstart``,
+   ``agent_memory_demo`` and ``graph_rag`` printing the lines of their CPU
+   runs, ``sharded_scale`` at 80,000 x 768 in a world of 1 over NCCL. Every
+   #1, #7 and #10 launch of the phase is held against its plain version bit
+   for bit; the phase prints its seconds.
 Each configuration ends with its timing (CUDA events): QPS at b=256 and
 b=16 (median of 30 calls after warm-up) for ``search_batch`` and for the
 device path alone, the host share, then the profiler last: the device's
@@ -495,6 +519,7 @@ HYB_VOCAB = [
     "novel", "poem", "essay", "author", "chapter", "plot",
 ]
 T_START = time.perf_counter()
+PHASE15 = {}  # phase 15's parts' seconds: (a) in phase 11, (b) in phase 12, (c) last
 
 
 def fail(msg: str) -> None:
@@ -1875,12 +1900,12 @@ def graph_phase(torch, dev, counters, launches, errs, sift_oi, of_i) -> None:
     say(f"phase 10 sift1m-graph: {time.perf_counter() - t_phase:.1f} s")
 
 
-def hybrid_data(n, d, n_queries):
-    """``benchmarks/exp_hybrid.py``'s recipe: seed 42, 64 centers x 2.0,
+def hybrid_data(n, d, n_queries, seed=42):
+    """``benchmarks/exp_hybrid.py``'s recipe: seed 42 (or ``seed``), 64 centers x 2.0,
     noise 0.7, payloads ``{"text": "topic topic w1 w2", "price": U(1, 100)}``
     over ``HYB_VOCAB``; each query a center plus noise, its text the
     center's topic word. Returns ``(corpus, payloads, queries, texts)``."""
-    rng = np.random.default_rng(42)
+    rng = np.random.default_rng(seed)
     centers = rng.standard_normal((64, d)).astype(np.float32) * 2.0
     assign = rng.integers(0, 64, n)
     corpus = centers[assign] + 0.7 * rng.standard_normal((n, d)).astype(np.float32)
@@ -1924,6 +1949,7 @@ def hybrid_phase(torch, dev, counters, launches, errs) -> None:
     from velesdb_tpu_torch.ops import bucket_kernel as bk
     from velesdb_tpu_torch.ops.topk import pad_mask
     from velesdb_tpu_torch.text.bm25 import Bm25Index
+    from velesdb_tpu_torch.tools import client_phase
 
     t_phase = time.perf_counter()
     k, fetch, w = K, 2 * K, 0.5
@@ -2167,7 +2193,7 @@ def hybrid_phase(torch, dev, counters, launches, errs) -> None:
         # the SQ8 one
         phase("12. velesql-kg")
         t_phase += velesql_kg_phase(torch, dev, counters, launches, errs, db, col, qv, qt,
-                                    colsq, qsq)
+                                    colsq, qsq) + PHASE15["b"]
         del colsq
 
         # -- the rest of the collection's surface on hybrid-1m-128d ----------
@@ -2298,6 +2324,12 @@ def hybrid_phase(torch, dev, counters, launches, errs) -> None:
         # -- 13. the serving surfaces on this phase's directory ----------------
         phase("13. serve")
         t_phase += serve_phase(torch, counters, launches, errs, tmp, qv, qt, serve_oi)
+
+        # -- 15a. the client adapters on this phase's directory ----------------
+        phase("15a. rag-1m-128d")
+        PHASE15["a"] = client_phase.rag_phase(sys.modules[__name__], torch, counters,
+                                              launches, tmp, qv, serve_oi)
+        t_phase += PHASE15["a"]
     finally:
         cm.rrf_fuse_topk = rrf
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2364,6 +2396,7 @@ def velesql_kg_phase(torch, dev, counters, launches, errs, db, col, qv, qt, cols
     from velesdb_tpu_torch import Database
     from velesdb_tpu_torch.graph import EdgeStore
     from velesdb_tpu_torch.ops import bucket_kernel as bk
+    from velesdb_tpu_torch.tools import client_phase
     from velesdb_tpu_torch.velesql import parse
 
     t_phase = time.perf_counter()
@@ -2516,6 +2549,10 @@ def velesql_kg_phase(torch, dev, counters, launches, errs, db, col, qv, qt, cols
               f"{name}: traverse from {s} differs from the host BFS")
     print(f"{name}: traverse to depth 3 from 16 starts = a host numpy BFS over the same "
           f"edge arrays", flush=True)
+    phase("15b. graphrag-kg-262k")
+    PHASE15["b"] = client_phase.graphrag_phase(sys.modules[__name__], torch, counters, launches,
+                                               colsq, qsq, indptr, dst)
+    t_phase += PHASE15["b"]
     texts = {vid: p["text"] for vid, p in colsq.payloads.payloads.items()}
     vecs = colsq.vectors
     match = ("MATCH (a {text: $t})-[:also_bought*1..2]->(b) WHERE similarity(b, $v) > 0.5 "
@@ -3179,7 +3216,7 @@ def main() -> None:
     from velesdb_tpu_torch.experiments import kernels as xk
 
     counters = (bk.LAUNCHES, pk.LAUNCHES, ik.LAUNCHES, xk.LAUNCHES)
-    from velesdb_tpu_torch.tools import sharded_phase
+    from velesdb_tpu_torch.tools import client_phase, sharded_phase
 
     # phase 14's north-star shard (~20 s of numpy) is made while nvcc builds
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
@@ -4850,6 +4887,14 @@ def main() -> None:
     # -- 11. text and hybrid search, the rest of the surface ----------------
     phase("11. hybrid")
     hybrid_phase(torch, dev, counters, launches, errs)
+
+    # -- 15. the client layer: (a) and (b) ran in phases 11 and 12 -----------
+    phase("15c. examples")
+    PHASE15["c"] = client_phase.examples_phase(sys.modules[__name__], torch, counters,
+                                               launches, errs)
+    say(f"phase 15 client layer: {sum(PHASE15.values()):.1f} s ((a) rag-1m-128d "
+        f"{PHASE15['a']:.1f} s, (b) graphrag-kg-262k {PHASE15['b']:.1f} s, (c) the five "
+        f"examples {PHASE15['c']:.1f} s)")
 
     say(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for name, row in record.items():

@@ -200,6 +200,30 @@ def test_port_never_imports_jax(tmp_path):
         s = velesdb_tpu_torch.parallel.ShardedBruteForce(mesh, 16, "euclidean")
         s.rebuild(x)
         assert s.search(x[9:10], 3)[1][0, 0] == 9
+        import velesdb_tpu_torch.integrations, velesdb_tpu_torch.integrations.graph_toolkit
+        from velesdb_tpu_torch.integrations.langchain_velesdb import VelesDBVectorStore
+        from velesdb_tpu_torch.integrations.llamaindex_velesdb import VelesDBLlamaStore
+        from velesdb_tpu_torch.integrations.langchain_velesdb_graph import (
+            VelesChatMemory, VelesGraphRetriever, VelesSemanticMemory)
+        import velesdb_tpu_torch.examples, velesdb_tpu_torch.examples.quickstart
+        import velesdb_tpu_torch.examples.agent_memory_demo
+        import velesdb_tpu_torch.examples.ecommerce_demo, velesdb_tpu_torch.examples.graph_rag
+        import velesdb_tpu_torch.examples.sharded_scale
+        table = {{f"t{{i}}": row for i, row in enumerate(x[:50])}}
+        lc = VelesDBVectorStore(table.get, path={str(tmp_path / "lc")!r}, device="cpu")
+        lc.add_texts(list(table))
+        assert lc.similarity_search("t7", k=1)[0].page_content == "t7"
+        li = VelesDBLlamaStore(path={str(tmp_path / "li")!r}, device="cpu")
+        li.add([{{"node_id": "a", "embedding": x[0]}}, {{"node_id": "b", "embedding": x[1]}}])
+        assert li.query(x[1], similarity_top_k=1).ids == ["b"]
+        gdb = velesdb_tpu_torch.Database.open({str(tmp_path / "g")!r}, device="cpu")
+        g = gdb.create_collection("g", 16)
+        g.upsert_bulk(range(50), x[:50])
+        g.add_edge(8, 9, "rel")
+        got = VelesGraphRetriever(g, lambda s: x[8], seed_k=1).invoke("q")
+        assert [(d.metadata["id"], d.metadata["hop_depth"]) for d in got] == [(8, 0), (9, 1)]
+        VelesChatMemory(path={str(tmp_path / "cm")!r}, dimension=8, device="cpu")
+        VelesSemanticMemory(path={str(tmp_path / "sm")!r}, dimension=8, device="cpu")
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "lark" not in sys.modules
         assert not [m for m in sys.modules if m.split(".")[0] == "velesdb_tpu"]

@@ -1626,3 +1626,46 @@ def test_set_metric_binary_serve_paths_launch_their_kernels(cuda, monkeypatch, m
     assert launches[counter] == before + 1
     want_vals, want_ids = on_cpu.search(x[n:], 40)
     assert torch.equal(ids.cpu(), want_ids) and torch.equal(vals.cpu(), want_vals)
+
+
+def test_langchain_store_on_a_pd_collection_launches_the_kernel(cuda, tmp_path, monkeypatch):
+    """The port's ``VelesDBVectorStore`` on its default device over a
+    131,072-row cosine collection: each ``similarity_search`` launches #1
+    (``int8-assist-pd``) once, every launch equals its plain version bit for
+    bit, the documents equal the direct ``Collection.search``'s, and the
+    LlamaIndex store over the same directory returns the same ids."""
+    from velesdb_tpu_torch.integrations.langchain_velesdb import VelesDBVectorStore
+    from velesdb_tpu_torch.integrations.llamaindex_velesdb import VelesDBLlamaStore
+
+    rng = np.random.default_rng(19)
+    n = 131_072
+    x = _clustered(rng, n + 16, 32)
+    base, q = x[:n], x[n:]
+    table = {f"doc {i}": row for i, row in enumerate(base)}
+    table.update({f"query {i}": row for i, row in enumerate(q)})
+    store = VelesDBVectorStore(table.get, path=str(tmp_path), collection_name="rag")
+    store.add_texts(list(table)[:n], ids=[str(i) for i in range(n)])
+    col = store._coll
+    assert col.device.type == "cuda"
+    col.refresh_device()
+    assert col._brute.serve_engine(10) == "int8-assist-pd"
+    calls = []
+    kernel = bk.sq8pd_bucket_gm
+    monkeypatch.setattr(bk, "sq8pd_bucket_gm",
+                        lambda *a, **kw: calls.append((a, kw, kernel(*a, **kw))) or calls[-1][2])
+    before = bk.LAUNCHES["sq8pd_bucket_gm"]
+    for i in range(len(q)):
+        got = store.similarity_search_with_score(f"query {i}", k=10)
+        assert bk.LAUNCHES["sq8pd_bucket_gm"] == before + 2 * i + 1
+        direct = col.search(q[i], k=10)
+        assert [(d.page_content, s) for d, s in got] == [(h.payload["text"], h.score)
+                                                         for h in direct]
+    assert len(calls) == 2 * len(q)
+    for args, kw, out in calls:
+        assert torch.equal(out, bk.sq8pd_bucket_gm_ref(*args, **kw))
+    llama = VelesDBLlamaStore(path=str(tmp_path), collection_name="rag")
+    for i in range(4):
+        assert llama.query(q[i], similarity_top_k=10).ids == [
+            str(h.id) for h in col.search(q[i], k=10)]
+    llama.db.close()
+    store.db.close()
